@@ -1,0 +1,462 @@
+#!/usr/bin/env python3
+"""Chip smoke test of the PyTorch/CUDA port (``src/repro_torch``) on one GPU.
+
+    python3 chip_smoke.py
+
+In order, it:
+  1. prints the card's name and power limit (nvidia-smi) and fails without
+     CUDA;
+  2. builds every kernel of the port from ``src/repro_torch/csrc`` (one
+     nvcc per source, all started together) and prints the ptxas reports;
+  3. holds K1 ``diversity_insert`` against its plain PyTorch version on the
+     card at A=8 and A=2048 (T=10, N=64) from empty, half-full and full
+     buffers: identical decision traces (a first divergence is accepted only
+     at a near-tie, score gap below 1e-5 relative) and floats within
+     rtol 1e-4 / atol 1e-5;
+  4. holds K2 ``delta_codec`` against its plain version bit for bit in all
+     three codecs at all 12 leaf sizes of one iAgent, at A=8 and A=2048
+     (random data, plus a grid with exact int8 halfway cases and |x| ties);
+  5. times each kernel, its plain version and (K2 topk) ``torch.topk`` at
+     the main path's shapes: device time by CUDA-graph replay (CUDA
+     events), and the eager per-call time with the host's launch cost;
+  6. drives ``repro_torch.launch.train_fleet`` at its defaults (8 agents,
+     2 pods, 20 episodes), then with ``--fl-codec int8`` and ``--fl-codec
+     topk``, with every launch count set to 0 just before each run and read
+     just after: K1 must launch once per episode, K2 twelve times per FL
+     round; the histories must be finite;
+  7. profiles ten episodes of the default run (host wall, device busy
+     share, the kernels taking the most device time);
+  8. checks a small run (A=4, P=2, int8 codec, pre-drawn action noise)
+     on the card against the same run on the CPU (plain versions);
+  9. prints the kernel table as one JSON line, then
+     ``{"ok": true, "device": {...}}`` as the last line.
+Any failure raises and exits non-zero.
+"""
+from __future__ import annotations
+
+import json
+import math
+import subprocess
+import sys
+import time
+from pathlib import Path
+
+ROOT = Path(__file__).resolve().parent
+HBM_BYTES_PER_S = 3.35e12     # H100 SXM HBM3 (data sheet)
+FP32_FLOPS = 67e12            # H100 SXM float32 outside the tensor cores
+LEAF_SIZES = (512, 64, 3072, 48, 48, 1, 192, 4, 364, 7, 208, 4)
+RTOL, ATOL = 1e-4, 1e-5
+NEAR_TIE = 1e-5
+DEV = "cuda"
+
+
+def log(msg):
+    print(msg, flush=True)
+
+
+def eager_ms(fn, iters=50, warmup=5):
+    """Mean time per call of ``fn`` issued eagerly from Python, by CUDA
+    events: the host's launch overhead included."""
+    import torch
+    for _ in range(warmup):
+        fn()
+    torch.cuda.synchronize()
+    t0 = torch.cuda.Event(enable_timing=True)
+    t1 = torch.cuda.Event(enable_timing=True)
+    t0.record()
+    for _ in range(iters):
+        fn()
+    t1.record()
+    torch.cuda.synchronize()
+    return t0.elapsed_time(t1) / iters
+
+
+def device_ms(fn, iters=50):
+    """Mean device time of ``fn``: captured once in a CUDA graph and
+    replayed back to back, so the host's launch overhead is out."""
+    import torch
+    side = torch.cuda.Stream()
+    side.wait_stream(torch.cuda.current_stream())
+    with torch.cuda.stream(side):
+        for _ in range(3):
+            fn()
+    torch.cuda.current_stream().wait_stream(side)
+    graph = torch.cuda.CUDAGraph()
+    with torch.cuda.graph(graph):
+        fn()
+    graph.replay()
+    torch.cuda.synchronize()
+    t0 = torch.cuda.Event(enable_timing=True)
+    t1 = torch.cuda.Event(enable_timing=True)
+    t0.record()
+    for _ in range(iters):
+        graph.replay()
+    t1.record()
+    torch.cuda.synchronize()
+    return t0.elapsed_time(t1) / iters
+
+
+def nbytes(*xs):
+    return sum(x.numel() * x.element_size() for x in xs)
+
+
+# ---------------------------------------------------------------------------
+# K1 diversity_insert
+# ---------------------------------------------------------------------------
+def k1_inputs(torch, a, fill, t_steps, gen, cfg):
+    from repro_torch.core.buffer import RIDGE, buffer_init
+    from repro_torch.kernels.ref import diversity_insert_ref
+    na = cfg.n_res + cfg.n_bs + cfg.n_mt
+    dev = torch.device(DEV)
+
+    def cands(t):
+        s = torch.randn(a, t, cfg.state_dim, generator=gen, device=dev) * 2.0
+        p = torch.softmax(torch.randn(a, t, na, generator=gen, device=dev), -1)
+        return s, p
+
+    b = buffer_init(cfg, a, dev)
+    state = [b.states, b.probs, b.score, b.filled, b.s_sum, b.s_outer,
+             b.p_sum, b.n_filled]
+    if fill:
+        s, p = cands(fill)
+        state = list(diversity_insert_ref(*state, s, p, alpha=cfg.alpha,
+                                          beta=cfg.beta, ridge=RIDGE)[:8])
+    s, p = cands(t_steps)
+    return [x.contiguous() for x in state] + [s, p]
+
+
+def k1_compare(torch, cfg, args, out_k, out_p, label):
+    """Traces identical except a first divergence at a near-tie; floats of
+    the agents that did not diverge within the band. Returns the max abs
+    error over the compared floats."""
+    from repro_torch.core.buffer import RIDGE
+    from repro_torch.kernels.ref import diversity_insert_ref
+    slot_k, do_k, d_k = out_k[8:]
+    slot_p, do_p, d_p = out_p[8:]
+    diff = (slot_k != slot_p) | (do_k != do_p)
+    diverged = diff.any(1)
+    for a in torch.nonzero(diverged).flatten().tolist():
+        t = int(torch.nonzero(diff[a])[0])
+        pre = diversity_insert_ref(*args[:8], args[8][:, :t], args[9][:, :t],
+                                   alpha=cfg.alpha, beta=cfg.beta,
+                                   ridge=RIDGE) if t else args
+        score = pre[2][a]
+        gaps = [abs(float(d_k[a, t]) - float(score.min())),
+                abs(float(d_p[a, t]) - float(score.min()))]
+        if slot_k[a, t] != slot_p[a, t]:
+            gaps.append(abs(float(score[slot_k[a, t]] - score[slot_p[a, t]])))
+        scale = max(1.0, abs(float(d_p[a, t])))
+        if min(gaps) > NEAR_TIE * scale:
+            raise AssertionError(f"K1 {label}: agent {a} diverges at t={t} "
+                                 f"with no near-tie (gaps {gaps})")
+        log(f"  K1 {label}: agent {a} diverges at t={t} at a near-tie "
+            f"(gap {min(gaps):.3g}: d kernel {float(d_k[a, t])!r} / plain "
+            f"{float(d_p[a, t])!r}, min score {float(score.min())!r}, slot "
+            f"{int(slot_k[a, t])}/{int(slot_p[a, t])}, do "
+            f"{bool(do_k[a, t])}/{bool(do_p[a, t])}); accepted, excluded "
+            f"from float checks")
+    keep = ~diverged
+    err = 0.0
+    names = ("states", "probs", "score", "filled", "s_sum", "s_outer",
+             "p_sum", "n_filled", "slot", "do", "d")
+    for name, k, p in zip(names, out_k, out_p):
+        k, p = k[keep], p[keep]
+        if k.dtype in (torch.bool, torch.int32, torch.int64):
+            if not torch.equal(k, p):
+                raise AssertionError(f"K1 {label}: {name} differs")
+            continue
+        fin = torch.isfinite(p)
+        if not torch.equal(fin, torch.isfinite(k)) or \
+                not torch.equal(k[~fin], p[~fin]):
+            raise AssertionError(f"K1 {label}: {name} non-finite mismatch")
+        torch.testing.assert_close(k[fin], p[fin], rtol=RTOL, atol=ATOL,
+                                   msg=f"K1 {label}: {name}")
+        if fin.any():
+            err = max(err, float((k[fin] - p[fin]).abs().max()))
+    return err
+
+
+def check_k1(torch, cfg, gen):
+    from repro_torch.core.buffer import RIDGE
+    from repro_torch.kernels.diversity import diversity_insert
+    from repro_torch.kernels.ref import diversity_insert_ref
+    err, timing = 0.0, {}
+    for a in (8, 2048):
+        for fill, label in ((0, "empty"), (32, "half-full"), (96, "full")):
+            args = k1_inputs(torch, a, fill, cfg.n_steps, gen, cfg)
+            kw = dict(alpha=cfg.alpha, beta=cfg.beta, ridge=RIDGE)
+            out_k = diversity_insert(*args, **kw)
+            out_p = diversity_insert_ref(*args, **kw)
+            torch.cuda.synchronize()
+            if label == "full" and not bool(out_p[3].all()):
+                raise AssertionError("K1 full-buffer case is not full")
+            e = k1_compare(torch, cfg, args, out_k, out_p, f"A={a} {label}")
+            err = max(err, e)
+            log(f"  K1 A={a} {label}: ok, max|err| {e:.3g}")
+        ms = device_ms(lambda: diversity_insert(*args, **kw))
+        plain = device_ms(lambda: diversity_insert_ref(*args, **kw))
+        eager = eager_ms(lambda: diversity_insert(*args, **kw))
+        outs = out_k
+        moved = nbytes(*args) + nbytes(*outs)
+        flops = a * cfg.n_steps * k1_flops_per_candidate(cfg)
+        bound = max(moved / HBM_BYTES_PER_S, flops / FP32_FLOPS) * 1e3
+        by = "bytes" if moved / HBM_BYTES_PER_S >= flops / FP32_FLOPS \
+            else "operations"
+        timing[a] = dict(ms=ms, plain_ms=plain, bound_ms=bound, bound_by=by)
+        log(f"  K1 A={a}: kernel {ms:.4f} ms (device; {eager:.4f} ms per "
+            f"eager call), plain {plain:.4f} ms, bound {bound:.6f} ms ({by}, "
+            f"{moved} B)")
+    return err, timing
+
+
+def k1_flops_per_candidate(cfg):
+    d, na, n = cfg.state_dim, cfg.n_res + cfg.n_bs + cfg.n_mt, \
+        cfg.buffer_size
+    chol = d ** 3 // 3 + 2 * d * d        # factor
+    return (3 * d * d + chol + d * d + 2 * d   # cov, factor, solve, norm
+            + 6 * na                           # clipped KL
+            + n                                # argmin
+            + 4 * d * d + 4 * d + 4 * na)      # rank-1 add/subtract
+
+
+# ---------------------------------------------------------------------------
+# K2 delta_codec
+# ---------------------------------------------------------------------------
+def k2_rows(torch, a, l, gen, grid):
+    dev = torch.device(DEV)
+    if grid:
+        # multiples of 1/4 with max |x| = 63.5: scale is exactly 0.5, so odd
+        # quarters land on int8 halfway cases, and |x| ties abound for topk
+        x = torch.randint(-254, 255, (a, l), generator=gen, device=dev) / 4.0
+        x[:, 0] = 63.5
+        return x.contiguous(), torch.zeros_like(x)
+    d = torch.randn(a, l, generator=gen, device=dev) * 0.01
+    r = torch.randn(a, l, generator=gen, device=dev) * 0.001
+    return d, r
+
+
+def check_k2(torch, gen):
+    from repro_torch.fl.transport import topk_k
+    from repro_torch.kernels.delta_codec import delta_codec
+    from repro_torch.kernels.ref import delta_codec_ref
+    for a in (8, 2048):
+        for codec in ("float32", "int8", "topk"):
+            for l in LEAF_SIZES:
+                for grid in (False, True):
+                    d, r = k2_rows(torch, a, l, gen, grid)
+                    k = topk_k(l, 0.05)
+                    dk, rk = delta_codec(d, r, codec=codec, k=k)
+                    dp, rp = delta_codec_ref(d, r, codec=codec, k=k)
+                    torch.cuda.synchronize()
+                    if not (torch.equal(dk, dp) and torch.equal(rk, rp)):
+                        bad = (dk != dp) | (rk != rp)
+                        raise AssertionError(
+                            f"K2 {codec} A={a} L={l} grid={grid}: "
+                            f"{int(bad.sum())} values differ from the plain "
+                            f"version")
+            log(f"  K2 {codec} A={a}: bit-identical at all 12 leaf sizes")
+    timing = {}
+    for a in (8, 2048):
+        rows = [k2_rows(torch, a, l, gen, False) for l in LEAF_SIZES]
+        ks = [topk_k(l, 0.05) for l in LEAF_SIZES]
+        moved = sum(nbytes(d, r) * 2 for d, r in rows)
+        bound = moved / HBM_BYTES_PER_S * 1e3
+        for codec in ("int8", "topk"):
+            def run_kernel():
+                for (d, r), k in zip(rows, ks):
+                    delta_codec(d, r, codec=codec, k=k)
+
+            def run_plain():
+                for (d, r), k in zip(rows, ks):
+                    delta_codec_ref(d, r, codec=codec, k=k)
+
+            def run_library():
+                for (d, r), k in zip(rows, ks):
+                    torch.topk((d + r).abs(), k, dim=-1)
+
+            ms = device_ms(run_kernel)
+            plain = device_ms(run_plain)
+            lib = device_ms(run_library) if codec == "topk" else None
+            eager = eager_ms(run_kernel)
+            timing[(codec, a)] = dict(ms=ms, plain_ms=plain, bound_ms=bound,
+                                      bound_by="bytes", library_ms=lib)
+            log(f"  K2 {codec} A={a} (one round = 12 leaves): kernel "
+                f"{ms:.4f} ms (device; {eager:.4f} ms eager), plain "
+                f"{plain:.4f} ms, torch.topk "
+                f"{'-' if lib is None else f'{lib:.4f} ms'}, bound "
+                f"{bound:.6f} ms ({moved} B)")
+    return timing
+
+
+# ---------------------------------------------------------------------------
+# The main path and a small run against the CPU
+# ---------------------------------------------------------------------------
+def drive(torch, argv, n_episodes, fl_every):
+    from repro_torch.kernels.delta_codec import delta_codec
+    from repro_torch.kernels.diversity import diversity_insert
+    from repro_torch.launch import train_fleet
+    diversity_insert.launches = 0
+    delta_codec.launches = 0
+    t0 = time.time()
+    _, hist = train_fleet.main([*argv, "--device", DEV])
+    torch.cuda.synchronize()
+    wall = time.time() - t0
+    k1, k2 = diversity_insert.launches, delta_codec.launches
+    for key, v in hist.items():
+        if len(v) != n_episodes or not all(map(math.isfinite, v)):
+            raise AssertionError(f"{argv}: history {key} is not "
+                                 f"{n_episodes} finite values")
+    rounds = n_episodes // fl_every
+    if k1 != n_episodes:
+        raise AssertionError(f"{argv}: K1 launched {k1} times, expected "
+                             f"{n_episodes} (one per episode)")
+    want_k2 = 0 if "--fl-codec" not in argv else 12 * rounds
+    if k2 != want_k2:
+        raise AssertionError(f"{argv}: K2 launched {k2} times, expected "
+                             f"{want_k2} (12 per FL round)")
+    log(f"  {' '.join(argv) or '(defaults)'}: K1 {k1} launches, K2 {k2} "
+        f"launches, {wall / n_episodes * 1e3:.1f} ms/episode (wall incl. "
+        f"trace set-up)")
+    return k1, k2
+
+
+def check_against_cpu(torch, cfg_cls):
+    """A=4, P=2, int8, fl_every=1, 3 episodes: the card run (kernels) and
+    the CPU run (plain versions) from the same state and action noise."""
+    import numpy as np
+    from repro_torch.core.fleet import (fleet_from_numpy, fleet_init,
+                                        fleet_to_numpy, train_fleet_reference)
+    from repro_torch.fl.transport import TransportConfig
+    cfg = cfg_cls(fl_every=1)
+    a, n_eps = 4, 3
+    tree = fleet_to_numpy(fleet_init(cfg, a, 7, n_pods=2, device="cpu"))
+    rng = np.random.default_rng(7)
+    traces = rng.uniform(5.0, 120.0, (a, n_eps * cfg.n_steps)).astype(
+        np.float32)
+    u = rng.uniform(1e-6, 1.0, (n_eps, a, cfg.n_steps, 15))
+    gumbel = (-np.log(-np.log(u))).astype(np.float32)
+    hists = []
+    for dev in (DEV, "cpu"):
+        fleet = fleet_from_numpy(cfg, tree, device=dev)
+        _, h = train_fleet_reference(
+            cfg, fleet, torch.as_tensor(traces, device=dev),
+            transport=TransportConfig(codec="int8"),
+            gumbel=torch.as_tensor(gumbel, device=dev))
+        hists.append(h)
+    for key in hists[1]:
+        np.testing.assert_allclose(hists[0][key], hists[1][key], rtol=1e-3,
+                                   atol=1e-4, err_msg=f"card vs cpu: {key}")
+    log(f"  card run == CPU run (A={a}, {n_eps} episodes, int8), "
+        f"rtol 1e-3 / atol 1e-4 over {len(hists[1])} metrics")
+
+
+def profile_episodes(torch, cfg, n_episodes=10):
+    """Where the time of the default run goes: ``n_episodes`` (after two
+    warm-up episodes) under ``torch.profiler``; prints the host wall per
+    episode, the device's busy share and the kernels taking the most device
+    time."""
+    from torch.profiler import ProfilerActivity, profile
+    from repro_torch.core.fleet import fleet_init, train_fleet_reference
+    from repro_torch.data.workload import fleet_traces
+    fleet = fleet_init(cfg, 8, 0, n_pods=2, device=DEV)
+    gen = torch.Generator()
+    gen.manual_seed(1)
+    traces = fleet_traces(gen, 8, (n_episodes + 2) * cfg.n_steps, device=DEV)
+    fleet, _ = train_fleet_reference(cfg, fleet,
+                                     traces[:, :2 * cfg.n_steps])
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CPU,
+                             ProfilerActivity.CUDA]) as prof:
+        t0 = time.time()
+        train_fleet_reference(cfg, fleet, traces[:, 2 * cfg.n_steps:])
+        torch.cuda.synchronize()
+        wall = time.time() - t0
+    kernels = [e for e in prof.key_averages()
+               if str(e.device_type).endswith("CUDA")]
+    dev_us = lambda e: getattr(e, "self_device_time_total", None) \
+        or getattr(e, "self_cuda_time_total", 0.0)
+    total = sum(dev_us(e) for e in kernels)
+    n_launch = sum(e.count for e in kernels)
+    if not total:
+        log("  device time: not measured (the profiler recorded no kernel)")
+        return
+    log(f"  {n_episodes} episodes under the profiler: wall "
+        f"{wall / n_episodes * 1e3:.2f} ms/episode, device busy "
+        f"{total / 1e3 / n_episodes:.3f} ms/episode "
+        f"({100 * total / 1e6 / wall:.2f}% busy, "
+        f"{100 - 100 * total / 1e6 / wall:.2f}% idle), "
+        f"{n_launch / n_episodes:.0f} kernels/episode")
+    for e in sorted(kernels, key=dev_us, reverse=True)[:6]:
+        log(f"    {dev_us(e) / 1e3 / n_episodes:8.4f} ms/episode "
+            f"{e.count / n_episodes:6.1f} launches/episode  {e.key[:70]}")
+
+
+def main():
+    import torch
+    if not torch.cuda.is_available():
+        sys.exit("chip_smoke: torch.cuda.is_available() is False; this "
+                 "script needs one NVIDIA GPU")
+    sys.path.insert(0, str(ROOT / "src"))
+    from repro_torch.configs.fcpo import FCPOConfig
+    from repro_torch.kernels import build
+
+    smi = subprocess.run(["nvidia-smi", "--query-gpu=name,power.limit",
+                          "--format=csv,noheader"], capture_output=True,
+                         text=True, check=True).stdout.strip()
+    log(smi.splitlines()[0])
+    log(f"torch {torch.__version__}, CUDA {torch.version.cuda}, "
+        f"{torch.cuda.get_device_name(0)}")
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.backends.cudnn.allow_tf32 = False
+
+    t0 = time.time()
+    paths = build.build()
+    log(f"[build] {len(paths)} kernels in {time.time() - t0:.1f} s")
+    for name, path in paths.items():
+        report = path.with_suffix(".log")
+        if report.exists():
+            for line in report.read_text().splitlines():
+                if "registers" in line or "spill" in line or "smem" in line:
+                    log(f"  {name}: {line.strip()}")
+
+    cfg = FCPOConfig()
+    gen = torch.Generator(device=DEV)
+    gen.manual_seed(0)
+    log("[K1] diversity_insert vs plain")
+    k1_err, k1_t = check_k1(torch, cfg, gen)
+    log("[K2] delta_codec vs plain")
+    k2_t = check_k2(torch, gen)
+
+    log("[main path] repro_torch.launch.train_fleet")
+    k1_n, _ = drive(torch, ["--episodes", "20"], 20, cfg.fl_every)
+    _, k2_int8 = drive(torch, ["--episodes", "20", "--fl-codec", "int8"],
+                       20, cfg.fl_every)
+    _, k2_topk = drive(torch, ["--episodes", "20", "--fl-codec", "topk"],
+                       20, cfg.fl_every)
+    log("[profile] default run, torch.profiler")
+    profile_episodes(torch, cfg)
+    log("[reference] small run, card vs CPU")
+    check_against_cpu(torch, FCPOConfig)
+
+    rows = [dict(name="diversity_insert", route="cuda",
+                 source="src/repro_torch/csrc/diversity_insert.cu",
+                 replaces="src/repro/kernels/diversity.py:93",
+                 launches=k1_n, max_abs_err=k1_err, library_ms=None,
+                 **k1_t[8])]
+    for codec, n in (("int8", k2_int8), ("topk", k2_topk)):
+        rows.append(dict(name=f"delta_codec[{codec}]", route="cuda",
+                         source="src/repro_torch/csrc/delta_codec.cu",
+                         replaces="src/repro/kernels/delta_codec.py:41",
+                         launches=n, max_abs_err=0.0,
+                         **k2_t[(codec, 8)]))
+    log("[A=2048] " + json.dumps(
+        {"diversity_insert": k1_t[2048],
+         **{f"delta_codec[{c}]": k2_t[(c, 2048)] for c in ("int8", "topk")}}))
+    log(json.dumps({"kernels": rows}))
+    log(json.dumps({"ok": True, "device": {
+        "platform": "gpu", "kind": torch.cuda.get_device_name(0),
+        "count": torch.cuda.device_count()}}))
+
+
+if __name__ == "__main__":
+    main()

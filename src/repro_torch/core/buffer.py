@@ -1,0 +1,131 @@
+"""Diversity-aware fixed-size experience buffer (Eq. 6, §IV-C), stacked.
+
+Port of ``repro.core.buffer`` (float32 storage policy): ``d = α·D_M +
+β·D_KL`` — the Mahalanobis novelty of a new state against the stored
+states plus the KL divergence of its policy from the buffer's mean policy.
+N fixed slots per agent; a new experience replaces the lowest-diversity
+slot iff it scores higher (until the buffer is full, it always inserts).
+
+The buffer carries running sufficient statistics (state sum, outer-product
+sum, probs sum, filled count), rank-1 updated on every insert/evict, so
+Eq. 6 is O(D²) per candidate. ``buffer_insert_batch`` ingests a whole
+episode through the K1 ``diversity_insert`` kernel for CUDA tensors and
+its plain version for CPU tensors, then scatters the non-scored payload by
+last writer per slot.
+"""
+from __future__ import annotations
+
+from dataclasses import dataclass, fields
+
+import torch
+
+from repro_torch import resolve_device
+from repro_torch.configs.fcpo import FCPOConfig
+from repro_torch.kernels.diversity import diversity_insert
+
+RIDGE = 0.1  # ε·I covariance regularizer (keeps D_M defined before fill-up)
+
+
+@dataclass
+class DiversityBuffer:
+    """Per-agent buffers, leading axis A on every field."""
+    states: torch.Tensor    # (A, N, 8)
+    actions: torch.Tensor   # (A, N, 3) long
+    logp: torch.Tensor      # (A, N)
+    rewards: torch.Tensor   # (A, N)
+    values: torch.Tensor    # (A, N)
+    probs: torch.Tensor     # (A, N, n_res+n_bs+n_mt) policy at insert time
+    score: torch.Tensor     # (A, N) stored diversity score (-inf = empty)
+    filled: torch.Tensor    # (A, N) bool
+    count: torch.Tensor     # (A,) int32 total insertions attempted
+    s_sum: torch.Tensor     # (A, 8)    Σ s over filled slots
+    s_outer: torch.Tensor   # (A, 8, 8) Σ s sᵀ
+    p_sum: torch.Tensor     # (A, NA)   Σ probs
+    n_filled: torch.Tensor  # (A,) int32 number of filled slots
+
+    def replace(self, **kw) -> "DiversityBuffer":
+        vals = {f.name: getattr(self, f.name) for f in fields(self)}
+        vals.update(kw)
+        return DiversityBuffer(**vals)
+
+
+def buffer_init(cfg: FCPOConfig, n_agents: int, device="cuda"
+                ) -> DiversityBuffer:
+    dev = resolve_device(device)
+    a, n, d = n_agents, cfg.buffer_size, cfg.state_dim
+    na = cfg.n_res + cfg.n_bs + cfg.n_mt
+    z = lambda *s, dt=torch.float32: torch.zeros(s, dtype=dt, device=dev)
+    return DiversityBuffer(
+        states=z(a, n, d), actions=z(a, n, 3, dt=torch.long),
+        logp=z(a, n), rewards=z(a, n), values=z(a, n),
+        probs=torch.full((a, n, na), 1.0 / na, device=dev),
+        score=torch.full((a, n), -torch.inf, device=dev),
+        filled=z(a, n, dt=torch.bool), count=z(a, dt=torch.int32),
+        s_sum=z(a, d), s_outer=z(a, d, d), p_sum=z(a, na),
+        n_filled=z(a, dt=torch.int32))
+
+
+def buffer_insert_batch(cfg: FCPOConfig, buf: DiversityBuffer, states,
+                        actions, logp, rewards, values, probs
+                        ) -> DiversityBuffer:
+    """Ingest a whole episode of T candidates per agent (every candidate
+    array is (A, T, ...)). The sequential score -> argmin-evict -> scatter
+    chain runs in K1 (CUDA) or its plain version (CPU); the non-scored
+    payload is then scattered by last writer per slot."""
+    t_steps, n = states.shape[1], buf.score.shape[1]
+    (new_states, new_probs, new_score, new_filled, s_sum, s_outer, p_sum,
+     n_filled, slot, do, _d) = diversity_insert(
+        buf.states, buf.probs, buf.score, buf.filled, buf.s_sum,
+        buf.s_outer, buf.p_sum, buf.n_filled, states.contiguous(),
+        probs.contiguous(), alpha=cfg.alpha, beta=cfg.beta, ridge=RIDGE)
+
+    # last writer per slot: the highest t with do[t] & slot[t] == n wins
+    ts = torch.arange(t_steps, device=slot.device)
+    slots = torch.arange(n, device=slot.device)
+    hits = (slot[:, None, :] == slots[None, :, None]) & do[:, None, :]
+    last = torch.where(hits, ts, -1).amax(-1)                 # (A, N)
+    take = last.clamp(0, t_steps - 1)
+    keep = last < 0
+
+    def scatter(old, cand):
+        idx = take.reshape(take.shape + (1,) * (cand.dim() - 2))
+        gathered = torch.gather(cand, 1, idx.expand(
+            (-1, -1) + tuple(cand.shape[2:])))
+        k = keep.reshape(keep.shape + (1,) * (old.dim() - 2))
+        return torch.where(k, old, gathered)
+
+    return buf.replace(
+        states=new_states, probs=new_probs, score=new_score,
+        filled=new_filled, s_sum=s_sum, s_outer=s_outer, p_sum=p_sum,
+        n_filled=n_filled,
+        actions=scatter(buf.actions, actions.long()),
+        logp=scatter(buf.logp, logp), rewards=scatter(buf.rewards, rewards),
+        values=scatter(buf.values, values), count=buf.count + t_steps)
+
+
+def buffer_resync(buf: DiversityBuffer) -> DiversityBuffer:
+    """Recompute the streaming moments from the stored slots — bounds the
+    float32 rank-1 add/subtract drift; runs on the FL-round cadence."""
+    w = buf.filled.to(buf.s_sum.dtype)
+    sw = buf.states * w[..., None]
+    return buf.replace(
+        s_sum=sw.sum(1),
+        s_outer=torch.einsum("and,ane->ade", sw, buf.states),
+        p_sum=(buf.probs * w[..., None]).sum(1),
+        n_filled=buf.filled.sum(-1).to(buf.n_filled.dtype))
+
+
+def buffer_diversity_mean(buf: DiversityBuffer) -> torch.Tensor:
+    """(A,) mean stored diversity over capacity — the Eq. 7 "data
+    diversity" client-selection stat."""
+    return torch.where(buf.filled, buf.score, 0.0).mean(-1)
+
+
+def buffer_clear(buf: DiversityBuffer) -> DiversityBuffer:
+    """Empty the buffers and reset their streaming moments."""
+    return buf.replace(filled=torch.zeros_like(buf.filled),
+                       score=torch.full_like(buf.score, -torch.inf),
+                       s_sum=torch.zeros_like(buf.s_sum),
+                       s_outer=torch.zeros_like(buf.s_outer),
+                       p_sum=torch.zeros_like(buf.p_sum),
+                       n_filled=torch.zeros_like(buf.n_filled))

@@ -1,0 +1,102 @@
+"""Continual RL driver (§IV-C): episode rollout + gated online update.
+
+Port of ``repro.core.crl`` over the stacked fleet. ``run_episode`` steps
+``n_steps`` control intervals for all agents at once (observe -> sample
+cascaded actions -> env step; a Python loop takes the place of
+``lax.scan``), then ingests the episode's candidates into the diversity
+buffers with ONE ``buffer_insert_batch`` call (one K1 launch on the GPU).
+``crl_episode`` adds the gated online update.
+
+The policy module is updated in place (``AgentPolicy.assign``); the other
+state is returned as new tensors.
+"""
+from __future__ import annotations
+
+from dataclasses import dataclass
+from typing import Any, Dict, Tuple
+
+import torch
+
+from repro_torch.configs.fcpo import FCPOConfig
+from repro_torch.core import env as env_mod
+from repro_torch.core.agent import ActionMask, AgentPolicy, sample_actions
+from repro_torch.core.backends import FLUID
+from repro_torch.core.buffer import DiversityBuffer, buffer_insert_batch
+from repro_torch.core.ppo import Rollout, agent_update
+
+INFO_METRICS = ("throughput", "effective_throughput", "latency", "drops",
+                "accuracy_proxy")
+
+
+@dataclass
+class AgentState:
+    policy: AgentPolicy
+    opt: Any                 # {"m": {...}, "v": {...}, "t": (A,) int32}
+    buffer: DiversityBuffer
+    env_state: env_mod.EnvState
+
+
+def run_episode(cfg: FCPOConfig, ep: env_mod.EnvParams, astate: AgentState,
+                rates: torch.Tensor, mask: ActionMask, backend=FLUID,
+                gumbel=None, generator=None
+                ) -> Tuple[AgentState, Rollout, Dict[str, torch.Tensor]]:
+    """Collect one episode for every agent (rates: (A, n_steps) arrivals
+    per interval). ``gumbel`` ((A, n_steps, n_res+n_bs+n_mt)) is pre-drawn
+    action noise; without it the noise comes from ``generator``."""
+    params = astate.policy.params()
+    est = astate.env_state
+    ys = {k: [] for k in ("obs", "actions", "logp", "rewards", "values",
+                          "probs", *INFO_METRICS)}
+    with torch.no_grad():
+        for t in range(rates.shape[1]):
+            rate = rates[:, t]
+            obs = backend.observe(cfg, ep, est, rate)
+            actions, logp, out = sample_actions(
+                cfg, params, obs, mask,
+                gumbel=None if gumbel is None else gumbel[:, t],
+                generator=generator)
+            est, reward, info = backend.step(cfg, ep, est, actions, rate)
+            probs = torch.cat([out["res"].exp(), out["bs"].exp(),
+                               out["mt"].exp()], dim=-1)
+            for k, v in (("obs", obs), ("actions", actions), ("logp", logp),
+                         ("rewards", reward), ("values", out["value"]),
+                         ("probs", probs)):
+                ys[k].append(v)
+            for k in INFO_METRICS:
+                ys[k].append(info[k])
+        ys = {k: torch.stack(v, dim=1) for k, v in ys.items()}
+        buffer = buffer_insert_batch(cfg, astate.buffer, ys["obs"],
+                                     ys["actions"], ys["logp"],
+                                     ys["rewards"], ys["values"],
+                                     ys["probs"])
+    rollout = Rollout(states=ys["obs"], actions=ys["actions"],
+                      logp_old=ys["logp"], rewards=ys["rewards"],
+                      values_old=ys["values"])
+    metrics = {"reward": ys["rewards"].mean(-1),
+               **{k: ys[k].mean(-1) for k in INFO_METRICS}}
+    new_state = AgentState(astate.policy, astate.opt, buffer, est)
+    return new_state, rollout, metrics
+
+
+def crl_episode(cfg: FCPOConfig, ep: env_mod.EnvParams, astate: AgentState,
+                rates: torch.Tensor, mask: ActionMask, learn: bool = True,
+                backend=FLUID, gumbel=None, generator=None
+                ) -> Tuple[AgentState, Rollout, Dict[str, torch.Tensor]]:
+    """Episode + gated online update (the CRL inner loop). Metrics are
+    (A,) tensors."""
+    astate, rollout, metrics = run_episode(cfg, ep, astate, rates, mask,
+                                           backend=backend, gumbel=gumbel,
+                                           generator=generator)
+    a = rates.shape[0]
+    if learn:
+        params, opt, lm = agent_update(cfg, astate.policy.params(),
+                                       astate.opt, rollout, mask)
+        astate.policy.assign(params)
+        astate = AgentState(astate.policy, opt, astate.buffer,
+                            astate.env_state)
+        metrics.update(lm)
+    else:
+        zero = torch.zeros(a, device=rates.device)
+        metrics.update(loss=zero, l_p=zero, l_v=zero, l_pen=zero,
+                       gated=torch.ones_like(zero), update_rejected=zero)
+    return astate, rollout, metrics

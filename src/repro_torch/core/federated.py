@@ -1,0 +1,180 @@
+"""Agent-specific Federated RL (§IV-D): Algorithm 1, Eq. 7 selection,
+hierarchical rounds — over the stacked fleet's parameters.
+
+Port of the mean-aggregation path of ``repro.core.federated``:
+  * backbone + value head: equal aggregation over the selected clients AND
+    the pod's base network, divided by |M|+1;
+  * action heads: aggregated within (pod × action-space group) segments,
+    weighted by ``exp(−(loss_i − mean loss))`` renormalised to the group
+    count; a group with no contributor keeps each agent's own head;
+  * Eq. 7: ``TotalUtil = Util · sqrt(Bandwidth/10)``, top-⌈frac·A⌉ among
+    the available clients (stable order: ties go to the lower index).
+
+The segment sums are ``index_add_`` (they sum in another order than
+``jax.ops.segment_sum``, so results agree to float32 roundoff). An agent
+outside the selection enters every sum through a ``where``, not a multiply
+by zero, so a rejected non-finite contribution cannot reach any pod member
+(``NaN * 0`` is NaN). The host-side schedule helpers are numpy copies of
+the reference and draw the same streams.
+"""
+from __future__ import annotations
+
+from dataclasses import dataclass
+from typing import Dict, Tuple
+
+import numpy as np
+import torch
+
+from repro_torch.configs.fcpo import FCPOConfig
+from repro_torch.core.agent import (BACKBONE_KEYS, HEAD_KEYS, ActionMask,
+                                    agent_forward)
+from repro_torch.core.ppo import Rollout, _normalized_adv
+
+
+def per_head_losses(cfg: FCPOConfig, params, rollout: Rollout,
+                    mask: ActionMask) -> torch.Tensor:
+    """(A, 3) policy loss per action head on each agent's experiences."""
+    out = agent_forward(cfg, params, rollout.states, mask)
+    factor = -_normalized_adv(cfg, rollout) + torch.exp(-rollout.rewards)
+    losses = []
+    for i, head in enumerate(("res", "bs", "mt")):
+        logp = torch.gather(out[head], -1,
+                            rollout.actions[..., i:i + 1].long())[..., 0]
+        ratio = torch.exp(logp - logp.detach())  # = 1 at the evaluation point
+        losses.append((torch.minimum(cfg.eps_clip * ratio, ratio)
+                       * factor).mean(-1))
+    return torch.stack(losses, dim=-1)
+
+
+@dataclass
+class ClientStats:
+    mem_avail: torch.Tensor      # (A,) in [0,1]
+    compute_avail: torch.Tensor  # (A,) in [0,1]
+    diversity: torch.Tensor      # (A,) mean buffer diversity score
+    bandwidth: torch.Tensor      # (A,) Mbit/s
+    available: torch.Tensor      # (A,) bool — False = straggler/offline
+
+
+def total_utility(stats: ClientStats) -> torch.Tensor:
+    div = stats.diversity / (1.0 + torch.abs(stats.diversity))  # squash
+    util = (stats.mem_avail + stats.compute_avail + div) / 3.0
+    return util * torch.sqrt(torch.clamp_min(stats.bandwidth, 1e-3) / 10.0)
+
+
+def select_clients(cfg: FCPOConfig, stats: ClientStats) -> torch.Tensor:
+    """Top-⌈frac·A⌉ by TotalUtil among available clients -> (A,) bool."""
+    a = stats.available.shape[0]
+    k = max(1, int(round(cfg.clients_per_round * a)))
+    utils = torch.where(stats.available, total_utility(stats), -torch.inf)
+    order = torch.argsort(-utils, stable=True)
+    sel = torch.zeros(a, dtype=torch.bool, device=utils.device)
+    sel[order[:k]] = True
+    return sel & stats.available
+
+
+def _segment_sum(x, seg, n):
+    out = torch.zeros((n,) + tuple(x.shape[1:]), dtype=x.dtype,
+                      device=x.device)
+    return out.index_add_(0, seg, x)
+
+
+def _rows(w, like):
+    return w.reshape((-1,) + (1,) * (like.dim() - 1))
+
+
+def _masked_mean_with_base(stacked, base, sel, pod_ids, n_pods):
+    """(base + Σ_sel m) / (n_sel + 1) per pod. Returns (per-agent (A, ...),
+    new base (P, ...))."""
+    wsum = _segment_sum(sel.to(stacked.dtype), pod_ids, n_pods)
+    ssum = _segment_sum(torch.where(_rows(sel, stacked), stacked, 0.0),
+                        pod_ids, n_pods)
+    agg = (base + ssum) / _rows(wsum + 1.0, base)
+    return agg[pod_ids], agg
+
+
+def _head_weights(sel, losses_h, group_ids, n_groups):
+    """Loss-centered exponential weights, renormalized within a segment."""
+    cnt = _segment_sum(sel.to(torch.float32), group_ids, n_groups)
+    lsum = _segment_sum(torch.where(sel, losses_h, 0.0), group_ids, n_groups)
+    mean_l = lsum / torch.clamp_min(cnt, 1.0)
+    raw = torch.where(sel, torch.exp(-(losses_h - mean_l[group_ids])), 0.0)
+    rsum = _segment_sum(raw, group_ids, n_groups)
+    return raw * (cnt / torch.clamp_min(rsum, 1e-9))[group_ids]
+
+
+def aggregate(cfg: FCPOConfig, fleet_params: Dict[str, torch.Tensor],
+              base_params: Dict[str, torch.Tensor], sel: torch.Tensor,
+              head_losses: torch.Tensor, head_groups: Dict[str, torch.Tensor],
+              group_counts: Dict[str, int], pod_ids: torch.Tensor,
+              n_pods: int) -> Tuple[Dict, Dict]:
+    """Algorithm 1 (mean). fleet_params {name: (A, ...)}, base_params
+    {name: (P, ...)}, sel (A,) bool, head_losses (A, 3), head_groups
+    {head: (A,) group ids} with ``group_counts`` {head: n groups}.
+    Returns (new_fleet_params, new_base_params)."""
+    new_fleet, new_base = {}, {}
+    for name, st in fleet_params.items():
+        top = name.split(".")[0]
+        b = base_params[name]
+        if top in BACKBONE_KEYS:
+            new_fleet[name], new_base[name] = _masked_mean_with_base(
+                st, b, sel, pod_ids, n_pods)
+            continue
+        h_idx = HEAD_KEYS.index(top)
+        n_g = group_counts[top]
+        seg = pod_ids * n_g + head_groups[top]     # pod×group segments
+        n_seg = n_pods * n_g
+        wts = _head_weights(sel, head_losses[:, h_idx], seg, n_seg)
+        cnt = _segment_sum(sel.to(torch.float32), seg, n_seg)
+        b_seg = torch.repeat_interleave(b, n_g, dim=0)
+        ssum = _segment_sum(torch.where(_rows(sel, st), st * _rows(wts, st),
+                                        0.0), seg, n_seg)
+        agg = (b_seg + ssum) / _rows(cnt + 1.0, b_seg)   # (n_seg, ...)
+        # groups with no contributor keep the agent's own head
+        has = _rows(cnt[seg] > 0, st)
+        new_fleet[name] = torch.where(has, agg[seg], st)
+        new_base[name] = agg.reshape((n_pods, n_g) + tuple(st.shape[1:])
+                                     ).mean(1)
+    return new_fleet, new_base
+
+
+def merge_pods(base_params: Dict[str, torch.Tensor]):
+    """Hierarchical FL (§IV-D Large-Scale): the pods' base networks are
+    averaged and redistributed."""
+    return {k: b.mean(0, keepdim=True).expand_as(b).clone()
+            for k, b in base_params.items()}
+
+
+# ---------------------------------------------------------------------------
+# FL cadence — host-side numpy, the same streams as the reference
+# ---------------------------------------------------------------------------
+def fl_schedule(cfg: FCPOConfig, n_episodes: int, *, federated: bool = True,
+                learn: bool = True):
+    """(n_episodes,) bool: True where an FL round runs after the episode."""
+    if not (federated and learn):
+        return np.zeros((n_episodes,), bool)
+    if cfg.fl_every < 1:
+        raise ValueError(f"fl_every must be >= 1, got {cfg.fl_every}")
+    return (np.arange(1, n_episodes + 1) % cfg.fl_every) == 0
+
+
+def draw_availability(schedule, n_agents: int, straggler_prob: float = 0.0,
+                      seed: int = 0):
+    """(n_episodes, A) bool availability bits: one ``rng.random(A)`` per
+    scheduled FL round, in episode order."""
+    rng = np.random.default_rng(seed)
+    avail = np.ones((len(schedule), n_agents), bool)
+    for e in np.flatnonzero(schedule):
+        avail[e] = rng.random(n_agents) >= straggler_prob
+    return avail
+
+
+def head_group_ids(masks: ActionMask, device) -> Tuple[Dict, Dict]:
+    """Group agents by identical action-space masks, per head. Returns
+    ({head: (A,) long group ids}, {head: number of groups})."""
+    ids, counts = {}, {}
+    for key, m in zip(HEAD_KEYS, (masks.res, masks.bs, masks.mt)):
+        uniq, inv = np.unique(m.cpu().numpy(), axis=0, return_inverse=True)
+        ids[key] = torch.as_tensor(inv.reshape(-1).astype(np.int64),
+                                   device=device)
+        counts[key] = int(uniq.shape[0])
+    return ids, counts

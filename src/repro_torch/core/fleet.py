@@ -1,0 +1,322 @@
+"""Fleet driver: the FCPO loop over a fleet of iAgents.
+
+Port of ``repro.core.fleet`` (the reference driver and its building
+blocks). One ``Fleet`` holds stacked per-agent state (A on the leading
+axis) and the per-pod base networks (P). Per episode ``fleet_episode``
+runs the CRL inner loop for all agents; every ``fl_every`` episodes
+``fl_round`` runs Eq. 7 selection -> Algorithm 1 aggregation -> Algorithm 2
+head fine-tuning -> buffer resync; every ``hierarchical_period`` rounds
+``pod_merge`` averages the pods' base networks.
+
+``train_fleet_reference`` is the Python-loop driver (one device->host
+transfer per episode for its metrics). The scanned driver's counterpart,
+CUDA-graph capture of the episode/FL body, is a later slice.
+
+Randomness: the fleet carries a ``torch.Generator`` (parameter init and
+action noise). The drivers also take pre-drawn Gumbel action noise, the
+seam the parity tests use to replay the JAX package's draws.
+"""
+from __future__ import annotations
+
+from dataclasses import dataclass, fields, replace
+from typing import Dict, Optional
+
+import numpy as np
+import torch
+
+from repro_torch import resolve_device
+from repro_torch.configs.fcpo import FCPOConfig
+from repro_torch.core import env as env_mod
+from repro_torch.core import federated as fed
+from repro_torch.core.agent import (ActionMask, AgentPolicy, agent_init,
+                                    full_mask, params_from_numpy,
+                                    params_to_numpy, tensors_from_numpy)
+from repro_torch.core.backends import FLUID
+from repro_torch.core.buffer import (DiversityBuffer, buffer_diversity_mean,
+                                     buffer_init, buffer_resync)
+from repro_torch.core.crl import AgentState, crl_episode
+from repro_torch.core.ppo import agent_opt_init, finetune_heads
+from repro_torch.fl import transport as fl_transport
+from repro_torch.fl.codec import codec_roundtrip, residuals_init
+from repro_torch.fl.transport import DEFAULT_TRANSPORT, TransportConfig
+from repro_torch.resilience.guards import finite_mask
+
+
+@dataclass
+class Fleet:
+    """Stacked fleet state: agent-leading (A, ...) tensors, the (P, ...)
+    pod base networks, and the fleet's generator."""
+    astate: AgentState
+    base: AgentPolicy                 # per-pod base networks, n = P
+    env_params: env_mod.EnvParams
+    masks: ActionMask
+    group_ids: Dict[str, torch.Tensor]   # per head key: (A,) group ids
+    group_counts: Dict[str, int]
+    pod_ids: torch.Tensor             # (A,) long
+    bandwidth: torch.Tensor           # (A,) Mbit/s
+    speeds: torch.Tensor              # (A,)
+    residuals: Dict[str, torch.Tensor]   # codec error feedback, (A, ...)
+    generator: torch.Generator
+    n_pods: int
+    episode: int = 0
+
+    def replace(self, **kw) -> "Fleet":
+        return replace(self, **kw)
+
+
+def _assemble(cfg, policy, opt, buffer, env_state, base, env_params, masks,
+              speeds, bandwidth, residuals, generator, episode=0) -> Fleet:
+    n_agents, n_pods = speeds.shape[0], next(base.parameters()).shape[0]
+    dev = speeds.device
+    group_ids, group_counts = fed.head_group_ids(masks, dev)
+    return Fleet(
+        astate=AgentState(policy, opt, buffer, env_state), base=base,
+        env_params=env_params, masks=masks, group_ids=group_ids,
+        group_counts=group_counts,
+        pod_ids=torch.arange(n_agents, device=dev) % n_pods,
+        bandwidth=bandwidth, speeds=speeds, residuals=residuals,
+        generator=generator, n_pods=n_pods, episode=episode)
+
+
+def fleet_init(cfg: FCPOConfig, n_agents: int, seed: int = 0, *,
+               n_pods: int = 1, device="cuda") -> Fleet:
+    """A fresh fleet: random agents and pod base networks from ``seed``,
+    the heterogeneous device mix and link bandwidths drawn from the same
+    numpy streams as the reference (``default_rng(0)`` / ``(1)``)."""
+    dev = resolve_device(device)
+    gen = torch.Generator(device=dev)
+    gen.manual_seed(seed)
+    policy = agent_init(cfg, n_agents, gen, dev)
+    base = agent_init(cfg, 1, gen, dev)
+    pod_base = AgentPolicy(cfg, n_pods, dev)
+    pod_base.assign({k: v.expand((n_pods,) + v.shape[1:])
+                     for k, v in base.params().items()})
+    speeds = torch.as_tensor(np.random.default_rng(0).choice(
+        [0.5, 0.75, 1.0, 2.0], n_agents), dtype=torch.float32, device=dev)
+    bandwidth = torch.as_tensor(np.random.default_rng(1).uniform(
+        2.0, 40.0, n_agents), dtype=torch.float32, device=dev)
+    return _assemble(
+        cfg, policy, agent_opt_init(policy.params()),
+        buffer_init(cfg, n_agents, dev), FLUID.init(cfg, n_agents, dev),
+        pod_base, env_mod.default_env_params(speeds, cfg.slo_s, dev),
+        full_mask(cfg, n_agents, dev), speeds, bandwidth,
+        residuals_init(policy.params()), gen)
+
+
+def _numpy_fields(obj):
+    return {f.name: getattr(obj, f.name).cpu().numpy() for f in fields(obj)}
+
+
+def _from_fields(cls, tree, dev, longs=()):
+    def conv(name, v):
+        t = torch.tensor(np.asarray(v), device=dev)
+        if name in longs:
+            return t.long()
+        return t.float() if t.is_floating_point() else t
+    return cls(**{f.name: conv(f.name, tree[f.name]) for f in fields(cls)})
+
+
+def fleet_from_numpy(cfg: FCPOConfig, tree, device="cuda", seed: int = 0
+                     ) -> Fleet:
+    """A fleet built from the JAX fleet's state as nested dicts of numpy
+    arrays (``jax.tree.map(np.asarray, ...)`` of each part): keys
+    ``params``, ``opt`` (``m``/``v`` trees, ``t``), ``buffer``,
+    ``env_state``, ``env_params`` (field dicts), ``base_params``,
+    ``masks`` (``res``/``bs``/``mt``), ``speeds``, ``bandwidth``, and
+    optionally ``residuals`` and ``episode``. ``seed`` seeds the fleet's
+    generator. ``fleet_to_numpy`` is the reverse."""
+    dev = resolve_device(device)
+    policy = params_from_numpy(cfg, tree["params"], dev)
+    base = params_from_numpy(cfg, tree["base_params"], dev)
+    opt = {"m": tensors_from_numpy(tree["opt"]["m"], dev),
+           "v": tensors_from_numpy(tree["opt"]["v"], dev),
+           "t": torch.tensor(np.asarray(tree["opt"]["t"]),
+                             dtype=torch.int32, device=dev)}
+    residuals = (tensors_from_numpy(tree["residuals"], dev)
+                 if "residuals" in tree
+                 else residuals_init(policy.params()))
+    gen = torch.Generator(device=dev)
+    gen.manual_seed(seed)
+    f32 = lambda x: torch.tensor(np.asarray(x), dtype=torch.float32,
+                                 device=dev)
+    masks = ActionMask(*(torch.tensor(np.asarray(tree["masks"][k]),
+                                      dtype=torch.bool, device=dev)
+                         for k in ("res", "bs", "mt")))
+    return _assemble(
+        cfg, policy, opt,
+        _from_fields(DiversityBuffer, tree["buffer"], dev, longs=("actions",)),
+        _from_fields(env_mod.EnvState, tree["env_state"], dev,
+                     longs=("cur_action",)),
+        base, _from_fields(env_mod.EnvParams, tree["env_params"], dev),
+        masks, f32(tree["speeds"]), f32(tree["bandwidth"]), residuals, gen,
+        episode=int(tree.get("episode", 0)))
+
+
+def fleet_to_numpy(fleet: Fleet):
+    """The nested-dict numpy form of ``fleet`` (the layout
+    ``fleet_from_numpy`` reads)."""
+    a = fleet.astate
+    return {
+        "params": params_to_numpy(a.policy.params()),
+        "opt": {"m": params_to_numpy(a.opt["m"]),
+                "v": params_to_numpy(a.opt["v"]),
+                "t": a.opt["t"].cpu().numpy()},
+        "buffer": _numpy_fields(a.buffer),
+        "env_state": _numpy_fields(a.env_state),
+        "env_params": _numpy_fields(fleet.env_params),
+        "base_params": params_to_numpy(fleet.base.params()),
+        "masks": _numpy_fields(fleet.masks),
+        "speeds": fleet.speeds.cpu().numpy(),
+        "bandwidth": fleet.bandwidth.cpu().numpy(),
+        "residuals": params_to_numpy(fleet.residuals),
+        "episode": fleet.episode,
+    }
+
+
+def fleet_episode(cfg: FCPOConfig, fleet: Fleet, rates: torch.Tensor,
+                  learn: bool = True, gumbel=None):
+    """One CRL episode for all agents. rates: (A, n_steps); gumbel:
+    optional pre-drawn (A, n_steps, n_res+n_bs+n_mt) action noise.
+    Returns (fleet, rollouts, per-agent metrics)."""
+    astate, rollouts, metrics = crl_episode(
+        cfg, fleet.env_params, fleet.astate, rates, fleet.masks, learn,
+        gumbel=gumbel, generator=fleet.generator)
+    return fleet.replace(astate=astate, episode=fleet.episode + 1), \
+        rollouts, metrics
+
+
+def fl_round(cfg: FCPOConfig, fleet: Fleet, rollouts, available=None,
+             transport: Optional[TransportConfig] = None):
+    """One synchronous federated round: uplink model -> Eq. 7 selection ->
+    (lossy codec) -> Alg. 1 aggregation -> Alg. 2 head fine-tuning ->
+    buffer moment resync.
+
+    ``available`` ((A,) bool) masks out stragglers. With the float32 codec
+    the server's reconstruction is the client params themselves and the
+    codec is skipped; int8/topk encode ``params - base`` per leaf with error
+    feedback (the K2 kernel on the GPU), and only selected contributors are
+    seen through the wire. A contribution holding a NaN or Inf is dropped
+    from aggregation (``fl_rejected``). Returns (fleet, sel (A,) bool,
+    fl_metrics of 0-dim tensors)."""
+    transport = DEFAULT_TRANSPORT if transport is None else transport
+    policy, astate = fleet.astate.policy, fleet.astate
+    params = {k: v.detach() for k, v in policy.params().items()}
+    base = {k: v.detach() for k, v in fleet.base.params().items()}
+    dev = fleet.pod_ids.device
+    a = fleet.pod_ids.shape[0]
+    if available is None:
+        available = torch.ones(a, dtype=torch.bool, device=dev)
+
+    # --- communication model: static payload sizes, per-agent links
+    up_bytes = fl_transport.agent_payload_bytes(params.values(), transport)
+    full_bytes = fl_transport.full_param_bytes(params.values())
+    down_bytes = fl_transport.downlink_bytes(transport, a, fleet.n_pods,
+                                             up_bytes, full_bytes)
+    uplink_s = fl_transport.uplink_seconds(up_bytes, fleet.bandwidth)
+    on_time = fl_transport.on_time_mask(uplink_s, transport.deadline_s)
+    fresh_ok = available & on_time
+
+    # --- Eq. 7 selection: a slow link drops out of selection
+    stats = fed.ClientStats(
+        mem_avail=torch.clamp(1.0 - astate.env_state.pre_q
+                              / fleet.env_params.queue_cap, 0, 1),
+        compute_avail=torch.clamp(fleet.speeds / 2.0, 0, 1),
+        diversity=buffer_diversity_mean(astate.buffer),
+        bandwidth=fleet.bandwidth, available=fresh_ok)
+    sel = fed.select_clients(cfg, stats)
+    with torch.no_grad():
+        head_losses = fed.per_head_losses(cfg, params, rollouts, fleet.masks)
+
+    # --- the server-side view of each client's parameters
+    residuals = fleet.residuals
+    if transport.plain:
+        # a client NaN'd by its own training drops out of aggregation
+        ok = finite_mask(params)
+        recon, sel_agg = params, sel & ok
+    else:
+        base_g = {k: b[fleet.pod_ids] for k, b in base.items()}
+        delta = {k: params[k] - base_g[k] for k in params}
+        decoded, res_next = codec_roundtrip(delta, fleet.residuals, transport)
+        # selection already required on-time; garbage on the wire is dropped
+        ok = finite_mask(decoded)
+        sel_agg = sel & ok
+        # only selected contributors are seen through the wire; everyone
+        # else enters aggregation with their TRUE params
+        rows = lambda m, x: m.reshape((-1,) + (1,) * (x.dim() - 1))
+        recon = {k: torch.where(rows(sel_agg, params[k]),
+                                base_g[k] + decoded[k], params[k])
+                 for k in params}
+        # error feedback commits only for deltas that went over the wire
+        residuals = {k: torch.where(rows(sel, res_next[k]), res_next[k],
+                                    fleet.residuals[k]) for k in res_next}
+
+    new_params, new_base = fed.aggregate(
+        cfg, recon, base, sel_agg, head_losses, fleet.group_ids,
+        fleet.group_counts, fleet.pod_ids, fleet.n_pods)
+    # Algorithm 2: local action-head fine-tuning on local experiences
+    new_params, opt = finetune_heads(cfg, new_params, astate.opt, rollouts,
+                                     fleet.masks)
+    policy.assign(new_params)
+    fleet.base.assign(new_base)
+    # FL-round cadence resyncs the buffers' streaming moments
+    astate = AgentState(policy, opt, buffer_resync(astate.buffer),
+                        astate.env_state)
+
+    n_up = sel.sum().to(torch.float32)
+    fl_metrics = {
+        "fl_payload_bytes": n_up * up_bytes + down_bytes,
+        "fl_uplink_s": torch.where(sel, uplink_s, 0.0).sum()
+        / torch.clamp_min(n_up, 1.0),
+        "fl_missed": (available & ~on_time).sum().to(torch.float32),
+        "fl_rejected": (sel & ~ok).sum().to(torch.float32),
+    }
+    return fleet.replace(astate=astate, residuals=residuals), sel_agg, \
+        fl_metrics
+
+
+def pod_merge(cfg: FCPOConfig, fleet: Fleet) -> Fleet:
+    """Hierarchical cross-pod exchange (cloud tier): the pods' base
+    networks are averaged and redistributed (in place)."""
+    base = {k: v.detach() for k, v in fleet.base.params().items()}
+    fleet.base.assign(fed.merge_pods(base))
+    return fleet
+
+
+def train_fleet_reference(cfg: FCPOConfig, fleet: Fleet, traces, *,
+                          learn: bool = True, federated: bool = True,
+                          straggler_prob: float = 0.0, seed: int = 0,
+                          transport: Optional[TransportConfig] = None,
+                          gumbel=None):
+    """The Python-loop driver: episodes over ``traces`` (A, total_steps),
+    an FL round every ``fl_every`` episodes (stragglers from
+    ``draw_availability(seed)``, the reference's stream), a pod merge every
+    ``hierarchical_period`` rounds. ``gumbel``: optional pre-drawn action
+    noise (n_episodes, A, n_steps, n_res+n_bs+n_mt). Returns (fleet,
+    history) with one fleet-mean value per episode and metric."""
+    dev = fleet.pod_ids.device
+    traces = traces.to(dev)
+    a, total = traces.shape
+    n_eps = total // cfg.n_steps
+    schedule = fed.fl_schedule(cfg, n_eps, federated=federated, learn=learn)
+    avail = fed.draw_availability(schedule, a, straggler_prob, seed)
+    history: Dict[str, list] = {}
+    rounds = 0
+    for e in range(n_eps):
+        rates = traces[:, e * cfg.n_steps:(e + 1) * cfg.n_steps]
+        fleet, rollouts, metrics = fleet_episode(
+            cfg, fleet, rates, learn=learn,
+            gumbel=None if gumbel is None else gumbel[e])
+        fl_metrics = fl_transport.fl_zero_metrics(dev)
+        if schedule[e]:
+            fleet, _, fl_metrics = fl_round(
+                cfg, fleet, rollouts,
+                torch.as_tensor(avail[e], device=dev), transport=transport)
+            rounds += 1
+            if rounds % cfg.hierarchical_period == 0 and fleet.n_pods > 1:
+                fleet = pod_merge(cfg, fleet)
+        names = [*metrics, *fl_metrics]
+        vals = torch.stack([*(v.mean() for v in metrics.values()),
+                            *fl_metrics.values()])
+        for k, v in zip(names, vals.tolist()):   # one transfer per episode
+            history.setdefault(k, []).append(v)
+    return fleet, {k: np.asarray(v) for k, v in history.items()}

@@ -1,0 +1,121 @@
+"""Fleet training launcher — the FCPO loop of the PyTorch/CUDA port.
+
+Runs the federated-continual cadence (CRL episodes -> Eq. 7 selection ->
+Alg. 1 aggregation -> Alg. 2 fine-tune -> hierarchical pod merge) through
+``repro_torch.core.fleet.train_fleet_reference`` on the GPU (``--device
+cuda``, the default) or the CPU. The device picks the implementation of
+each kernel: CUDA tensors launch the hand-written kernels
+(``repro_torch.kernels``), CPU tensors run their plain PyTorch versions.
+
+Examples:
+  PYTHONPATH=src python -m repro_torch.launch.train_fleet
+  PYTHONPATH=src python -m repro_torch.launch.train_fleet --agents 8 \\
+      --pods 2 --episodes 20 --fl-codec int8
+  PYTHONPATH=src python -m repro_torch.launch.train_fleet --device cpu \\
+      --agents 4 --episodes 4 --fl-every 1
+"""
+from __future__ import annotations
+
+import argparse
+import time
+
+import numpy as np
+import torch
+
+from repro_torch import resolve_device
+from repro_torch.configs.fcpo import FCPOConfig
+from repro_torch.core.fleet import fleet_init, train_fleet_reference
+from repro_torch.data.workload import fleet_traces
+from repro_torch.fl.transport import CODECS, TransportConfig
+from repro_torch.kernels import build
+
+
+def main(argv=None):
+    ap = argparse.ArgumentParser()
+    ap.add_argument("--agents", type=int, default=8)
+    ap.add_argument("--pods", type=int, default=2)
+    ap.add_argument("--episodes", type=int, default=200)
+    ap.add_argument("--fl-every", type=int, default=None,
+                    help="override cfg.fl_every")
+    ap.add_argument("--straggler-prob", type=float, default=0.0,
+                    help="probability an agent is offline for an FL round "
+                         "(Bernoulli draw); composes with the deadline "
+                         "stragglers of --fl-deadline-s")
+    ap.add_argument("--fl-codec", choices=CODECS, default="float32",
+                    help="on-wire FL delta codec: float32 is lossless; "
+                         "int8/topk compress the params-base delta with "
+                         "error feedback (the delta_codec kernel on the GPU)")
+    ap.add_argument("--fl-topk-frac", type=float, default=0.05,
+                    help="fraction of coordinates the topk codec keeps per "
+                         "tensor")
+    ap.add_argument("--fl-deadline-s", type=float, default=0.0,
+                    help="FL round deadline (s); uplink time = encoded "
+                         "payload bits / per-agent bandwidth. <= 0 disables")
+    ap.add_argument("--no-federated", action="store_true")
+    ap.add_argument("--no-learn", action="store_true")
+    ap.add_argument("--seed", type=int, default=0)
+    ap.add_argument("--device", choices=("cuda", "cpu"), default="cuda")
+    args = ap.parse_args(argv)
+    if args.episodes < 1:
+        ap.error("--episodes must be >= 1")
+    if args.fl_every is not None and args.fl_every < 1:
+        ap.error("--fl-every must be >= 1 (use --no-federated to disable FL)")
+    if args.fl_topk_frac != 0.05 and args.fl_codec != "topk":
+        ap.error("--fl-topk-frac only affects the topk codec; add "
+                 "--fl-codec topk")
+
+    dev = resolve_device(args.device)
+    # full float32 on the card, as on the CPU (no TF32 rounding)
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.backends.cudnn.allow_tf32 = False
+    if dev.type == "cuda":
+        build.build()          # kernel build is set-up, not training time
+
+    cfg = FCPOConfig() if args.fl_every is None else \
+        FCPOConfig(fl_every=args.fl_every)
+    transport = TransportConfig(codec=args.fl_codec,
+                                topk_frac=args.fl_topk_frac,
+                                deadline_s=args.fl_deadline_s)
+    fleet = fleet_init(cfg, args.agents, args.seed, n_pods=args.pods,
+                       device=dev)
+    gen = torch.Generator()
+    gen.manual_seed(args.seed + 1)
+    traces = fleet_traces(gen, args.agents, args.episodes * cfg.n_steps,
+                          device=dev)
+    name = torch.cuda.get_device_name(dev) if dev.type == "cuda" else "cpu"
+    print(f"fleet: {args.agents} iAgents, {args.pods} pods, "
+          f"{args.episodes} episodes, env=fluid, scenario=nominal, "
+          f"device={dev.type} ({name})")
+
+    t0 = time.time()
+    fleet, hist = train_fleet_reference(
+        cfg, fleet, traces, learn=not args.no_learn,
+        federated=not args.no_federated, straggler_prob=args.straggler_prob,
+        seed=args.seed, transport=transport)
+    wall = time.time() - t0
+
+    n_run = len(hist["reward"])
+    k = max(n_run // 10, 1)
+    print(f"\nwall {wall:.2f}s  ({wall / n_run * 1e3:.1f} ms/episode)")
+    print(f"{'':24s}{'first ' + str(k) + ' eps':>16s}"
+          f"{'last ' + str(k) + ' eps':>16s}")
+    for key, scale, unit in (("reward", 1, ""), ("throughput", 1, "/s"),
+                             ("effective_throughput", 1, "/s"),
+                             ("latency", 1e3, "ms"), ("gated", 1, "")):
+        a, b = hist[key][:k].mean() * scale, hist[key][-k:].mean() * scale
+        print(f"{key:24s}{a:12.3f}{unit:4s}{b:12.3f}{unit}")
+
+    fl_eps = np.flatnonzero(hist["fl_payload_bytes"])
+    if fl_eps.size:
+        print(f"\nFL transport (codec={args.fl_codec}, "
+              f"deadline={args.fl_deadline_s}s): "
+              f"{fl_eps.size} rounds, "
+              f"{hist['fl_payload_bytes'][fl_eps].mean() / 1024:.1f} KB/round, "
+              f"uplink {hist['fl_uplink_s'][fl_eps].mean() * 1e3:.1f} ms, "
+              f"missed {hist['fl_missed'][fl_eps].mean():.2f}/round, "
+              f"rejected {hist['fl_rejected'].sum():.0f}")
+    return fleet, hist
+
+
+if __name__ == "__main__":
+    main()

@@ -1,0 +1,120 @@
+"""The port's CUDA kernels on the card (marker ``cuda``; skipped without a
+GPU). This file imports neither JAX nor ``repro``, so it runs where only
+PyTorch is installed:
+
+    PYTHONPATH=src python -m pytest -q --noconftest -m cuda tests/test_torch_cuda.py
+
+(``--noconftest``: tests/conftest.py imports JAX). K1 is held against its
+plain version within rtol 1e-4 / atol 1e-5 with identical decision traces,
+a first divergence accepted only at a near-tie (score gap below 1e-5
+relative); K2 bit for bit; the trainer must launch both kernels.
+"""
+import numpy as np
+import pytest
+import torch
+
+from repro_torch.configs.fcpo import FCPOConfig
+from repro_torch.core.buffer import RIDGE, buffer_init
+from repro_torch.fl.transport import topk_k
+from repro_torch.kernels.delta_codec import delta_codec
+from repro_torch.kernels.diversity import diversity_insert
+from repro_torch.kernels.ref import delta_codec_ref, diversity_insert_ref
+
+LEAF_SIZES = (512, 64, 3072, 48, 48, 1, 192, 4, 364, 7, 208, 4)
+KW = dict(alpha=0.5, beta=0.5, ridge=RIDGE)
+
+
+@pytest.fixture
+def cuda_device():
+    """The card, or a skip where there is none (decided at run time)."""
+    if not torch.cuda.is_available():
+        pytest.skip("needs an NVIDIA GPU")
+    return torch.device("cuda")
+
+
+def k1_inputs(rng, a, fill, t):
+    cfg = FCPOConfig()
+    b = buffer_init(cfg, a, "cpu")
+    state = [b.states, b.probs, b.score, b.filled, b.s_sum, b.s_outer,
+             b.p_sum, b.n_filled]
+
+    def cands(n):
+        s = torch.tensor(rng.normal(size=(a, n, 8)) * 2.0, dtype=torch.float32)
+        p = torch.softmax(torch.tensor(rng.normal(size=(a, n, 15)),
+                                       dtype=torch.float32), -1)
+        return s, p
+
+    if fill:
+        state = list(diversity_insert_ref(*state, *cands(fill), **KW)[:8])
+    return state + list(cands(t))
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("fill", [0, 32, 96])
+def test_k1_matches_plain_on_the_card(cuda_device, fill):
+    rng = np.random.default_rng(fill)
+    args = k1_inputs(rng, 256, fill, 10)
+    before = diversity_insert.launches
+    out_k = [x.cpu() for x in diversity_insert(
+        *[x.to(cuda_device) for x in args], **KW)]
+    assert diversity_insert.launches == before + 1
+    out_p = diversity_insert_ref(*args, **KW)
+    diff = (out_k[8] != out_p[8]) | (out_k[9] != out_p[9])
+    for a in torch.nonzero(diff.any(1)).flatten().tolist():
+        t = int(torch.nonzero(diff[a])[0])
+        score = (diversity_insert_ref(*args[:8], args[8][:, :t],
+                                      args[9][:, :t], **KW)[2] if t
+                 else args[2])[a]
+        m = float(score.min())
+        gaps = [abs(float(out_k[10][a, t]) - m),
+                abs(float(out_p[10][a, t]) - m)]
+        if out_k[8][a, t] != out_p[8][a, t]:
+            gaps.append(abs(float(score[out_k[8][a, t]]
+                                  - score[out_p[8][a, t]])))
+        assert min(gaps) <= 1e-5 * max(1.0, abs(float(out_p[10][a, t]))), \
+            f"agent {a} diverges at t={t} with no near-tie ({gaps})"
+    keep = ~diff.any(1)
+    for k, p in zip(out_k, out_p):
+        k, p = k[keep], p[keep]
+        if k.is_floating_point():
+            torch.testing.assert_close(k, p, rtol=1e-4, atol=1e-5)
+        else:
+            assert torch.equal(k, p)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("codec", ["float32", "int8", "topk"])
+def test_k2_bit_identical_to_plain_on_the_card(cuda_device, codec):
+    rng = np.random.default_rng(["float32", "int8", "topk"].index(codec))
+    for l in LEAF_SIZES:
+        for grid in (False, True):
+            if grid:   # exact int8 halfway cases (scale 0.5) and |x| ties
+                d = (rng.integers(-254, 255, (64, l)) / 4.0).astype(np.float32)
+                d[:, 0] = 63.5
+                r = np.zeros_like(d)
+            else:
+                d = (rng.normal(size=(64, l)) * 0.01).astype(np.float32)
+                r = (rng.normal(size=(64, l)) * 0.001).astype(np.float32)
+            k = topk_k(l, 0.05)
+            before = delta_codec.launches
+            dk, rk = delta_codec(torch.tensor(d, device=cuda_device),
+                                 torch.tensor(r, device=cuda_device),
+                                 codec=codec, k=k)
+            assert delta_codec.launches == before + 1
+            dp, rp = delta_codec_ref(torch.tensor(d), torch.tensor(r),
+                                     codec=codec, k=k)
+            bits = lambda x: x.cpu().numpy().view(np.uint32)
+            np.testing.assert_array_equal(bits(dk), bits(dp), f"L={l}")
+            np.testing.assert_array_equal(bits(rk), bits(rp), f"L={l}")
+
+
+@pytest.mark.cuda
+def test_trainer_launches_both_kernels_on_the_card(cuda_device):
+    from repro_torch.launch import train_fleet
+    diversity_insert.launches = delta_codec.launches = 0
+    _, hist = train_fleet.main(["--agents", "4", "--pods", "2",
+                                "--episodes", "3", "--fl-every", "1",
+                                "--fl-codec", "int8"])
+    assert diversity_insert.launches == 3          # one per episode
+    assert delta_codec.launches == 3 * 12          # one per leaf per round
+    assert all(np.isfinite(v).all() for v in hist.values())

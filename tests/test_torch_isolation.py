@@ -1,0 +1,80 @@
+"""The port stands alone: ``repro_torch`` imports neither JAX nor anything of
+the JAX package ``repro``; its kernels build from the repo's sources with
+nvcc for sm_90a, and a missing toolchain raises instead of falling back."""
+import importlib
+import pkgutil
+import re
+import subprocess
+import sys
+from pathlib import Path
+
+import pytest
+
+SRC = Path(__file__).resolve().parents[1] / "src"
+PORT = SRC / "repro_torch"
+
+
+def test_importing_every_module_pulls_in_no_jax_and_no_repro():
+    code = (
+        "import importlib, pkgutil, sys\n"
+        "import repro_torch\n"
+        "mods = [m.name for m in pkgutil.walk_packages(repro_torch.__path__,"
+        " 'repro_torch.')]\n"
+        "for m in mods:\n"
+        "    importlib.import_module(m)\n"
+        "bad = sorted(k for k in sys.modules if k == 'jax' or "
+        "k.startswith(('jax.', 'jaxlib')) or k == 'repro' or "
+        "k.startswith('repro.'))\n"
+        "assert len(mods) >= 20, mods\n"
+        "assert not bad, bad\n"
+        "print(len(mods))\n")
+    out = subprocess.run([sys.executable, "-c", code], capture_output=True,
+                         text=True, env={"PYTHONPATH": str(SRC),
+                                         "PATH": "/usr/bin:/bin"},
+                         timeout=300)
+    assert out.returncode == 0, out.stderr
+
+
+def test_no_source_file_names_jax_or_the_reference_package():
+    pat = re.compile(r"^\s*(import jax|from jax|import repro\b|"
+                     r"from repro(\.| import))", re.M)
+    for path in PORT.rglob("*.py"):
+        assert not pat.search(path.read_text()), path
+
+
+def test_kernel_sources_and_build_flags():
+    from repro_torch.kernels import build
+    assert {p.stem for p in build.CSRC.glob("*.cu")} == set(build.KERNELS)
+    flags = " ".join(build.NVCC_FLAGS)
+    assert "arch=compute_90a,code=sm_90a" in flags
+    assert "-fmad=false" in flags and "use_fast_math" not in flags
+    # keyed by source hash, inside the checkout's ignored build directory
+    path = build.library_path("delta_codec")
+    assert path.parent == build.BUILD_DIR
+    assert build.BUILD_DIR.relative_to(SRC.parent).parts[0] == "build"
+    assert path == build.library_path("delta_codec")
+
+
+def test_build_without_nvcc_raises(monkeypatch, tmp_path):
+    from repro_torch.kernels import build
+    monkeypatch.setenv("PATH", str(tmp_path))
+    monkeypatch.setenv("CUDA_HOME", str(tmp_path))
+    monkeypatch.setattr(build, "BUILD_DIR", tmp_path / "kernels")
+    if Path("/usr/local/cuda/bin/nvcc").exists():
+        pytest.skip("this machine has a CUDA toolchain")
+    with pytest.raises(RuntimeError, match="nvcc"):
+        build.build(["delta_codec"])
+
+
+def test_cpu_tensors_take_the_plain_version_and_count_no_launch():
+    import torch
+    from repro_torch.kernels.delta_codec import delta_codec
+    from repro_torch.kernels.ref import delta_codec_ref
+    x, r = torch.randn(3, 40), torch.randn(3, 40)
+    before = delta_codec.launches
+    got = delta_codec(x, r, codec="int8")
+    want = delta_codec_ref(x, r, codec="int8")
+    assert all(torch.equal(g, w) for g, w in zip(got, want))
+    assert delta_codec.launches == before
+    with pytest.raises(ValueError, match="codec"):
+        delta_codec(x, r, codec="fp8")

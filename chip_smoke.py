@@ -16,19 +16,32 @@ In order, it:
   4. holds K2 ``delta_codec`` against its plain version bit for bit in all
      three codecs at all 12 leaf sizes of one iAgent, at A=8 and A=2048
      (random data, plus a grid with exact int8 halfway cases and |x| ties);
-  5. times each kernel, its plain version and (K2 topk) ``torch.topk`` at
+  5. holds K3 ``queue_advance`` against its plain version bit for bit at
+     A=8 and A=2048 (R=512, H=64, K=20), ten intervals chained from empty
+     pipelines in three regimes (idle, nominal, overload with drops and a
+     full post queue), with conservation checked;
+  6. times each kernel, its plain version and (K2 topk) ``torch.topk`` at
      the main path's shapes: device time by CUDA-graph replay (CUDA
      events), and the eager per-call time with the host's launch cost;
-  6. drives ``repro_torch.launch.train_fleet`` at its defaults (8 agents,
+  7. drives ``repro_torch.launch.train_fleet`` at its defaults (8 agents,
      2 pods, 20 episodes), then with ``--fl-codec int8`` and ``--fl-codec
      topk``, with every launch count set to 0 just before each run and read
      just after: K1 must launch once per episode, K2 twelve times per FL
-     round; the histories must be finite;
-  7. profiles ten episodes of the default run (host wall, device busy
-     share, the kernels taking the most device time);
-  8. checks a small run (A=4, P=2, int8 codec, pre-drawn action noise)
-     on the card against the same run on the CPU (plain versions);
-  9. prints the kernel table as one JSON line, then
+     round, K3 never; the histories must be finite;
+  8. drives the twin: ``train_fleet --env-backend twin`` (20 episodes, K3
+     once per control interval), then ``repro_torch.launch.simulate`` at
+     its defaults (60 intervals, K3 once per interval) and after four
+     twin-trained episodes with ``--compare-fluid``; summaries finite,
+     requests conserved for every agent;
+  9. profiles ten episodes of the default fluid run and of the twin run
+     (host wall, device busy share, the kernels taking the most device
+     time);
+ 10. checks small runs (A=4, P=2, int8 codec, pre-drawn action noise) on
+     the card against the same runs on the CPU (plain versions): the fluid
+     trainer, and the twin trainer with its final twin state exactly equal
+     (a first action divergence is accepted only at a near-tie of the
+     Gumbel-max scores, and reported);
+ 11. prints the kernel table as one JSON line, then
      ``{"ok": true, "device": {...}}`` as the last line.
 Any failure raises and exits non-zero.
 """
@@ -202,7 +215,8 @@ def check_k1(torch, cfg, gen):
         bound = max(moved / HBM_BYTES_PER_S, flops / FP32_FLOPS) * 1e3
         by = "bytes" if moved / HBM_BYTES_PER_S >= flops / FP32_FLOPS \
             else "operations"
-        timing[a] = dict(ms=ms, plain_ms=plain, bound_ms=bound, bound_by=by)
+        timing[a] = dict(ms=ms, plain_ms=plain, bound_ms=bound, bound_by=by,
+                         library_ms=None)
         log(f"  K1 A={a}: kernel {ms:.4f} ms (device; {eager:.4f} ms per "
             f"eager call), plain {plain:.4f} ms, bound {bound:.6f} ms ({by}, "
             f"{moved} B)")
@@ -289,19 +303,146 @@ def check_k2(torch, gen):
 
 
 # ---------------------------------------------------------------------------
-# The main path and a small run against the CPU
+# K3 queue_advance
 # ---------------------------------------------------------------------------
-def drive(torch, argv, n_episodes, fl_every):
+K3_REGIMES = ("idle", "nominal", "overload")
+
+
+def k3_interval(torch, regime, a, sp, gen, cfg, env_params, rate, phase):
+    """Arrivals (A, K) int32 and caps (A, 6) float32 of one interval.
+    idle: 0-1 arrivals per tick; nominal: the nominal traces' rate spread
+    over the ticks; both under the caps of random actions on the fleet's
+    device mix. overload: 3-6x what post service (the bottleneck) serves,
+    batch 1, queues of 16, so ten intervals reach the overflow."""
+    from repro_torch.sim.state import action_caps, spread_arrivals
+    dev = torch.device(DEV)
+    u = lambda lo, hi, *s: lo + (hi - lo) * torch.rand(
+        s, generator=gen, device=dev)
+    if regime == "overload":
+        c_post = u(0.2, 0.5, a)
+        caps = torch.stack([u(1.0, 2.0, a), c_post, torch.ones_like(c_post),
+                            torch.ones_like(c_post),
+                            torch.full_like(c_post, 16.0),
+                            torch.full_like(c_post, 5.0)], dim=1)
+        lam = u(3.0, 6.0, a, 1) * c_post[:, None]
+        arrivals = torch.poisson(lam.expand(a, sp.k_ticks).contiguous(),
+                                 generator=gen).to(torch.int32)
+        return arrivals, caps, phase
+    acts = torch.stack([torch.randint(0, n, (a,), generator=gen, device=dev)
+                        for n in (cfg.n_res, cfg.n_bs, cfg.n_mt)], dim=1)
+    caps = action_caps(cfg, sp, env_params, acts)
+    if regime == "idle":
+        arrivals = torch.randint(0, 2, (a, sp.k_ticks), generator=gen,
+                                 device=dev, dtype=torch.int32)
+        return arrivals, caps, phase
+    arrivals, phase = spread_arrivals(sp, rate, phase)
+    return arrivals, caps, phase
+
+
+def check_k3(torch, cfg, gen):
+    """K3 bit for bit against its plain version, ten chained intervals per
+    regime; times it on the nominal regime's loaded state."""
+    from repro_torch.core.env import default_env_params
+    from repro_torch.data.workload import fleet_traces
+    from repro_torch.kernels.queue_advance import queue_advance
+    from repro_torch.kernels.ref import (SIM_ARRIVED, SIM_COMPLETED,
+                                         SIM_DROPPED, SIM_HEAD, SIM_LAUNCH,
+                                         SIM_TAIL, queue_advance_ref)
+    from repro_torch.sim.state import SimParams, sim_init
+    import numpy as np
+    sp = SimParams()
+    timing = {}
+    for a in (8, 2048):
+        speeds = torch.as_tensor(np.random.default_rng(0).choice(
+            [0.5, 0.75, 1.0, 2.0], a), dtype=torch.float32, device=DEV)
+        env_params = default_env_params(speeds, cfg.slo_s, DEV)
+        cpu_gen = torch.Generator().manual_seed(a)
+        rates = fleet_traces(cpu_gen, a, 10, device=DEV)
+        for regime in K3_REGIMES:
+            state = sim_init(sp, a, DEV).tensors()
+            phase = torch.zeros(a, device=DEV)
+            for t in range(10):
+                arrivals, caps, phase = k3_interval(
+                    torch, regime, a, sp, gen, cfg, env_params, rates[:, t],
+                    phase)
+                out_k = queue_advance(*state, arrivals, caps)
+                out_p = queue_advance_ref(*state, arrivals, caps)
+                torch.cuda.synchronize()
+                for name, k, p in zip(("arrive", "counters", "credits",
+                                       "lat_sum", "hist"), out_k, out_p):
+                    if not torch.equal(k, p):
+                        raise AssertionError(
+                            f"K3 A={a} {regime} interval {t}: {name} "
+                            f"differs in {int((k != p).sum())} entries")
+                state = out_k
+            c = state[1]
+            arrived = c[:, SIM_ARRIVED]
+            in_flight = c[:, SIM_TAIL] - c[:, SIM_HEAD]
+            if not torch.equal(arrived, c[:, SIM_DROPPED] + c[:, SIM_COMPLETED]
+                               + in_flight):
+                raise AssertionError(f"K3 A={a} {regime}: requests not "
+                                     f"conserved")
+            dropped = int(c[:, SIM_DROPPED].sum())
+            completed = int(c[:, SIM_COMPLETED].sum())
+            if regime == "overload":
+                full = c[:, SIM_LAUNCH] - c[:, SIM_HEAD] == 16
+                if not bool((c[:, SIM_DROPPED] > 0).all()) or \
+                        not bool(full.all()):
+                    raise AssertionError(f"K3 A={a} overload: drops "
+                                         f"{dropped}, post queue full on "
+                                         f"{int(full.sum())} of {a}")
+            elif dropped or not completed:
+                raise AssertionError(f"K3 A={a} {regime}: {dropped} drops, "
+                                     f"{completed} completions")
+            log(f"  K3 A={a} {regime}: bit-identical over 10 intervals, "
+                f"arrived {int(arrived.sum())}, completed {completed}, "
+                f"dropped {dropped}")
+            if regime == "nominal":
+                loaded = (state, arrivals, caps)
+        state, arrivals, caps = loaded
+        args = (*state, arrivals, caps)
+        ms = device_ms(lambda: queue_advance(*args))
+        plain = device_ms(lambda: queue_advance_ref(*args))
+        eager = eager_ms(lambda: queue_advance(*args))
+        moved = nbytes(*args) + nbytes(*state)
+        bound = moved / HBM_BYTES_PER_S * 1e3
+        timing[a] = dict(ms=ms, plain_ms=plain, bound_ms=bound,
+                         bound_by="bytes", library_ms=None)
+        log(f"  K3 A={a}: kernel {ms:.4f} ms (device; {eager:.4f} ms per "
+            f"eager call), plain {plain:.4f} ms, bound {bound:.6f} ms "
+            f"(bytes, {moved} B)")
+    return timing
+
+
+# ---------------------------------------------------------------------------
+# The main paths and small runs against the CPU
+# ---------------------------------------------------------------------------
+def reset_launches():
     from repro_torch.kernels.delta_codec import delta_codec
     from repro_torch.kernels.diversity import diversity_insert
+    from repro_torch.kernels.queue_advance import queue_advance
+    diversity_insert.launches = delta_codec.launches = 0
+    queue_advance.launches = 0
+
+
+def read_launches():
+    from repro_torch.kernels.delta_codec import delta_codec
+    from repro_torch.kernels.diversity import diversity_insert
+    from repro_torch.kernels.queue_advance import queue_advance
+    return (diversity_insert.launches, delta_codec.launches,
+            queue_advance.launches)
+
+
+def drive(torch, argv, n_episodes, fl_every, n_steps):
+    """One ``train_fleet`` run with the launch counts set to 0 just before
+    and read just after. Returns (K1, K2, K3 launches)."""
     from repro_torch.launch import train_fleet
-    diversity_insert.launches = 0
-    delta_codec.launches = 0
+    reset_launches()
     t0 = time.time()
     _, hist = train_fleet.main([*argv, "--device", DEV])
     torch.cuda.synchronize()
     wall = time.time() - t0
-    k1, k2 = diversity_insert.launches, delta_codec.launches
+    k1, k2, k3 = read_launches()
     for key, v in hist.items():
         if len(v) != n_episodes or not all(map(math.isfinite, v)):
             raise AssertionError(f"{argv}: history {key} is not "
@@ -314,61 +455,155 @@ def drive(torch, argv, n_episodes, fl_every):
     if k2 != want_k2:
         raise AssertionError(f"{argv}: K2 launched {k2} times, expected "
                              f"{want_k2} (12 per FL round)")
-    log(f"  {' '.join(argv) or '(defaults)'}: K1 {k1} launches, K2 {k2} "
+    want_k3 = n_episodes * n_steps if "twin" in argv else 0
+    if k3 != want_k3:
+        raise AssertionError(f"{argv}: K3 launched {k3} times, expected "
+                             f"{want_k3} (one per twin control interval)")
+    log(f"  {' '.join(argv) or '(defaults)'}: K1 {k1}, K2 {k2}, K3 {k3} "
         f"launches, {wall / n_episodes * 1e3:.1f} ms/episode (wall incl. "
         f"trace set-up)")
-    return k1, k2
+    return k1, k2, k3
 
 
-def check_against_cpu(torch, cfg_cls):
-    """A=4, P=2, int8, fl_every=1, 3 episodes: the card run (kernels) and
-    the CPU run (plain versions) from the same state and action noise."""
+def drive_simulate(argv, want_k3):
+    """One ``simulate`` run with the launch counts set to 0 just before and
+    read just after: K3 once per simulated (and twin-trained) interval, a
+    finite summary, requests conserved for every agent."""
     import numpy as np
+    from repro_torch.launch import simulate
+    reset_launches()
+    t0 = time.time()
+    summ = simulate.main([*argv, "--device", DEV])
+    wall = time.time() - t0
+    k3 = read_launches()[2]
+    if k3 != want_k3:
+        raise AssertionError(f"simulate {argv}: K3 launched {k3} times, "
+                             f"expected {want_k3}")
+    for key, v in summ.items():
+        if not np.isfinite(v).all():
+            raise AssertionError(f"simulate {argv}: {key} not finite")
+    if not (summ["arrived"] == summ["dropped"] + summ["completed"]
+            + summ["in_flight"]).all():
+        raise AssertionError(f"simulate {argv}: requests not conserved")
+    if not summ["completed"].sum():
+        raise AssertionError(f"simulate {argv}: nothing completed")
+    log(f"  simulate {' '.join(argv) or '(defaults)'}: K3 {k3} launches, "
+        f"evaluation {summ['wall_s'] / 60 * 1e3:.2f} ms/interval (60 "
+        f"intervals, wall), whole call {wall:.2f} s; effective throughput "
+        f"{float(summ['effective_throughput'].mean()):.2f} req/s, p99 "
+        f"{float(summ['p99_latency_s'].mean()) * 1e3:.0f} ms, requests "
+        f"conserved")
+    return k3
+
+
+def run_pair(torch, cfg, backend):
+    """A=4, P=2, int8 codec, 3 episodes: the card run (kernels) and the CPU
+    run (plain versions) of ``train_fleet_reference`` from one numpy fleet
+    state, one set of traces and one set of Gumbel noise.
+    Histories within rtol 1e-3 / atol 1e-4. In the twin the actions and
+    the final twin state must be equal; a first action divergence is
+    accepted only at a near-tie of the Gumbel-max scores (gap below 1e-5
+    relative), and reported."""
+    import numpy as np
+    from repro_torch.core import crl
     from repro_torch.core.fleet import (fleet_from_numpy, fleet_init,
                                         fleet_to_numpy, train_fleet_reference)
     from repro_torch.fl.transport import TransportConfig
-    cfg = cfg_cls(fl_every=1)
     a, n_eps = 4, 3
-    tree = fleet_to_numpy(fleet_init(cfg, a, 7, n_pods=2, device="cpu"))
+    tree = fleet_to_numpy(fleet_init(cfg, a, 7, n_pods=2, device="cpu",
+                                     env_backend=backend))
     rng = np.random.default_rng(7)
     traces = rng.uniform(5.0, 120.0, (a, n_eps * cfg.n_steps)).astype(
         np.float32)
     u = rng.uniform(1e-6, 1.0, (n_eps, a, cfg.n_steps, 15))
     gumbel = (-np.log(-np.log(u))).astype(np.float32)
-    hists = []
+    sample = crl.sample_actions
+    hists, trees, records = [], [], []
     for dev in (DEV, "cpu"):
-        fleet = fleet_from_numpy(cfg, tree, device=dev)
-        _, h = train_fleet_reference(
-            cfg, fleet, torch.as_tensor(traces, device=dev),
-            transport=TransportConfig(codec="int8"),
-            gumbel=torch.as_tensor(gumbel, device=dev))
+        record = []
+
+        def recording(cfg_, params, obs, mask, gumbel=None, generator=None):
+            out = sample(cfg_, params, obs, mask, gumbel=gumbel,
+                         generator=generator)
+            scores = gumbel + torch.cat([out[2][h] for h in
+                                         ("res", "bs", "mt")], -1)
+            record.append((out[0].cpu(), scores.cpu()))
+            return out
+
+        crl.sample_actions = recording
+        try:
+            fleet = fleet_from_numpy(cfg, tree, device=dev)
+            fleet, h = train_fleet_reference(
+                cfg, fleet, torch.as_tensor(traces, device=dev),
+                env_backend=backend, transport=TransportConfig(codec="int8"),
+                gumbel=torch.as_tensor(gumbel, device=dev))
+        finally:
+            crl.sample_actions = sample
         hists.append(h)
+        trees.append(fleet_to_numpy(fleet))
+        records.append(record)
     for key in hists[1]:
         np.testing.assert_allclose(hists[0][key], hists[1][key], rtol=1e-3,
                                    atol=1e-4, err_msg=f"card vs cpu: {key}")
-    log(f"  card run == CPU run (A={a}, {n_eps} episodes, int8), "
-        f"rtol 1e-3 / atol 1e-4 over {len(hists[1])} metrics")
+    diverged = first_action_divergence(torch, cfg, *records)
+    if backend == "twin" and not diverged:
+        for key, v in trees[1]["env_state"]["sim"].items():
+            np.testing.assert_array_equal(
+                trees[0]["env_state"]["sim"][key], v,
+                err_msg=f"card vs cpu: twin state {key}")
+    log(f"  card run == CPU run ({backend}, A={a}, {n_eps} episodes, int8): "
+        f"{len(hists[1])} metrics within rtol 1e-3 / atol 1e-4, actions "
+        f"{'identical' if not diverged else 'identical up to a near-tie'}"
+        + (", final twin state identical" if backend == "twin"
+           and not diverged else ""))
 
 
-def profile_episodes(torch, cfg, n_episodes=10):
-    """Where the time of the default run goes: ``n_episodes`` (after two
-    warm-up episodes) under ``torch.profiler``; prints the host wall per
-    episode, the device's busy share and the kernels taking the most device
-    time."""
+def first_action_divergence(torch, cfg, card, cpu):
+    """False if the two runs took the same actions at every step; True if
+    they first part at a near-tie of the Gumbel-max scores (reported);
+    raises otherwise."""
+    bounds = ((0, cfg.n_res), (cfg.n_res, cfg.n_res + cfg.n_bs),
+              (cfg.n_res + cfg.n_bs, cfg.n_res + cfg.n_bs + cfg.n_mt))
+    for step, ((act_k, sc_k), (act_c, sc_c)) in enumerate(zip(card, cpu)):
+        if torch.equal(act_k, act_c):
+            continue
+        agent, head = [int(i) for i in torch.nonzero(act_k != act_c)[0]]
+        lo, hi = bounds[head]
+        top = torch.topk(sc_c[agent, lo:hi], 2).values
+        gap = float(top[0] - top[1])
+        if gap > NEAR_TIE * max(1.0, abs(float(top[0]))):
+            raise AssertionError(
+                f"card vs cpu: actions part at step {step}, agent {agent}, "
+                f"head {head} with no near-tie (score gap {gap:.3g})")
+        log(f"  card vs cpu: actions part at step {step}, agent {agent}, "
+            f"head {head} at a near-tie (score gap {gap:.3g}); accepted")
+        return True
+    if len(card) != len(cpu):
+        raise AssertionError("card vs cpu: different numbers of steps")
+    return False
+
+
+def profile_episodes(torch, cfg, backend="fluid", n_episodes=10):
+    """Where the time of the CLI default run goes (in ``backend``):
+    ``n_episodes`` (after two warm-up episodes) under ``torch.profiler``;
+    prints the host wall per episode, the device's busy share and the
+    kernels taking the most device time."""
     from torch.profiler import ProfilerActivity, profile
     from repro_torch.core.fleet import fleet_init, train_fleet_reference
     from repro_torch.data.workload import fleet_traces
-    fleet = fleet_init(cfg, 8, 0, n_pods=2, device=DEV)
+    fleet = fleet_init(cfg, 8, 0, n_pods=2, device=DEV, env_backend=backend)
     gen = torch.Generator()
     gen.manual_seed(1)
     traces = fleet_traces(gen, 8, (n_episodes + 2) * cfg.n_steps, device=DEV)
     fleet, _ = train_fleet_reference(cfg, fleet,
-                                     traces[:, :2 * cfg.n_steps])
+                                     traces[:, :2 * cfg.n_steps],
+                                     env_backend=backend)
     torch.cuda.synchronize()
     with profile(activities=[ProfilerActivity.CPU,
                              ProfilerActivity.CUDA]) as prof:
         t0 = time.time()
-        train_fleet_reference(cfg, fleet, traces[:, 2 * cfg.n_steps:])
+        train_fleet_reference(cfg, fleet, traces[:, 2 * cfg.n_steps:],
+                              env_backend=backend)
         torch.cuda.synchronize()
         wall = time.time() - t0
     kernels = [e for e in prof.key_averages()
@@ -380,7 +615,7 @@ def profile_episodes(torch, cfg, n_episodes=10):
     if not total:
         log("  device time: not measured (the profiler recorded no kernel)")
         return
-    log(f"  {n_episodes} episodes under the profiler: wall "
+    log(f"  {backend}: {n_episodes} episodes under the profiler: wall "
         f"{wall / n_episodes * 1e3:.2f} ms/episode, device busy "
         f"{total / 1e3 / n_episodes:.3f} ms/episode "
         f"({100 * total / 1e6 / wall:.2f}% busy, "
@@ -426,32 +661,49 @@ def main():
     k1_err, k1_t = check_k1(torch, cfg, gen)
     log("[K2] delta_codec vs plain")
     k2_t = check_k2(torch, gen)
+    log("[K3] queue_advance vs plain")
+    k3_t = check_k3(torch, cfg, gen)
 
+    n = cfg.n_steps
     log("[main path] repro_torch.launch.train_fleet")
-    k1_n, _ = drive(torch, ["--episodes", "20"], 20, cfg.fl_every)
-    _, k2_int8 = drive(torch, ["--episodes", "20", "--fl-codec", "int8"],
-                       20, cfg.fl_every)
-    _, k2_topk = drive(torch, ["--episodes", "20", "--fl-codec", "topk"],
-                       20, cfg.fl_every)
-    log("[profile] default run, torch.profiler")
+    k1_n, _, _ = drive(torch, ["--episodes", "20"], 20, cfg.fl_every, n)
+    _, k2_int8, _ = drive(torch, ["--episodes", "20", "--fl-codec", "int8"],
+                          20, cfg.fl_every, n)
+    _, k2_topk, _ = drive(torch, ["--episodes", "20", "--fl-codec", "topk"],
+                          20, cfg.fl_every, n)
+    log("[twin train] repro_torch.launch.train_fleet --env-backend twin")
+    _, _, k3_n = drive(torch, ["--env-backend", "twin", "--episodes", "20"],
+                       20, cfg.fl_every, n)
+    log("[twin eval] repro_torch.launch.simulate")
+    drive_simulate([], 60)
+    drive_simulate(["--train-episodes", "4", "--train-backend", "twin",
+                    "--compare-fluid"], 4 * n + 60)
+    log("[profile] default runs, torch.profiler")
     profile_episodes(torch, cfg)
+    profile_episodes(torch, cfg, "twin")
     log("[reference] small run, card vs CPU")
-    check_against_cpu(torch, FCPOConfig)
+    run_pair(torch, FCPOConfig(fl_every=1), "fluid")
+    log("[twin reference] small twin run, card vs CPU")
+    run_pair(torch, FCPOConfig(fl_every=1), "twin")
 
     rows = [dict(name="diversity_insert", route="cuda",
                  source="src/repro_torch/csrc/diversity_insert.cu",
                  replaces="src/repro/kernels/diversity.py:93",
-                 launches=k1_n, max_abs_err=k1_err, library_ms=None,
-                 **k1_t[8])]
-    for codec, n in (("int8", k2_int8), ("topk", k2_topk)):
+                 launches=k1_n, max_abs_err=k1_err, **k1_t[8])]
+    for codec, launches in (("int8", k2_int8), ("topk", k2_topk)):
         rows.append(dict(name=f"delta_codec[{codec}]", route="cuda",
                          source="src/repro_torch/csrc/delta_codec.cu",
                          replaces="src/repro/kernels/delta_codec.py:41",
-                         launches=n, max_abs_err=0.0,
+                         launches=launches, max_abs_err=0.0,
                          **k2_t[(codec, 8)]))
+    rows.append(dict(name="queue_advance", route="cuda",
+                     source="src/repro_torch/csrc/queue_advance.cu",
+                     replaces="src/repro/kernels/queue_advance.py:50",
+                     launches=k3_n, max_abs_err=0.0, **k3_t[8]))
     log("[A=2048] " + json.dumps(
         {"diversity_insert": k1_t[2048],
-         **{f"delta_codec[{c}]": k2_t[(c, 2048)] for c in ("int8", "topk")}}))
+         **{f"delta_codec[{c}]": k2_t[(c, 2048)] for c in ("int8", "topk")},
+         "queue_advance": k3_t[2048]}))
     log(json.dumps({"kernels": rows}))
     log(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),

@@ -33,7 +33,7 @@ class AgentState:
     policy: AgentPolicy
     opt: Any                 # {"m": {...}, "v": {...}, "t": (A,) int32}
     buffer: DiversityBuffer
-    env_state: env_mod.EnvState
+    env_state: Any           # the backend's state: EnvState or TwinEnvState
 
 
 def run_episode(cfg: FCPOConfig, ep: env_mod.EnvParams, astate: AgentState,

@@ -90,7 +90,7 @@ def observe(cfg: FCPOConfig, ep: EnvParams, s: EnvState, rate) -> torch.Tensor:
 
 
 @functools.lru_cache(maxsize=8)
-def _action_values(cfg: FCPOConfig, device: torch.device):
+def action_values(cfg: FCPOConfig, device: torch.device):
     """The (res scale, batch size, threads) value tables on ``device``,
     built once instead of copied to the device every step."""
     return tuple(torch.tensor(v, dtype=torch.float32, device=device)
@@ -101,7 +101,7 @@ def env_step(cfg: FCPOConfig, ep: EnvParams, s: EnvState, action, rate):
     """One control interval. action: (A, 3) long; rate: (A,) arrivals.
 
     Returns (new_state, reward (A,), info dict of (A,) tensors)."""
-    res_v, bs_v, mt_v = _action_values(cfg, rate.device)
+    res_v, bs_v, mt_v = action_values(cfg, rate.device)
     res_scale = res_v[action[:, 0]]
     bs = bs_v[action[:, 1]]
     mt = mt_v[action[:, 2]]

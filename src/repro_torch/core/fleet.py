@@ -18,7 +18,7 @@ seam the parity tests use to replay the JAX package's draws.
 """
 from __future__ import annotations
 
-from dataclasses import dataclass, fields, replace
+from dataclasses import dataclass, fields, is_dataclass, replace
 from typing import Dict, Optional
 
 import numpy as np
@@ -31,7 +31,7 @@ from repro_torch.core import federated as fed
 from repro_torch.core.agent import (ActionMask, AgentPolicy, agent_init,
                                     full_mask, params_from_numpy,
                                     params_to_numpy, tensors_from_numpy)
-from repro_torch.core.backends import FLUID
+from repro_torch.core.backends import FLUID, TwinEnvState, get_backend
 from repro_torch.core.buffer import (DiversityBuffer, buffer_diversity_mean,
                                      buffer_init, buffer_resync)
 from repro_torch.core.crl import AgentState, crl_episode
@@ -40,6 +40,7 @@ from repro_torch.fl import transport as fl_transport
 from repro_torch.fl.codec import codec_roundtrip, residuals_init
 from repro_torch.fl.transport import DEFAULT_TRANSPORT, TransportConfig
 from repro_torch.resilience.guards import finite_mask
+from repro_torch.sim.state import SimState
 
 
 @dataclass
@@ -79,11 +80,14 @@ def _assemble(cfg, policy, opt, buffer, env_state, base, env_params, masks,
 
 
 def fleet_init(cfg: FCPOConfig, n_agents: int, seed: int = 0, *,
-               n_pods: int = 1, device="cuda") -> Fleet:
+               n_pods: int = 1, device="cuda", env_backend=None) -> Fleet:
     """A fresh fleet: random agents and pod base networks from ``seed``,
     the heterogeneous device mix and link bandwidths drawn from the same
-    numpy streams as the reference (``default_rng(0)`` / ``(1)``)."""
+    numpy streams as the reference (``default_rng(0)`` / ``(1)``).
+    ``env_backend`` (``"fluid"``, the default, ``"twin"`` or a backend)
+    builds ``astate.env_state``: pass the same backend to the drivers."""
     dev = resolve_device(device)
+    backend = get_backend(env_backend)
     gen = torch.Generator(device=dev)
     gen.manual_seed(seed)
     policy = agent_init(cfg, n_agents, gen, dev)
@@ -95,20 +99,30 @@ def fleet_init(cfg: FCPOConfig, n_agents: int, seed: int = 0, *,
         [0.5, 0.75, 1.0, 2.0], n_agents), dtype=torch.float32, device=dev)
     bandwidth = torch.as_tensor(np.random.default_rng(1).uniform(
         2.0, 40.0, n_agents), dtype=torch.float32, device=dev)
+    env_params = env_mod.default_env_params(speeds, cfg.slo_s, dev)
+    backend.check_env_params(env_params)
     return _assemble(
         cfg, policy, agent_opt_init(policy.params()),
-        buffer_init(cfg, n_agents, dev), FLUID.init(cfg, n_agents, dev),
-        pod_base, env_mod.default_env_params(speeds, cfg.slo_s, dev),
-        full_mask(cfg, n_agents, dev), speeds, bandwidth,
-        residuals_init(policy.params()), gen)
+        buffer_init(cfg, n_agents, dev), backend.init(cfg, n_agents, dev),
+        pod_base, env_params, full_mask(cfg, n_agents, dev), speeds,
+        bandwidth, residuals_init(policy.params()), gen)
 
 
 def _numpy_fields(obj):
-    return {f.name: getattr(obj, f.name).cpu().numpy() for f in fields(obj)}
+    """A state dataclass as a dict of numpy arrays (nested for the twin's
+    ``sim``)."""
+    conv = lambda v: _numpy_fields(v) if is_dataclass(v) else v.cpu().numpy()
+    return {f.name: conv(getattr(obj, f.name)) for f in fields(obj)}
 
 
-def _from_fields(cls, tree, dev, longs=()):
+def _from_fields(cls, tree, dev, longs=(), nested=None):
+    """``cls`` from a dict of numpy arrays; ``longs`` name the fields made
+    ``long``, ``nested`` maps a field holding a dict to its class."""
+    nested = nested or {}
+
     def conv(name, v):
+        if name in nested:
+            return _from_fields(nested[name], v, dev)
         t = torch.tensor(np.asarray(v), device=dev)
         if name in longs:
             return t.long()
@@ -116,12 +130,22 @@ def _from_fields(cls, tree, dev, longs=()):
     return cls(**{f.name: conv(f.name, tree[f.name]) for f in fields(cls)})
 
 
+def _env_state_from_numpy(tree, dev):
+    """The fluid ``EnvState``, or the twin's ``TwinEnvState`` where the tree
+    holds a nested ``sim`` (its counters stay int32)."""
+    if "sim" in tree:
+        return _from_fields(TwinEnvState, tree, dev, longs=("cur_action",),
+                            nested={"sim": SimState})
+    return _from_fields(env_mod.EnvState, tree, dev, longs=("cur_action",))
+
+
 def fleet_from_numpy(cfg: FCPOConfig, tree, device="cuda", seed: int = 0
                      ) -> Fleet:
     """A fleet built from the JAX fleet's state as nested dicts of numpy
     arrays (``jax.tree.map(np.asarray, ...)`` of each part): keys
     ``params``, ``opt`` (``m``/``v`` trees, ``t``), ``buffer``,
-    ``env_state``, ``env_params`` (field dicts), ``base_params``,
+    ``env_state`` (the fluid or, with a nested ``sim``, the twin state),
+    ``env_params`` (field dicts), ``base_params``,
     ``masks`` (``res``/``bs``/``mt``), ``speeds``, ``bandwidth``, and
     optionally ``residuals`` and ``episode``. ``seed`` seeds the fleet's
     generator. ``fleet_to_numpy`` is the reverse."""
@@ -145,8 +169,7 @@ def fleet_from_numpy(cfg: FCPOConfig, tree, device="cuda", seed: int = 0
     return _assemble(
         cfg, policy, opt,
         _from_fields(DiversityBuffer, tree["buffer"], dev, longs=("actions",)),
-        _from_fields(env_mod.EnvState, tree["env_state"], dev,
-                     longs=("cur_action",)),
+        _env_state_from_numpy(tree["env_state"], dev),
         base, _from_fields(env_mod.EnvParams, tree["env_params"], dev),
         masks, f32(tree["speeds"]), f32(tree["bandwidth"]), residuals, gen,
         episode=int(tree.get("episode", 0)))
@@ -174,13 +197,14 @@ def fleet_to_numpy(fleet: Fleet):
 
 
 def fleet_episode(cfg: FCPOConfig, fleet: Fleet, rates: torch.Tensor,
-                  learn: bool = True, gumbel=None):
+                  learn: bool = True, gumbel=None, backend=FLUID):
     """One CRL episode for all agents. rates: (A, n_steps); gumbel:
-    optional pre-drawn (A, n_steps, n_res+n_bs+n_mt) action noise.
+    optional pre-drawn (A, n_steps, n_res+n_bs+n_mt) action noise;
+    ``backend``: the environment, the one the fleet was built with.
     Returns (fleet, rollouts, per-agent metrics)."""
     astate, rollouts, metrics = crl_episode(
         cfg, fleet.env_params, fleet.astate, rates, fleet.masks, learn,
-        gumbel=gumbel, generator=fleet.generator)
+        backend=backend, gumbel=gumbel, generator=fleet.generator)
     return fleet.replace(astate=astate, episode=fleet.episode + 1), \
         rollouts, metrics
 
@@ -285,14 +309,18 @@ def pod_merge(cfg: FCPOConfig, fleet: Fleet) -> Fleet:
 def train_fleet_reference(cfg: FCPOConfig, fleet: Fleet, traces, *,
                           learn: bool = True, federated: bool = True,
                           straggler_prob: float = 0.0, seed: int = 0,
+                          env_backend=None,
                           transport: Optional[TransportConfig] = None,
                           gumbel=None):
     """The Python-loop driver: episodes over ``traces`` (A, total_steps),
     an FL round every ``fl_every`` episodes (stragglers from
     ``draw_availability(seed)``, the reference's stream), a pod merge every
     ``hierarchical_period`` rounds. ``gumbel``: optional pre-drawn action
-    noise (n_episodes, A, n_steps, n_res+n_bs+n_mt). Returns (fleet,
-    history) with one fleet-mean value per episode and metric."""
+    noise (n_episodes, A, n_steps, n_res+n_bs+n_mt). ``env_backend``:
+    ``"fluid"`` (default) / ``"twin"`` / a backend, the one the fleet was
+    built with. Returns (fleet, history) with one fleet-mean value per
+    episode and metric."""
+    backend = get_backend(env_backend)
     dev = fleet.pod_ids.device
     traces = traces.to(dev)
     a, total = traces.shape
@@ -305,7 +333,7 @@ def train_fleet_reference(cfg: FCPOConfig, fleet: Fleet, traces, *,
         rates = traces[:, e * cfg.n_steps:(e + 1) * cfg.n_steps]
         fleet, rollouts, metrics = fleet_episode(
             cfg, fleet, rates, learn=learn,
-            gumbel=None if gumbel is None else gumbel[e])
+            gumbel=None if gumbel is None else gumbel[e], backend=backend)
         fl_metrics = fl_transport.fl_zero_metrics(dev)
         if schedule[e]:
             fleet, _, fl_metrics = fl_round(

@@ -25,7 +25,7 @@ BUILD_DIR = Path(__file__).resolve().parents[3] / "build" / "kernels"
 NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-O3",
               "-std=c++17", "-fmad=false", "-Xptxas", "-v", "-shared",
               "-Xcompiler", "-fPIC")
-KERNELS = ("diversity_insert", "delta_codec")
+KERNELS = ("diversity_insert", "delta_codec", "queue_advance")
 
 _LIBS: Dict[str, ctypes.CDLL] = {}
 

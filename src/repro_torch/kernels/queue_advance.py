@@ -1,0 +1,90 @@
+"""K3 ``queue_advance`` — the twin's K-microtick data-plane advance on the GPU.
+
+Replaces the Pallas kernel ``repro/kernels/queue_advance.py:50``
+(``queue_advance``). CUDA source: ``csrc/queue_advance.cu`` (one warp per
+agent; the arrival ring and the latency histogram in shared memory for all
+K ticks, the counters and credits in registers). Plain version:
+``kernels/ref.py::queue_advance_ref``; the two agree bit for bit.
+
+Bound on an H100 at R=512, H=64, K=20: 4,832 B per agent (each input read
+once, each output written once), 0.0115 µs at A=8 and 2.95 µs at A=2048 of
+HBM time (3.35 TB/s); the chain of K dependent ticks sets the time.
+
+CPU tensors take the plain version; CUDA tensors launch the kernel (there
+is no fallback). ``queue_advance.launches`` counts kernel launches.
+"""
+from __future__ import annotations
+
+import ctypes
+
+import torch
+
+from repro_torch.kernels import build
+from repro_torch.kernels.ref import (SIM_NCAPS, SIM_NCOUNTERS, check_ring,
+                                     queue_advance_ref)
+
+_P, _I = ctypes.c_void_p, ctypes.c_int
+_ARGTYPES = [_P] * 12 + [_I] * 4 + [_P]
+# dynamic shared memory one block may take on sm_90 (227 KB)
+MAX_SMEM_BYTES = 232448
+
+
+def _check(x, name, shape, dtype, device):
+    if x.device != device:
+        raise ValueError(f"queue_advance: {name} is on {x.device}, expected "
+                         f"{device}")
+    if x.dtype != dtype or tuple(x.shape) != tuple(shape):
+        raise ValueError(f"queue_advance: {name} is {x.dtype} "
+                         f"{tuple(x.shape)}, expected {dtype} {tuple(shape)}")
+    if not x.is_contiguous():
+        raise ValueError(f"queue_advance: {name} must be contiguous")
+
+
+def queue_advance(arrive, counters, credits, lat_sum, hist, arrivals, caps):
+    """Advance every agent's twin K microticks (the control interval).
+
+    arrive (A, R) int32 with R a power of two, counters (A, SIM_NCOUNTERS)
+    int32, credits (A, 2) float32, lat_sum (A,) float32, hist (A, H) int32,
+    arrivals (A, K) int32, caps (A, SIM_NCAPS) float32. Returns new
+    (arrive, counters, credits, lat_sum, hist), as ``queue_advance_ref``;
+    the inputs are left as they were."""
+    if arrive.device.type == "cpu":
+        return queue_advance_ref(arrive, counters, credits, lat_sum, hist,
+                                 arrivals, caps)
+    if arrive.device.type != "cuda" or arrive.dim() != 2:
+        raise ValueError(f"queue_advance: arrive must be an (A, R) CUDA "
+                         f"tensor, got {tuple(arrive.shape)} on "
+                         f"{arrive.device}")
+    a, ring = arrive.shape
+    check_ring(ring)
+    hist_n, k = hist.shape[-1], arrivals.shape[-1]
+    i32, f32, dev = torch.int32, torch.float32, arrive.device
+    ins = ((arrive, "arrive", (a, ring), i32),
+           (counters, "counters", (a, SIM_NCOUNTERS), i32),
+           (credits, "credits", (a, 2), f32),
+           (lat_sum, "lat_sum", (a,), f32),
+           (hist, "hist", (a, hist_n), i32),
+           (arrivals, "arrivals", (a, k), i32),
+           (caps, "caps", (a, SIM_NCAPS), f32))
+    for x, name, shape, dtype in ins:
+        _check(x, name, shape, dtype, dev)
+    if a < 1 or hist_n < 1:
+        raise ValueError(f"queue_advance: needs A >= 1 agents and H >= 1 "
+                         f"buckets, got A={a}, H={hist_n}")
+    smem = (ring + hist_n) * 4
+    if smem > MAX_SMEM_BYTES:
+        raise ValueError(f"queue_advance: ring {ring} + histogram {hist_n} "
+                         f"need {smem} B of shared memory, more than the "
+                         f"{MAX_SMEM_BYTES} B one block may take")
+    outs = tuple(torch.empty_like(x) for x, *_ in ins[:5])
+    lib = build.load("queue_advance")
+    fn = lib.queue_advance_launch
+    fn.argtypes, fn.restype = _ARGTYPES, _I
+    rc = fn(*(x.data_ptr() for x, *_ in ins), *(o.data_ptr() for o in outs),
+            a, ring, hist_n, k, torch.cuda.current_stream(dev).cuda_stream)
+    build.check(lib, "queue_advance", rc)
+    queue_advance.launches += 1
+    return outs
+
+
+queue_advance.launches = 0

@@ -1,11 +1,12 @@
 """Plain PyTorch versions of the ported kernels (the correctness references).
 
-Port of the Eq. 6 and delta-codec halves of ``repro.kernels.ref``, written
-over a leading agent axis (the JAX package ``vmap``s a per-agent function).
-Each function follows the JAX operation order, so on the CPU it agrees with
-the JAX oracle to float32 roundoff (and bit for bit for the codec). These are
-what the kernel wrappers run for CPU tensors, and what ``chip_smoke.py``
-holds each CUDA kernel against on the card.
+Port of the Eq. 6, delta-codec and twin-microtick parts of
+``repro.kernels.ref``, written over a leading agent axis (the JAX package
+``vmap``s a per-agent function). Each function follows the JAX operation
+order, so on the CPU it agrees with the JAX oracle to float32 roundoff (and
+bit for bit for the codec and the twin). These are what the kernel wrappers
+run for CPU tensors, and what ``chip_smoke.py`` holds each CUDA kernel
+against on the card.
 """
 from __future__ import annotations
 
@@ -217,3 +218,132 @@ def delta_codec_step(xf, *, codec: str, k: int = 1):
 def delta_codec_ref(delta, residual, *, codec: str, k: int = 1):
     """Plain version of the K2 ``delta_codec`` kernel over (A, L) rows."""
     return delta_codec_step(delta + residual, codec=codec, k=k)
+
+
+# ---------------------------------------------------------------------------
+# Request-level twin: one microtick of the five-stage data plane
+# ---------------------------------------------------------------------------
+# Each agent's in-flight requests occupy a power-of-two ring of arrival
+# microticks. Stage occupants are contiguous ring segments between five
+# monotone request counters (head <= p_inf <= launch <= p_pre <= tail), so
+# ring slot i holds request number q iff q = i (mod R), and admission and
+# completion touch the slots with ((i - ptr) & (R-1)) < n.
+
+# counters layout (int32): five stage pointers, the inference server's busy
+# flag and completion tick, four request accumulators, the microtick clock
+(SIM_TAIL, SIM_PPRE, SIM_LAUNCH, SIM_PINF, SIM_HEAD, SIM_BUSY, SIM_DONE_AT,
+ SIM_ARRIVED, SIM_DROPPED, SIM_COMPLETED, SIM_EFFECTIVE, SIM_TICK) = range(12)
+SIM_NCOUNTERS = 12
+
+# caps layout (float32; the integer-valued entries are truncated per tick):
+# pre/post service per tick, requests per batch, batch service ticks,
+# per-stage queue capacity, SLO deadline in ticks
+CAP_PRE, CAP_POST, CAP_BATCH, CAP_TBATCH, CAP_QCAP, CAP_SLO = range(6)
+SIM_NCAPS = 6
+
+
+def check_ring(ring: int) -> None:
+    if ring <= 0 or ring & (ring - 1):
+        raise ValueError(f"ring capacity must be a positive power of two, "
+                         f"got {ring}")
+
+
+def sim_microtick(arrive, counters, credits, lat_sum, hist, n_arrive, caps):
+    """One microtick for every agent.
+
+    arrive (A, R) int32, counters (A, SIM_NCOUNTERS) int32, credits (A, 2)
+    float32 (pre, post), lat_sum (A,) float32, hist (A, H) int32, n_arrive
+    (A,) int32, caps (A, SIM_NCAPS) float32. Returns the new (arrive,
+    counters, credits, lat_sum, hist).
+
+    Stages in a backward sweep, so a request spends at least one tick per
+    stage: (1) the in-flight batch completes into the post queue; (2) post
+    service completes the oldest post-queue requests (latency m + 1 -
+    arrive feeds the sum, the effective count and the histogram); (3) a
+    work-conserving batch launch, backpressured by post-queue room; (4) pre
+    service, backpressured by batch-queue room; (5) admission, dropping
+    what the bounded pre queue cannot take. The histogram is a
+    ``scatter_add_`` into H+1 buckets whose last (the slots not completed)
+    is dropped: the same integers as the reference's (R, H) compare-sum."""
+    i32, f32 = torch.int32, torch.float32
+    a, ring = arrive.shape
+    check_ring(ring)
+    hist_n = hist.shape[-1]
+    idx = torch.arange(ring, dtype=i32, device=arrive.device)
+    c = counters
+    m = c[:, SIM_TICK]
+
+    c_pre, c_post = caps[:, CAP_PRE], caps[:, CAP_POST]
+    batch_slots = caps[:, CAP_BATCH].to(i32)
+    t_batch = caps[:, CAP_TBATCH].to(i32)
+    qcap = caps[:, CAP_QCAP].to(i32)
+    slo_ticks = caps[:, CAP_SLO].to(i32)
+
+    # (1) inference completion
+    done = (c[:, SIM_BUSY] > 0) & (m >= c[:, SIM_DONE_AT])
+    p_inf = torch.where(done, c[:, SIM_LAUNCH], c[:, SIM_PINF])
+    busy = torch.where(done, 0, c[:, SIM_BUSY])
+
+    # (2) post service (credits stay >= 0: truncation is floor)
+    post_credit = torch.minimum(credits[:, 1] + c_post, c_post + 1.0)
+    n_post = torch.minimum(post_credit.to(i32), p_inf - c[:, SIM_HEAD])
+    post_credit = post_credit - n_post.to(f32)
+    comp = ((idx - c[:, SIM_HEAD, None]) & (ring - 1)) < n_post[:, None]
+    lat = m[:, None] + 1 - arrive
+    lat_sum = lat_sum + torch.where(comp, lat, 0).sum(-1, dtype=i32).to(f32)
+    n_eff = (comp & (lat <= slo_ticks[:, None])).sum(-1, dtype=i32)
+    bucket = torch.where(comp, lat.clamp(0, hist_n - 1), hist_n)
+    counts = torch.zeros(a, hist_n + 1, dtype=i32, device=hist.device)
+    counts.scatter_add_(1, bucket.long(), torch.ones_like(bucket))
+    hist = hist + counts[:, :hist_n]
+    head = c[:, SIM_HEAD] + n_post
+
+    # (3) batch launch, backpressured by post-queue room
+    ready = c[:, SIM_PPRE] - c[:, SIM_LAUNCH]
+    room = qcap - (c[:, SIM_LAUNCH] - head)
+    n_launch = torch.clamp_min(
+        torch.minimum(torch.minimum(ready, batch_slots), room), 0)
+    do_launch = (busy == 0) & (n_launch > 0)
+    launch = torch.where(do_launch, c[:, SIM_LAUNCH] + n_launch,
+                         c[:, SIM_LAUNCH])
+    done_at = torch.where(do_launch, m + t_batch, c[:, SIM_DONE_AT])
+    busy = torch.where(do_launch, 1, busy)
+
+    # (4) pre service, backpressured by batch-queue room
+    pre_credit = torch.minimum(credits[:, 0] + c_pre, c_pre + 1.0)
+    n_pre = torch.minimum(
+        pre_credit.to(i32),
+        torch.minimum(c[:, SIM_TAIL] - c[:, SIM_PPRE],
+                      torch.clamp_min(qcap - (c[:, SIM_PPRE] - launch), 0)))
+    n_pre = torch.clamp_min(n_pre, 0)
+    pre_credit = pre_credit - n_pre.to(f32)
+    p_pre = c[:, SIM_PPRE] + n_pre
+
+    # (5) admission into the bounded pre queue; overflow drops
+    free = torch.minimum(qcap - (c[:, SIM_TAIL] - p_pre),
+                         ring - (c[:, SIM_TAIL] - head))
+    admit = torch.minimum(torch.clamp_min(torch.minimum(n_arrive, free), 0),
+                          n_arrive)
+    adm = ((idx - c[:, SIM_TAIL, None]) & (ring - 1)) < admit[:, None]
+    arrive = torch.where(adm, m[:, None], arrive)
+    tail = c[:, SIM_TAIL] + admit
+
+    counters = torch.stack([
+        tail, p_pre, launch, p_inf, head, busy, done_at,
+        c[:, SIM_ARRIVED] + n_arrive, c[:, SIM_DROPPED] + (n_arrive - admit),
+        c[:, SIM_COMPLETED] + n_post, c[:, SIM_EFFECTIVE] + n_eff, m + 1],
+        dim=-1)
+    credits = torch.stack([pre_credit, post_credit], dim=-1)
+    return arrive, counters, credits, lat_sum, hist
+
+
+def queue_advance_ref(arrive, counters, credits, lat_sum, hist, arrivals,
+                      caps):
+    """Plain version of the K3 ``queue_advance`` kernel: K microticks per
+    agent, arrivals (A, K) int32 and one caps row (A, SIM_NCAPS) held for
+    the whole control interval. Returns the new (arrive, counters, credits,
+    lat_sum, hist); the inputs are not modified."""
+    state = (arrive, counters, credits, lat_sum, hist)
+    for t in range(arrivals.shape[-1]):
+        state = sim_microtick(*state, arrivals[:, t], caps)
+    return state

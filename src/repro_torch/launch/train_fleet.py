@@ -6,11 +6,16 @@ Alg. 1 aggregation -> Alg. 2 fine-tune -> hierarchical pod merge) through
 cuda``, the default) or the CPU. The device picks the implementation of
 each kernel: CUDA tensors launch the hand-written kernels
 (``repro_torch.kernels``), CPU tensors run their plain PyTorch versions.
+``--env-backend twin`` trains in the request-level digital twin (K
+microticks per control interval, one K3 launch per interval on the GPU);
+``--scenario`` picks the workload from the scenario library.
 
 Examples:
   PYTHONPATH=src python -m repro_torch.launch.train_fleet
   PYTHONPATH=src python -m repro_torch.launch.train_fleet --agents 8 \\
       --pods 2 --episodes 20 --fl-codec int8
+  PYTHONPATH=src python -m repro_torch.launch.train_fleet --env-backend twin \\
+      --scenario switching --episodes 20
   PYTHONPATH=src python -m repro_torch.launch.train_fleet --device cpu \\
       --agents 4 --episodes 4 --fl-every 1
 """
@@ -24,10 +29,11 @@ import torch
 
 from repro_torch import resolve_device
 from repro_torch.configs.fcpo import FCPOConfig
+from repro_torch.core.backends import BACKENDS, get_backend
 from repro_torch.core.fleet import fleet_init, train_fleet_reference
-from repro_torch.data.workload import fleet_traces
 from repro_torch.fl.transport import CODECS, TransportConfig
 from repro_torch.kernels import build
+from repro_torch.sim import SCENARIOS, SimParams, make_scenario
 
 
 def main(argv=None):
@@ -51,6 +57,17 @@ def main(argv=None):
     ap.add_argument("--fl-deadline-s", type=float, default=0.0,
                     help="FL round deadline (s); uplink time = encoded "
                          "payload bits / per-agent bandwidth. <= 0 disables")
+    ap.add_argument("--env-backend", choices=BACKENDS, default="fluid",
+                    help="environment the CRL episodes run in: the fluid "
+                         "MDP or the request-level digital twin")
+    ap.add_argument("--scenario", choices=SCENARIOS, default="nominal",
+                    help="workload scenario of the training traces")
+    ap.add_argument("--dt", type=float, default=0.05,
+                    help="twin microtick length (s)")
+    ap.add_argument("--k-ticks", type=int, default=20,
+                    help="twin microticks per control interval")
+    ap.add_argument("--ring", type=int, default=512,
+                    help="twin ring capacity (power of two)")
     ap.add_argument("--no-federated", action="store_true")
     ap.add_argument("--no-learn", action="store_true")
     ap.add_argument("--seed", type=int, default=0)
@@ -63,6 +80,15 @@ def main(argv=None):
     if args.fl_topk_frac != 0.05 and args.fl_codec != "topk":
         ap.error("--fl-topk-frac only affects the topk codec; add "
                  "--fl-codec topk")
+    if args.ring <= 0 or args.ring & (args.ring - 1):
+        ap.error("--ring must be a positive power of two")
+    if args.k_ticks < 1:
+        ap.error("--k-ticks must be >= 1")
+    if args.env_backend == "fluid" and (
+            args.dt != 0.05 or args.k_ticks != 20 or args.ring != 512):
+        ap.error("--dt/--k-ticks/--ring configure the twin data plane and "
+                 "are silent no-ops on the fluid backend; add "
+                 "--env-backend twin")
 
     dev = resolve_device(args.device)
     # full float32 on the card, as on the CPU (no TF32 rounding)
@@ -76,22 +102,24 @@ def main(argv=None):
     transport = TransportConfig(codec=args.fl_codec,
                                 topk_frac=args.fl_topk_frac,
                                 deadline_s=args.fl_deadline_s)
+    backend = get_backend(args.env_backend, sim_params=SimParams(
+        dt=args.dt, k_ticks=args.k_ticks, ring=args.ring))
     fleet = fleet_init(cfg, args.agents, args.seed, n_pods=args.pods,
-                       device=dev)
+                       device=dev, env_backend=backend)
     gen = torch.Generator()
     gen.manual_seed(args.seed + 1)
-    traces = fleet_traces(gen, args.agents, args.episodes * cfg.n_steps,
-                          device=dev)
+    traces = make_scenario(args.scenario, gen, args.agents,
+                           args.episodes * cfg.n_steps, device=dev)
     name = torch.cuda.get_device_name(dev) if dev.type == "cuda" else "cpu"
     print(f"fleet: {args.agents} iAgents, {args.pods} pods, "
-          f"{args.episodes} episodes, env=fluid, scenario=nominal, "
-          f"device={dev.type} ({name})")
+          f"{args.episodes} episodes, env={backend.name}, "
+          f"scenario={args.scenario}, device={dev.type} ({name})")
 
     t0 = time.time()
     fleet, hist = train_fleet_reference(
         cfg, fleet, traces, learn=not args.no_learn,
         federated=not args.no_federated, straggler_prob=args.straggler_prob,
-        seed=args.seed, transport=transport)
+        seed=args.seed, env_backend=backend, transport=transport)
     wall = time.time() - t0
 
     n_run = len(hist["reward"])

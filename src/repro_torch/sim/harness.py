@@ -1,0 +1,107 @@
+"""Closed-loop twin harness: trained FCPO policies driving the request-level
+data plane.
+
+Port of ``repro.sim.harness``. ``simulate_fleet`` is a Python loop over
+control intervals (the reference's ``lax.scan``); each interval observes
+the twin, samples every agent's action (the policy acts once per k_ticks
+microticks, the paper's 1 s control cadence), decodes the actions to
+service caps, spreads the interval's arrivals over its ticks and advances
+the whole fleet with one ``sim_interval`` (one K3 launch on the GPU). The
+per-interval history stays on the device and moves to the host once, at
+the end.
+"""
+from __future__ import annotations
+
+from typing import Dict, Tuple
+
+import numpy as np
+import torch
+
+from repro_torch.configs.fcpo import FCPOConfig
+from repro_torch.core.agent import ActionMask, sample_actions
+from repro_torch.core.env import EnvParams, observe_vector
+from repro_torch.sim import metrics as sim_metrics
+from repro_torch.sim.state import (SimParams, SimState, action_caps,
+                                   effective_queue_cap, sim_init,
+                                   spread_arrivals, warn_if_ring_clamps)
+from repro_torch.sim.step import sim_interval
+
+HISTORY_KEYS = ("throughput", "effective_throughput", "drops", "latency",
+                "pre_q", "post_q")
+
+
+def sim_observe(cfg: FCPOConfig, sp: SimParams, ep: EnvParams,
+                state: SimState, drops_prev, cur_action, rate):
+    """The (A, 8) iAgent state vectors (§IV-B) read off the twin; the
+    normalization is ``core.env.observe_vector``, shared by every backend,
+    so a policy trained on the fluid env transfers unchanged."""
+    return observe_vector(cfg, rate=rate, cur_action=cur_action,
+                          drops=drops_prev, pre_q=state.pre_q,
+                          post_q=state.post_q,
+                          queue_cap=effective_queue_cap(sp, ep),
+                          slo_s=ep.slo_s)
+
+
+def simulate_fleet(cfg: FCPOConfig, sp: SimParams, params,
+                   masks: ActionMask, env_params: EnvParams,
+                   traces: torch.Tensor, *, gumbel=None, generator=None
+                   ) -> Tuple[SimState, Dict[str, np.ndarray], Dict]:
+    """Drive a fleet of policies through the request-level twin.
+
+    params/masks/env_params: the agent-stacked (A, ...) policy parameters,
+    action masks and device profiles (a ``Fleet``'s); traces: (A, T)
+    control-interval arrival rates (requests/s), on the fleet's device.
+    ``gumbel``: optional pre-drawn (T, A, n_res+n_bs+n_mt) action noise;
+    without it the noise comes from ``generator``. Returns (final state,
+    per-interval history of (T, A) numpy arrays, per-agent request-grade
+    summary of (A,) tensors incl. p50/p99 latency)."""
+    warn_if_ring_clamps(sp, env_params.queue_cap, stacklevel=2)
+    dev = traces.device
+    a, n_int = traces.shape
+    f32 = torch.float32
+    state = sim_init(sp, a, dev)
+    drops_prev = torch.zeros(a, dtype=torch.int32, device=dev)
+    cur_action = torch.zeros(a, 3, dtype=torch.long, device=dev)
+    phase = torch.zeros(a, device=dev)
+    rows = []
+    with torch.no_grad():
+        for t in range(n_int):
+            rate = traces[:, t]
+            obs = sim_observe(cfg, sp, env_params, state, drops_prev,
+                              cur_action, rate)
+            actions, _, _ = sample_actions(
+                cfg, params, obs, masks,
+                gumbel=None if gumbel is None else gumbel[t],
+                generator=generator)
+            caps = action_caps(cfg, sp, env_params, actions)
+            arrivals, phase = spread_arrivals(sp, rate, phase)
+            state2 = sim_interval(state, arrivals, caps)
+
+            d_comp = (state2.completed - state.completed).to(f32)
+            d_drop = state2.dropped - state.dropped
+            rows.append(torch.stack([
+                d_comp / sp.interval_s,
+                (state2.effective - state.effective).to(f32) / sp.interval_s,
+                d_drop.to(f32),
+                (state2.lat_sum - state.lat_sum)
+                / torch.clamp_min(d_comp, 1.0) * sp.dt,
+                state2.pre_q.to(f32),
+                state2.post_q.to(f32)]))
+            state, drops_prev, cur_action = state2, d_drop, actions
+    stacked = torch.stack(rows, dim=1).cpu().numpy()   # one transfer
+    history = dict(zip(HISTORY_KEYS, stacked))
+    summary = sim_metrics.summarize(state, sp)
+    sim_metrics.warn_if_censored(summary, sp, stacklevel=3)
+    return state, history, summary
+
+
+def eval_fleet(cfg: FCPOConfig, sp: SimParams, fleet, traces, *,
+               gumbel=None, generator=None):
+    """``simulate_fleet`` for a trained fleet: reads the policy, masks and
+    device profiles off anything Fleet-shaped (``.astate.policy`` /
+    ``.masks`` / ``.env_params``); the noise comes from ``generator``,
+    else from the fleet's own generator."""
+    return simulate_fleet(cfg, sp, fleet.astate.policy.params(), fleet.masks,
+                          fleet.env_params, traces, gumbel=gumbel,
+                          generator=(fleet.generator if generator is None
+                                     else generator))

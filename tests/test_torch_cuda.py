@@ -7,7 +7,7 @@ PyTorch is installed:
 (``--noconftest``: tests/conftest.py imports JAX). K1 is held against its
 plain version within rtol 1e-4 / atol 1e-5 with identical decision traces,
 a first divergence accepted only at a near-tie (score gap below 1e-5
-relative); K2 bit for bit; the trainer must launch both kernels.
+relative); K2 and K3 bit for bit; the trainer must launch the kernels.
 """
 import numpy as np
 import pytest
@@ -18,7 +18,9 @@ from repro_torch.core.buffer import RIDGE, buffer_init
 from repro_torch.fl.transport import topk_k
 from repro_torch.kernels.delta_codec import delta_codec
 from repro_torch.kernels.diversity import diversity_insert
-from repro_torch.kernels.ref import delta_codec_ref, diversity_insert_ref
+from repro_torch.kernels.queue_advance import queue_advance
+from repro_torch.kernels.ref import (delta_codec_ref, diversity_insert_ref,
+                                     queue_advance_ref)
 
 LEAF_SIZES = (512, 64, 3072, 48, 48, 1, 192, 4, 364, 7, 208, 4)
 KW = dict(alpha=0.5, beta=0.5, ridge=RIDGE)
@@ -117,4 +119,63 @@ def test_trainer_launches_both_kernels_on_the_card(cuda_device):
                                 "--fl-codec", "int8"])
     assert diversity_insert.launches == 3          # one per episode
     assert delta_codec.launches == 3 * 12          # one per leaf per round
+    assert all(np.isfinite(v).all() for v in hist.values())
+
+
+def k3_interval(rng, regime, a, k):
+    """Arrivals (A, K) and caps (A, 6) of one interval: idle (0-1 arrivals
+    per tick), nominal (the nominal traces' rates, 15-45 req/s at 50 ms
+    ticks) or overload (3-6x what the caps serve, smallest batch)."""
+    if regime == "overload":
+        c_post = rng.uniform(0.2, 0.5, a)
+        caps = np.stack([rng.uniform(1, 2, a), c_post, np.ones(a),
+                         np.ones(a), np.full(a, 8.0), np.full(a, 5.0)], 1)
+        arrivals = rng.poisson(rng.uniform(3, 6, (a, 1)) * c_post[:, None],
+                               (a, k))
+    else:
+        caps = np.stack([rng.uniform(1, 12, a), rng.uniform(1, 14, a),
+                         rng.integers(1, 65, a), rng.integers(1, 4, a),
+                         np.full(a, 128.0), np.full(a, 5.0)], 1)
+        lam = 0.5 if regime == "idle" else rng.uniform(0.75, 2.25, (a, 1))
+        arrivals = rng.poisson(lam, (a, k))
+        if regime == "idle":
+            arrivals = np.minimum(arrivals, 1)
+    return (torch.tensor(arrivals, dtype=torch.int32),
+            torch.tensor(caps, dtype=torch.float32))
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("regime", ["idle", "nominal", "overload"])
+def test_k3_bit_identical_to_plain_on_the_card(cuda_device, regime):
+    """Ten chained intervals at R=512, H=64, K=20, A=256: all five outputs
+    equal the plain version's, and the regime did what it is for."""
+    rng = np.random.default_rng(["idle", "nominal", "overload"].index(regime))
+    a, i32 = 256, torch.int32
+    state = [torch.zeros(a, 512, dtype=i32), torch.zeros(a, 12, dtype=i32),
+             torch.zeros(a, 2), torch.zeros(a), torch.zeros(a, 64, dtype=i32)]
+    for _ in range(10):
+        arrivals, caps = k3_interval(rng, regime, a, 20)
+        before = queue_advance.launches
+        got = queue_advance(*(x.to(cuda_device) for x in state),
+                            arrivals.to(cuda_device), caps.to(cuda_device))
+        assert queue_advance.launches == before + 1
+        want = queue_advance_ref(*state, arrivals, caps)
+        for g, w in zip(got, want):
+            assert torch.equal(g.cpu(), w)
+        state = list(want)
+    c = state[1]
+    arrived, dropped, completed = c[:, 7], c[:, 8], c[:, 9]
+    assert torch.equal(arrived, dropped + completed + c[:, 0] - c[:, 4])
+    assert int(completed.sum()) > 0
+    assert (int(dropped.sum()) > 0) == (regime == "overload")
+
+
+@pytest.mark.cuda
+def test_twin_trainer_launches_k3_once_per_interval(cuda_device):
+    from repro_torch.launch import train_fleet
+    queue_advance.launches = diversity_insert.launches = 0
+    _, hist = train_fleet.main(["--agents", "4", "--pods", "2",
+                                "--episodes", "3", "--env-backend", "twin"])
+    assert queue_advance.launches == 3 * 10        # n_steps per episode
+    assert diversity_insert.launches == 3
     assert all(np.isfinite(v).all() for v in hist.values())

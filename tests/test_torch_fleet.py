@@ -24,45 +24,15 @@ from repro_torch.configs.fcpo import FCPOConfig as TCfg
 from repro_torch.core import fleet as tfleet
 from repro_torch.fl import transport as ttr
 from repro_torch.kernels.diversity import diversity_insert
-from test_torch_support import (close, close_tree, exact, head_sizes,
-                                jax_episode_noise, jax_fleet_tree,
-                                to_rollout)
+from test_torch_support import (close, close_state, close_tree, exact,
+                                head_sizes, jax_episode_noise,
+                                jax_fleet_tree, to_rollout)
 
 A, P, N_EPS = 4, 2, 5
 CFG_J, CFG_T = JCfg(fl_every=1), TCfg(fl_every=1)
 # the deadline drops the slowest links of the int8 uploads (~4.6 KB)
 TRANSPORTS = {"float32": dict(codec="float32"),
               "int8": dict(codec="int8", deadline_s=0.002)}
-
-
-def close_state(got, want, keys, codec):
-    """Final fleet state within the band. int8 residuals: a coordinate
-    whose ``frac = x/scale`` sits at a rounding tie may round the other
-    way after float32 roundoff upstream — accepted for at most two
-    coordinates per leaf, each off by no more than one quantization step
-    (``scale >= 2·max|residual|`` of its row)."""
-    for key in keys:
-        if key == "residuals" and codec == "int8":
-            for name, w in _flat(want[key]).items():
-                g = _flat(got[key])[name]
-                bad = ~np.isclose(g, w, rtol=1e-4, atol=1e-5)
-                step = 2 * np.abs(w).reshape(len(w), -1).max(1)
-                step = step.reshape((-1,) + (1,) * (w.ndim - 1))
-                within = np.abs(g - w) <= 1.01 * np.broadcast_to(step, w.shape)
-                assert bad.sum() <= 2 and within[bad].all(), \
-                    f"residuals.{name}: {bad.sum()} coordinates off"
-            continue
-        close_tree(got[key], want[key], key + ".")
-
-
-def _flat(tree, prefix=""):
-    out = {}
-    for k, v in tree.items():
-        if isinstance(v, dict):
-            out.update(_flat(v, f"{prefix}{k}."))
-        else:
-            out[f"{prefix}{k}"] = np.asarray(v)
-    return out
 
 
 @pytest.fixture(scope="module")

@@ -25,7 +25,7 @@ def test_importing_every_module_pulls_in_no_jax_and_no_repro():
         "bad = sorted(k for k in sys.modules if k == 'jax' or "
         "k.startswith(('jax.', 'jaxlib')) or k == 'repro' or "
         "k.startswith('repro.'))\n"
-        "assert len(mods) >= 20, mods\n"
+        "assert len(mods) >= 33, mods\n"
         "assert not bad, bad\n"
         "print(len(mods))\n")
     out = subprocess.run([sys.executable, "-c", code], capture_output=True,
@@ -69,7 +69,8 @@ def test_build_without_nvcc_raises(monkeypatch, tmp_path):
 def test_cpu_tensors_take_the_plain_version_and_count_no_launch():
     import torch
     from repro_torch.kernels.delta_codec import delta_codec
-    from repro_torch.kernels.ref import delta_codec_ref
+    from repro_torch.kernels.queue_advance import queue_advance
+    from repro_torch.kernels.ref import delta_codec_ref, queue_advance_ref
     x, r = torch.randn(3, 40), torch.randn(3, 40)
     before = delta_codec.launches
     got = delta_codec(x, r, codec="int8")
@@ -78,3 +79,14 @@ def test_cpu_tensors_take_the_plain_version_and_count_no_launch():
     assert delta_codec.launches == before
     with pytest.raises(ValueError, match="codec"):
         delta_codec(x, r, codec="fp8")
+
+    i32 = torch.int32
+    state = (torch.zeros(3, 64, dtype=i32), torch.zeros(3, 12, dtype=i32),
+             torch.zeros(3, 2), torch.zeros(3), torch.zeros(3, 16, dtype=i32))
+    arrivals = torch.randint(0, 6, (3, 8), dtype=i32)
+    caps = torch.tensor([[2.5, 3.0, 4.0, 2.0, 8.0, 5.0]]).repeat(3, 1)
+    before = queue_advance.launches
+    got = queue_advance(*state, arrivals, caps)
+    want = queue_advance_ref(*state, arrivals, caps)
+    assert all(torch.equal(g, w) for g, w in zip(got, want))
+    assert queue_advance.launches == before

@@ -1,0 +1,346 @@
+"""The port's request-level twin (``repro_torch.sim`` and K3's plain
+version) against the JAX package on the CPU.
+
+Same numpy inputs into ``repro.sim`` / ``repro.kernels`` and their
+counterparts in the port. The twin's integer state is compared exactly, and
+so are its float32 credits and latency sums (every operation that feeds
+them is reproduced in the reference's order); caps and arrival spreading
+bit for bit against the compiled (``jit``) JAX functions; other floats
+within rtol 1e-4 / atol 1e-5.
+"""
+import itertools
+
+import jax
+import jax.numpy as jnp
+import numpy as np
+import pytest
+import torch
+
+from repro.configs.fcpo import FCPOConfig as JCfg
+from repro.core import env as jenv
+from repro.core.backends import TwinBackend as JTwin
+from repro.core.fleet import fleet_init as j_fleet_init
+from repro.kernels import ref as jref
+from repro.kernels.queue_advance import queue_advance as j_pallas_qa
+from repro.sim import harness as jharness
+from repro.sim import metrics as jmetrics
+from repro.sim import state as jstate
+from repro.sim.oracle import simulate_python_agent
+from repro_torch.configs.fcpo import FCPOConfig as TCfg
+from repro_torch.core import env as tenv
+from repro_torch.core.agent import ActionMask, tensors_from_numpy
+from repro_torch.core.backends import TwinBackend, TwinEnvState
+from repro_torch.kernels import ref as tref
+from repro_torch.kernels.queue_advance import queue_advance
+from repro_torch.sim import harness as tharness
+from repro_torch.sim import metrics as tmetrics
+from repro_torch.sim import state as tstate
+from test_torch_support import (close, env_state_tree, exact, head_sizes,
+                                jax_sim_noise, np_tree)
+
+SMALL = dict(dt=0.05, k_ticks=8, ring=32, hist_n=16)   # tests/test_sim.py
+CFG_J, CFG_T = JCfg(), TCfg()
+SIM_FIELDS = ("arrive", "counters", "credits", "lat_sum", "hist")
+
+
+def both_sp(**kw):
+    return jstate.SimParams(**kw), tstate.SimParams(**kw)
+
+
+def empty_state(a, sp):
+    return [np.zeros((a, sp.ring), np.int32),
+            np.zeros((a, tref.SIM_NCOUNTERS), np.int32),
+            np.zeros((a, 2), np.float32), np.zeros((a,), np.float32),
+            np.zeros((a, sp.hist_n), np.int32)]
+
+
+def small_args(rng, a, sp):
+    """tests/test_sim.py's random intervals: 0-6 arrivals per tick, caps
+    around [2.5, 3, 4, 2, 8, 5] with integer-step jitter."""
+    arrivals = rng.integers(0, 7, (a, sp.k_ticks)).astype(np.int32)
+    jitter = rng.integers(0, 3, (a, 6)).astype(np.float32)
+    caps = (np.asarray([2.5, 3.0, 4.0, 2.0, 8.0, 5.0], np.float32)[None]
+            + jitter * np.asarray([0.5, 0.5, 1.0, 1.0, 0.0, 0.0], np.float32))
+    return arrivals, caps.astype(np.float32)
+
+
+def overload_args(rng, a, sp):
+    """3-6x the arrivals the caps serve (post service is the bottleneck),
+    with the smallest batch and small queues: the post queue fills to its
+    room bound, then backpressure reaches admission and requests drop."""
+    c_post = rng.uniform(0.2, 0.5, a).astype(np.float32)
+    caps = np.stack([rng.uniform(1.0, 2.0, a), c_post, np.ones(a),
+                     np.ones(a), np.full(a, 8.0),
+                     np.full(a, 5.0)], 1).astype(np.float32)
+    mult = rng.uniform(3.0, 6.0, (a, 1))
+    arrivals = rng.poisson(mult * c_post[:, None], (a, sp.k_ticks))
+    return arrivals.astype(np.int32), caps
+
+
+def run_jax(kind, state, arrivals, caps):
+    args = [jnp.asarray(x) for x in (*state, arrivals, caps)]
+    if kind == "pallas":
+        return j_pallas_qa(*args, interpret=True)
+    return jax.vmap(jref.queue_advance_ref)(*args)
+
+
+def assert_sim_equal(got, want, msg=""):
+    for name, g, w in zip(SIM_FIELDS, got, want):
+        g = g.numpy() if torch.is_tensor(g) else np.asarray(g)
+        w = np.asarray(w)
+        assert g.dtype == w.dtype, (name, g.dtype, w.dtype)
+        np.testing.assert_array_equal(g, w, err_msg=f"{name} {msg}")
+
+
+# ---------------------------------------------------------------------------
+# K3's plain version
+# ---------------------------------------------------------------------------
+@pytest.mark.parametrize("kind", ["oracle", pytest.param(
+    "pallas", marks=pytest.mark.pallas)])
+def test_queue_advance_plain_matches_jax_chained(kind):
+    """Five chained intervals at the small geometry, bit for bit against
+    ``vmap(ref.queue_advance_ref)`` and the Pallas kernel (interpret)."""
+    sp = tstate.SimParams(**SMALL)
+    rng = np.random.default_rng(0)
+    state = empty_state(4, sp)
+    for i in range(5):
+        arrivals, caps = small_args(rng, 4, sp)
+        want = run_jax(kind, state, arrivals, caps)
+        got = queue_advance(*(torch.tensor(x) for x in state),
+                            torch.tensor(arrivals), torch.tensor(caps))
+        assert_sim_equal(got, want, f"interval {i}")
+        state = [np.asarray(x) for x in want]
+    counters = state[1]
+    assert counters[:, tref.SIM_COMPLETED].sum() > 0
+    assert counters[:, tref.SIM_DROPPED].sum() > 0
+
+
+@pytest.mark.parametrize("kind", ["oracle", pytest.param(
+    "pallas", marks=pytest.mark.pallas)])
+def test_queue_advance_plain_matches_jax_overloaded_default_geometry(kind):
+    """SimParams() (R=512, H=64, K=20), A=4, overload: drops, a full post
+    queue, conservation; bit for bit over three chained intervals."""
+    sp = tstate.SimParams()
+    rng = np.random.default_rng(1)
+    state = empty_state(4, sp)
+    for i in range(3):
+        arrivals, caps = overload_args(rng, 4, sp)
+        want = run_jax(kind, state, arrivals, caps)
+        got = queue_advance(*(torch.tensor(x) for x in state),
+                            torch.tensor(arrivals), torch.tensor(caps))
+        assert_sim_equal(got, want, f"interval {i}")
+        state = [np.asarray(x) for x in want]
+    st = tstate.SimState(*(torch.tensor(x) for x in state))
+    c = st.counters
+    assert (st.dropped > 0).all()
+    # post queue + the batch in service at the room bound (qcap)
+    exact(c[:, tref.SIM_LAUNCH] - c[:, tref.SIM_HEAD],
+          caps[:, tref.CAP_QCAP].astype(np.int32))
+    exact(st.arrived, st.dropped + st.completed + st.in_flight)
+
+
+def test_queue_advance_plain_keeps_its_inputs_and_checks_the_ring():
+    sp = tstate.SimParams(**SMALL)
+    state = [torch.tensor(x) for x in empty_state(2, sp)]
+    arrivals, caps = small_args(np.random.default_rng(2), 2, sp)
+    before = [x.clone() for x in state]
+    queue_advance(*state, torch.tensor(arrivals), torch.tensor(caps))
+    assert all(torch.equal(a, b) for a, b in zip(state, before))
+    bad = [torch.zeros(2, 24, dtype=torch.int32)] + state[1:]
+    with pytest.raises(ValueError, match="power of two"):
+        queue_advance(*bad, torch.tensor(arrivals), torch.tensor(caps))
+
+
+def test_twin_matches_python_oracle_request_for_request():
+    """The port's twin == ``repro.sim.oracle`` (``serving/slo.py``'s data
+    plane) on one agent: completions, drops, effective count, summed
+    latency and requests in flight (integer caps entries => exact)."""
+    jsp, tsp = both_sp(**SMALL)
+    t_ints = 12
+    rng = np.random.default_rng(0)
+    arrivals = rng.integers(0, 7, (t_ints, tsp.k_ticks)).astype(np.int32)
+    caps = np.stack([
+        rng.choice([1.5, 2.0, 2.5, 3.0], t_ints),
+        rng.choice([2.0, 3.0, 4.0], t_ints),
+        rng.choice([2.0, 4.0, 8.0], t_ints),
+        rng.choice([1.0, 2.0, 3.0], t_ints),
+        np.full(t_ints, 8.0),
+        np.full(t_ints, 5.0)], axis=1).astype(np.float32)
+    s = tstate.sim_init(tsp, 1, "cpu")
+    for t in range(t_ints):
+        s = tstate.SimState(*queue_advance(
+            *s.tensors(), torch.tensor(arrivals[t:t + 1]),
+            torch.tensor(caps[t:t + 1])))
+    py = simulate_python_agent(arrivals, caps, jsp)
+    assert int(s.arrived[0]) == py["arrived"]
+    assert int(s.dropped[0]) == py["dropped"]
+    assert int(s.completed[0]) == py["completed"]
+    assert int(s.effective[0]) == py["effective"]
+    assert float(s.lat_sum[0]) == py["lat_sum"]
+    assert int(s.in_flight[0]) == py["in_flight"]
+    assert py["dropped"] > 0 and py["completed"] > 0
+
+
+# ---------------------------------------------------------------------------
+# action decode and arrival spreading
+# ---------------------------------------------------------------------------
+def env_params_pair(speeds):
+    jep = jax.vmap(lambda s: jenv.default_env_params(s, 0.25))(
+        jnp.asarray(speeds, jnp.float32))
+    tep = tenv.EnvParams(**{k: torch.tensor(np.asarray(v))
+                            for k, v in jep._asdict().items()})
+    return jep, tep
+
+
+@pytest.mark.parametrize("geometry", [SMALL, {}, dict(dt=0.03, k_ticks=7)])
+def test_action_caps_match_compiled_jax_for_every_action(geometry):
+    """Every (res, bs, mt) action on the default device mix and 40 random
+    device speeds: the caps equal the compiled JAX decode bit for bit (the
+    port reproduces XLA's two fused multiply-adds and its ``1/dt``
+    products; PERF.md)."""
+    jsp, tsp = both_sp(**geometry)
+    acts = np.array(list(itertools.product(range(4), range(7), range(4))),
+                    np.int32)
+    speeds = np.concatenate([[0.5, 0.75, 1.0, 2.0],
+                             np.random.default_rng(5).uniform(0.25, 3, 40)])
+    act = np.repeat(acts, len(speeds), 0)
+    jep, tep = env_params_pair(np.tile(speeds, len(acts)))
+    want = np.asarray(jax.jit(jax.vmap(
+        lambda e, a: jstate.action_caps(CFG_J, jsp, e, a)))(
+        jep, jnp.asarray(act)))
+    got = tstate.action_caps(CFG_T, tsp, tep, torch.tensor(act).long())
+    assert got.dtype == torch.float32
+    np.testing.assert_array_equal(got.numpy().view(np.int32),
+                                  want.view(np.int32))
+
+
+@pytest.mark.parametrize("geometry", [SMALL, {}, dict(dt=0.03, k_ticks=7)])
+def test_spread_arrivals_match_compiled_jax_with_phase_carry(geometry):
+    """A sweep of 512 rates (edge values included) chained over 25
+    intervals: counts and the float32 phase carry bit for bit."""
+    jsp, tsp = both_sp(**geometry)
+    rng = np.random.default_rng(3)
+    spread = jax.jit(jax.vmap(lambda r, p: jstate.spread_arrivals(jsp, r, p)))
+    ph_j, ph_t = jnp.zeros(512, jnp.float32), torch.zeros(512)
+    for _ in range(25):
+        rate = rng.uniform(0.0, 400.0, 512).astype(np.float32)
+        rate[:8] = [0.0, 1.0, 17.3, 30.9, 399.9, 20.0, 0.5, 123.456]
+        cnt_j, ph_j = spread(jnp.asarray(rate), ph_j)
+        cnt_t, ph_t = tstate.spread_arrivals(tsp, torch.tensor(rate), ph_t)
+        assert cnt_t.dtype == torch.int32
+        exact(cnt_t, cnt_j)
+        np.testing.assert_array_equal(ph_t.numpy().view(np.int32),
+                                      np.asarray(ph_j).view(np.int32))
+        assert ((ph_t >= 0) & (ph_t < 1)).all()
+
+
+# ---------------------------------------------------------------------------
+# metrics
+# ---------------------------------------------------------------------------
+def test_hist_percentile_and_summarize_match_jax():
+    rng = np.random.default_rng(4)
+    a, h = 6, 16
+    hist = rng.integers(0, 30, (a, h)).astype(np.int32)
+    hist[0] = 0                                  # empty histogram
+    hist[1, -1] = 500                            # right-censored agent
+    for q in (0.0, 0.5, 0.99, 1.0):
+        exact(tmetrics.hist_percentile(torch.tensor(hist), q),
+              jmetrics.hist_percentile(jnp.asarray(hist), q))
+    counters = rng.integers(0, 1000, (a, tref.SIM_NCOUNTERS)).astype(np.int32)
+    counters[2] = 0                              # nothing simulated yet
+    state = [np.zeros((a, 32), np.int32), counters,
+             rng.uniform(0, 2, (a, 2)).astype(np.float32),
+             rng.uniform(0, 5e3, a).astype(np.float32), hist]
+    jsp, tsp = both_sp(**SMALL)
+    want = jmetrics.summarize(jstate.SimState(*map(jnp.asarray, state)), jsp)
+    got = tmetrics.summarize(tstate.SimState(*map(torch.tensor, state)), tsp)
+    assert set(got) == set(want)
+    for k, v in want.items():
+        close(got[k], v, k)
+    with pytest.warns(UserWarning, match="right-censored"):
+        frac = tmetrics.warn_if_censored(got, tsp)
+    assert frac == pytest.approx(float(np.max(want["hist_censored"])))
+
+
+# ---------------------------------------------------------------------------
+# the twin backend, one step
+# ---------------------------------------------------------------------------
+def test_twin_backend_observe_and_step_match_jax():
+    """From the same mid-run state (JAX drives four intervals at 80 req/s
+    with random actions), one observe + step: the observation, reward,
+    info and the new state."""
+    jsp, tsp = both_sp(**SMALL)
+    a = 5
+    jbe, tbe = JTwin(sp=jsp), TwinBackend(sp=tsp)
+    speeds = np.asarray([0.5, 0.75, 1.0, 2.0, 1.0], np.float32)
+    jep, tep = env_params_pair(speeds)
+    step = jax.jit(jax.vmap(lambda e, s, ac, r: jbe.step(CFG_J, e, s, ac, r)))
+    observe = jax.jit(jax.vmap(lambda e, s, r: jbe.observe(CFG_J, e, s, r)))
+    js = jax.vmap(lambda _: jbe.init(CFG_J))(jnp.arange(a))
+    rng = np.random.default_rng(6)
+    draw = lambda: np.stack([rng.integers(0, 4, a), rng.integers(0, 7, a),
+                             rng.integers(0, 4, a)], 1).astype(np.int32)
+    for _ in range(4):
+        js, _, _ = step(jep, js, jnp.asarray(draw()), jnp.full(a, 80.0))
+    tree = env_state_tree(js)
+    ts = TwinEnvState(
+        sim=tstate.SimState(*(torch.tensor(tree["sim"][f])
+                              for f in SIM_FIELDS)),
+        cur_action=torch.tensor(tree["cur_action"]).long(),
+        drops_prev=torch.tensor(tree["drops_prev"]),
+        phase=torch.tensor(tree["phase"]), ema_lat=torch.tensor(tree["ema_lat"]))
+    rate = rng.uniform(20, 150, a).astype(np.float32)
+    close(tbe.observe(CFG_T, tep, ts, torch.tensor(rate)),
+          observe(jep, js, jnp.asarray(rate)), "obs")
+    action = draw()
+    js2, jr, jinfo = step(jep, js, jnp.asarray(action), jnp.asarray(rate))
+    ts2, tr, tinfo = tbe.step(CFG_T, tep, ts, torch.tensor(action).long(),
+                              torch.tensor(rate))
+    close(tr, jr, "reward")
+    for k, v in jinfo.items():
+        close(tinfo[k], v, k)
+    want = env_state_tree(js2)
+    assert_sim_equal(ts2.sim.tensors(), [want["sim"][f] for f in SIM_FIELDS])
+    for k in ("cur_action", "drops_prev", "phase"):
+        exact(getattr(ts2, k), want[k], k)
+    close(ts2.ema_lat, want["ema_lat"], "ema_lat")
+    close(ts2.pre_q, js2.pre_q, "pre_q")
+    assert int(ts2.sim.completed.sum()) > 0
+
+
+# ---------------------------------------------------------------------------
+# the closed loop
+# ---------------------------------------------------------------------------
+def test_simulate_fleet_matches_jax():
+    """A=3, 6 intervals, the small geometry with ring 64 (queue_cap clamps
+    to 21 and both packages warn): the port, replaying JAX's Gumbel noise,
+    reproduces JAX's actions, so the final state is identical and the
+    per-interval history and summary agree within the band."""
+    jsp, tsp = both_sp(**dict(SMALL, ring=64))
+    a, n_int = 3, 6
+    jf = j_fleet_init(CFG_J, a, jax.random.PRNGKey(0))
+    traces = np.random.default_rng(7).uniform(5.0, 200.0, (a, n_int)).astype(
+        np.float32)
+    key = jax.random.PRNGKey(2)
+    with pytest.warns(UserWarning, match="clamps queue_cap"):
+        js, jhist, jsumm = jharness.simulate_fleet(
+            CFG_J, jsp, jf.astate.params, jf.masks, jf.env_params,
+            jnp.asarray(traces), key)
+    gumbel = torch.tensor(np.asarray(
+        jax_sim_noise(key, n_int, a, head_sizes(CFG_J))))
+    masks = ActionMask(*(torch.tensor(np.asarray(getattr(jf.masks, k)))
+                         for k in ("res", "bs", "mt")))
+    tep = tenv.EnvParams(**{k: torch.tensor(np.asarray(v))
+                            for k, v in jf.env_params._asdict().items()})
+    with pytest.warns(UserWarning, match="clamps queue_cap"):
+        ts, thist, tsumm = tharness.simulate_fleet(
+            CFG_T, tsp, tensors_from_numpy(np_tree(jf.astate.params), "cpu"),
+            masks, tep, torch.tensor(traces), gumbel=gumbel)
+    assert_sim_equal(ts.tensors(), js)
+    assert set(thist) <= set(jhist)
+    for k, v in thist.items():
+        assert v.shape == (n_int, a), k
+        close(v, jhist[k], k)
+    for k, v in jsumm.items():
+        close(tsumm[k], v, k)
+    assert int(ts.completed.sum()) > 0 and int(ts.dropped.sum()) > 0

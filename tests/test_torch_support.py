@@ -36,6 +36,15 @@ def jax_agents(cfg, a, key):
     return jax.vmap(lambda k: j_agent_init(cfg, k))(jax.random.split(key, a))
 
 
+def env_state_tree(es):
+    """A JAX env state (the fluid ``EnvState`` or the twin's
+    ``TwinEnvState``, whose ``sim`` nests a ``SimState``) as numpy dicts."""
+    tree = es._asdict()
+    if "sim" in tree:
+        tree["sim"] = tree["sim"]._asdict()
+    return np_tree(tree)
+
+
 def jax_fleet_tree(jf):
     """The JAX fleet's state as the nested numpy dicts
     ``repro_torch.core.fleet.fleet_from_numpy`` reads."""
@@ -45,7 +54,7 @@ def jax_fleet_tree(jf):
         "opt": {"m": np_tree(a.opt["m"]), "v": np_tree(a.opt["v"]),
                 "t": np.asarray(a.opt["t"])},
         "buffer": np_tree(a.buffer._asdict()),
-        "env_state": np_tree(a.env_state._asdict()),
+        "env_state": env_state_tree(a.env_state),
         "env_params": np_tree(jf.env_params._asdict()),
         "base_params": np_tree(jf.base_params),
         "masks": np_tree(jf.masks._asdict()),
@@ -74,6 +83,37 @@ def exact(port, ref, msg=""):
     p = port.detach().cpu().numpy() if torch.is_tensor(port) else port
     np.testing.assert_array_equal(np.asarray(p), np.asarray(ref),
                                   err_msg=msg)
+
+
+def _flat(tree, prefix=""):
+    out = {}
+    for k, v in tree.items():
+        if isinstance(v, dict):
+            out.update(_flat(v, f"{prefix}{k}."))
+        else:
+            out[f"{prefix}{k}"] = np.asarray(v)
+    return out
+
+
+def close_state(got, want, keys, codec):
+    """Final fleet state (``fleet_to_numpy`` / ``jax_fleet_tree``) within
+    the band. int8 residuals: a coordinate whose ``frac = x/scale`` sits at
+    a rounding tie may round the other way after float32 roundoff upstream
+    — accepted for at most two coordinates per leaf, each off by no more
+    than one quantization step (``scale >= 2·max|residual|`` of its
+    row)."""
+    for key in keys:
+        if key == "residuals" and codec == "int8":
+            for name, w in _flat(want[key]).items():
+                g = _flat(got[key])[name]
+                bad = ~np.isclose(g, w, rtol=1e-4, atol=1e-5)
+                step = 2 * np.abs(w).reshape(len(w), -1).max(1)
+                step = step.reshape((-1,) + (1,) * (w.ndim - 1))
+                within = np.abs(g - w) <= 1.01 * np.broadcast_to(step, w.shape)
+                assert bad.sum() <= 2 and within[bad].all(), \
+                    f"residuals.{name}: {bad.sum()} coordinates off"
+            continue
+        close_tree(got[key], want[key], key + ".")
 
 
 def close_tree(port: dict, ref: dict, prefix=""):
@@ -109,6 +149,23 @@ def jax_episode_noise(rngs, n_steps, sizes):
 
 def head_sizes(cfg):
     return (cfg.n_res, cfg.n_bs, cfg.n_mt)
+
+
+@partial(jax.jit, static_argnums=(1, 2, 3))
+def jax_sim_noise(key, n_intervals, n_agents, sizes):
+    """The Gumbel noise ``repro.sim.harness.simulate_fleet`` draws from
+    ``key``: ``rng, k = split(rng)`` per interval, ``split(k, A)`` per
+    agent, then ``split(key, 3)`` per head. Returns (T, A, sum(sizes))."""
+    def one(kk):
+        ks = jax.random.split(kk, 3)
+        return jnp.concatenate([jax.random.gumbel(ks[i], (n,))
+                                for i, n in enumerate(sizes)])
+
+    def step(rng, _):
+        rng, k = jax.random.split(rng)
+        return rng, jax.vmap(one)(jax.random.split(k, n_agents))
+    _, gs = jax.lax.scan(step, key, None, length=n_intervals)
+    return gs
 
 
 def first_divergence(slot_a, do_a, slot_b, do_b):

@@ -41,7 +41,23 @@ In order, it:
      trainer, and the twin trainer with its final twin state exactly equal
      (a first action divergence is accepted only at a near-tie of the
      Gumbel-max scores, and reported);
- 11. prints the kernel table as one JSON line, then
+ 11. holds K5 ``decode_attention`` and K4 ``flash_attention`` against their
+     plain versions (the JAX tests' sweeps, the invalid cache tail, and the
+     full-width qwen2-0.5b shapes: K5 on the serve path and at B=64 /
+     S_max 4096, K4 at B=4, S=2048) within rtol = atol = 2e-5 in float32
+     and 2e-2 in bf16, and K6 ``pack`` bit for bit; times each, its plain
+     version and a PyTorch call of the same function
+     (``scaled_dot_product_attention``, ``index_select``);
+ 12. drives ``repro_torch.launch.serve`` at its defaults (qwen2-0.5b full
+     width, 4 replicas, 30 episodes): K5 once per layer per decode step,
+     K1 once per episode, the others never;
+ 13. runs the cache-less prefill step at full width (B=4, S=2048; K4 once
+     per layer) against the same step on ``sdpa``, in bf16 and float32;
+     then the engine at its default buckets (B=8, 128-token prompt, 32 new
+     tokens: prefill ms, decode ms per step, tokens/s); then a reduced
+     model on the card against the CPU (identical tokens up to a near-tie,
+     logits within rtol 1e-3 / atol 1e-4);
+ 14. prints the kernel table as one JSON line, then
      ``{"ok": true, "device": {...}}`` as the last line.
 Any failure raises and exits non-zero.
 """
@@ -417,20 +433,26 @@ def check_k3(torch, cfg, gen):
 # ---------------------------------------------------------------------------
 # The main paths and small runs against the CPU
 # ---------------------------------------------------------------------------
-def reset_launches():
+def wrappers():
+    """The six kernel wrappers, K1..K6 in order."""
+    from repro_torch.kernels.decode_attention import decode_attention
     from repro_torch.kernels.delta_codec import delta_codec
     from repro_torch.kernels.diversity import diversity_insert
+    from repro_torch.kernels.flash_attention import flash_attention
+    from repro_torch.kernels.packing import pack
     from repro_torch.kernels.queue_advance import queue_advance
-    diversity_insert.launches = delta_codec.launches = 0
-    queue_advance.launches = 0
+    return (diversity_insert, delta_codec, queue_advance, flash_attention,
+            decode_attention, pack)
+
+
+def reset_launches():
+    for fn in wrappers():
+        fn.launches = 0
 
 
 def read_launches():
-    from repro_torch.kernels.delta_codec import delta_codec
-    from repro_torch.kernels.diversity import diversity_insert
-    from repro_torch.kernels.queue_advance import queue_advance
-    return (diversity_insert.launches, delta_codec.launches,
-            queue_advance.launches)
+    """(K1, ..., K6) launch counts."""
+    return tuple(fn.launches for fn in wrappers())
 
 
 def drive(torch, argv, n_episodes, fl_every, n_steps):
@@ -442,7 +464,7 @@ def drive(torch, argv, n_episodes, fl_every, n_steps):
     _, hist = train_fleet.main([*argv, "--device", DEV])
     torch.cuda.synchronize()
     wall = time.time() - t0
-    k1, k2, k3 = read_launches()
+    k1, k2, k3 = read_launches()[:3]
     for key, v in hist.items():
         if len(v) != n_episodes or not all(map(math.isfinite, v)):
             raise AssertionError(f"{argv}: history {key} is not "
@@ -588,7 +610,6 @@ def profile_episodes(torch, cfg, backend="fluid", n_episodes=10):
     ``n_episodes`` (after two warm-up episodes) under ``torch.profiler``;
     prints the host wall per episode, the device's busy share and the
     kernels taking the most device time."""
-    from torch.profiler import ProfilerActivity, profile
     from repro_torch.core.fleet import fleet_init, train_fleet_reference
     from repro_torch.data.workload import fleet_traces
     fleet = fleet_init(cfg, 8, 0, n_pods=2, device=DEV, env_backend=backend)
@@ -598,12 +619,21 @@ def profile_episodes(torch, cfg, backend="fluid", n_episodes=10):
     fleet, _ = train_fleet_reference(cfg, fleet,
                                      traces[:, :2 * cfg.n_steps],
                                      env_backend=backend)
+    profiled(torch, lambda: train_fleet_reference(
+        cfg, fleet, traces[:, 2 * cfg.n_steps:], env_backend=backend),
+        n_episodes, f"{backend}: {n_episodes} episodes", "episode")
+
+
+def profiled(torch, fn, n, label, unit):
+    """Run ``fn`` (``n`` units of work) under ``torch.profiler``; print the
+    host wall per unit, the device's busy share and the kernels taking the
+    most device time."""
+    from torch.profiler import ProfilerActivity, profile
     torch.cuda.synchronize()
     with profile(activities=[ProfilerActivity.CPU,
                              ProfilerActivity.CUDA]) as prof:
         t0 = time.time()
-        train_fleet_reference(cfg, fleet, traces[:, 2 * cfg.n_steps:],
-                              env_backend=backend)
+        fn()
         torch.cuda.synchronize()
         wall = time.time() - t0
     kernels = [e for e in prof.key_averages()
@@ -615,15 +645,423 @@ def profile_episodes(torch, cfg, backend="fluid", n_episodes=10):
     if not total:
         log("  device time: not measured (the profiler recorded no kernel)")
         return
-    log(f"  {backend}: {n_episodes} episodes under the profiler: wall "
-        f"{wall / n_episodes * 1e3:.2f} ms/episode, device busy "
-        f"{total / 1e3 / n_episodes:.3f} ms/episode "
+    log(f"  {label} under the profiler: wall {wall / n * 1e3:.2f} ms/{unit}, "
+        f"device busy {total / 1e3 / n:.3f} ms/{unit} "
         f"({100 * total / 1e6 / wall:.2f}% busy, "
         f"{100 - 100 * total / 1e6 / wall:.2f}% idle), "
-        f"{n_launch / n_episodes:.0f} kernels/episode")
+        f"{n_launch / n:.0f} kernels/{unit}")
     for e in sorted(kernels, key=dev_us, reverse=True)[:6]:
-        log(f"    {dev_us(e) / 1e3 / n_episodes:8.4f} ms/episode "
-            f"{e.count / n_episodes:6.1f} launches/episode  {e.key[:70]}")
+        log(f"    {dev_us(e) / 1e3 / n:8.4f} ms/{unit} "
+            f"{e.count / n:6.1f} launches/{unit}  {e.key[:70]}")
+
+
+# ---------------------------------------------------------------------------
+# The LM side: K4 flash_attention, K5 decode_attention, K6 pack, serving
+# ---------------------------------------------------------------------------
+BF16_FLOPS = 989e12           # H100 SXM dense bf16 tensor-core peak
+QWEN = "qwen2-0.5b"
+# (b, sq, sk, hq, hkv, d, dtype, causal): tests/test_kernels.py FLASH_CASES
+FLASH_CASES = [
+    (2, 128, 128, 4, 4, 64, "float32", True),
+    (2, 128, 128, 4, 2, 64, "float32", True),
+    (1, 256, 256, 8, 1, 64, "float32", True),
+    (1, 128, 128, 4, 4, 128, "bfloat16", True),
+    (1, 128, 128, 2, 2, 256, "float32", True),
+    (2, 128, 128, 4, 4, 80, "float32", False),
+    (1, 384, 384, 7, 1, 64, "float32", True),
+    (2, 50, 70, 4, 2, 32, "float32", False),       # ragged tiles
+    (4, 2048, 2048, 14, 2, 64, "float32", True),   # the prefill shape
+    (4, 2048, 2048, 14, 2, 64, "bfloat16", True),
+]
+# (b, hq, hkv, d, s_max, kv_len, q dtype, cache dtype): DECODE_CASES, then
+# the serve path (qwen2-0.5b, cache 256, bf16; and reduced over a bf16
+# cache) and the engine defaults (B=64, cache 4096)
+DECODE_CASES = [
+    (2, 4, 4, 64, 256, 256, "float32", "float32"),
+    (2, 4, 2, 64, 512, 300, "float32", "float32"),
+    (1, 8, 2, 128, 512, 77, "float32", "float32"),
+    (1, 14, 2, 64, 512, 500, "float32", "float32"),
+    (1, 4, 4, 128, 256, 128, "bfloat16", "bfloat16"),
+    (2, 16, 16, 256, 256, 199, "float32", "float32"),
+    *[(b, 14, 2, 64, 256, 17, "bfloat16", "bfloat16") for b in (1, 2, 4, 8)],
+    (8, 4, 2, 32, 256, 17, "float32", "bfloat16"),
+    *[(64, 14, 2, 64, 4096, n, "bfloat16", "bfloat16")
+      for n in (1, 777, 4096)],
+]
+K5_MAIN = (8, 14, 2, 64, 256, 17, "bfloat16", "bfloat16")
+K5_BIG = (64, 14, 2, 64, 4096, 4096, "bfloat16", "bfloat16")
+K4_MAIN = FLASH_CASES[-1]
+
+
+def attn_tol(dtype):
+    """The JAX tests' tolerance: only the summation order differs."""
+    return 2e-2 if dtype == "bfloat16" else 2e-5
+
+
+def peak_flops(dtype):
+    return BF16_FLOPS if dtype == "bfloat16" else FP32_FLOPS
+
+
+def k4_inputs(torch, gen, case):
+    b, sq, sk, hq, hkv, d, dtype, _ = case
+    dt = getattr(torch, dtype)
+    return [torch.randn(s, generator=gen, device=DEV).to(dt)
+            for s in ((b, sq, hq, d), (b, sk, hkv, d), (b, sk, hkv, d))]
+
+
+def check_k4(torch, gen):
+    """K4 against its plain version over the sweep; times it at the
+    prefill shape. Returns (max |err| at the prefill shape, timing)."""
+    import torch.nn.functional as F
+    from repro_torch.kernels.flash_attention import flash_attention
+    from repro_torch.kernels.ref import flash_attention_ref
+    err = 0.0
+    for case in FLASH_CASES:
+        q, k, v = k4_inputs(torch, gen, case)
+        got = flash_attention(q, k, v, causal=case[-1])
+        want = flash_attention_ref(q, k, v, causal=case[-1])
+        torch.cuda.synchronize()
+        tol = attn_tol(case[6])
+        torch.testing.assert_close(got.float(), want.float(), rtol=tol,
+                                   atol=tol, msg=f"K4 {case}")
+        e = float((got.float() - want.float()).abs().max())
+        if case == K4_MAIN:
+            err = e
+        log(f"  K4 {case}: ok, max|err| {e:.3g} (tol {tol})")
+        del got, want
+    timing = {}
+    for case in (K4_MAIN, FLASH_CASES[-2]):
+        b, sq, sk, hq, hkv, d, dtype, causal = case
+        q, k, v = k4_inputs(torch, gen, case)
+        ms = device_ms(lambda: flash_attention(q, k, v, causal=causal), 10)
+        plain = device_ms(lambda: flash_attention_ref(q, k, v, causal=causal),
+                          3)
+        lib = device_ms(lambda: F.scaled_dot_product_attention(
+            q.transpose(1, 2), k.transpose(1, 2), v.transpose(1, 2),
+            is_causal=causal, enable_gqa=True))
+        pairs = sq * (sq + 1) // 2 if causal else sq * sk
+        flops = 4 * b * hq * pairs * d
+        moved = 2 * nbytes(q) + nbytes(k, v)
+        t_ops, t_bytes = flops / peak_flops(dtype), moved / HBM_BYTES_PER_S
+        timing[dtype] = dict(
+            ms=ms, plain_ms=plain, bound_ms=max(t_ops, t_bytes) * 1e3,
+            bound_by="operations" if t_ops >= t_bytes else "bytes",
+            library_ms=lib)
+        log(f"  K4 {dtype} B={b} S={sq} Hq={hq} Hkv={hkv} D={d} causal: "
+            f"kernel {ms:.4f} ms, plain {plain:.4f} ms, sdpa "
+            f"{lib:.4f} ms, bound "
+            f"{timing[dtype]['bound_ms']:.5f} ms ({flops / 1e9:.2f} GFLOP, "
+            f"{moved} B); {flops / ms / 1e9:.1f} TFLOP/s")
+    return err, timing
+
+
+def k5_inputs(torch, gen, case):
+    b, hq, hkv, d, s_max, _, qt, ct = case
+    q = torch.randn((b, 1, hq, d), generator=gen, device=DEV).to(
+        getattr(torch, qt))
+    kc, vc = (torch.randn((b, s_max, hkv, d), generator=gen, device=DEV).to(
+        getattr(torch, ct)) for _ in range(2))
+    return q, kc, vc
+
+
+def check_k5(torch, gen):
+    """K5 against its plain version over the sweep, garbage past kv_len
+    ignored; times it at the serve path's shape and at the engine
+    defaults. Returns (max |err| at the serve shape, timing)."""
+    import torch.nn.functional as F
+    from repro_torch.kernels.decode_attention import decode_attention
+    from repro_torch.kernels.ref import decode_attention_ref
+    err = 0.0
+    for case in DECODE_CASES:
+        q, kc, vc = k5_inputs(torch, gen, case)
+        n = case[5]
+        got = decode_attention(q, kc, vc, n)
+        want = decode_attention_ref(q, kc, vc, n)
+        tol = attn_tol(case[6])
+        torch.testing.assert_close(got.float(), want.float(), rtol=tol,
+                                   atol=tol, msg=f"K5 {case}")
+        e = float((got.float() - want.float()).abs().max())
+        if case == K5_MAIN:
+            err = e
+        if n < case[4]:     # the invalid tail: garbage must not enter
+            kc[:, n:], vc[:, n:] = 1e9, -1e9
+            if not torch.equal(decode_attention(q, kc, vc, n), got):
+                raise AssertionError(f"K5 {case}: the cache past kv_len "
+                                     f"changed the result")
+        torch.cuda.synchronize()
+        log(f"  K5 {case}: ok, max|err| {e:.3g} (tol {tol})"
+            + (", tail ignored" if n < case[4] else ""))
+    timing = {}
+    for case in (K5_MAIN, K5_BIG):
+        b, hq, hkv, d, s_max, n, qt, ct = case
+        q, kc, vc = k5_inputs(torch, gen, case)
+        ms = device_ms(lambda: decode_attention(q, kc, vc, n))
+        plain = device_ms(lambda: decode_attention_ref(q, kc, vc, n), 10)
+        kv = [c[:, :n].transpose(1, 2) for c in (kc, vc)]
+        lib = device_ms(lambda: F.scaled_dot_product_attention(
+            q.transpose(1, 2), *kv, enable_gqa=True))
+        moved = 2 * nbytes(q) + 2 * b * n * hkv * d * kc.element_size()
+        flops = 4 * b * hq * n * d
+        t_ops, t_bytes = flops / peak_flops(qt), moved / HBM_BYTES_PER_S
+        timing[(b, s_max, n)] = dict(
+            ms=ms, plain_ms=plain, bound_ms=max(t_ops, t_bytes) * 1e3,
+            bound_by="operations" if t_ops >= t_bytes else "bytes",
+            library_ms=lib)
+        log(f"  K5 B={b} S_max={s_max} kv_len={n} {qt}: kernel {ms:.4f} ms "
+            f"(device; {eager_ms(lambda: decode_attention(q, kc, vc, n)):.4f}"
+            f" ms eager), plain {plain:.4f} ms, sdpa "
+            f"{lib:.4f} ms, bound "
+            f"{timing[(b, s_max, n)]['bound_ms']:.6f} ms ({moved} B); "
+            f"{moved / ms / 1e6:.1f} GB/s")
+    return err, timing
+
+
+def check_k6(torch, gen):
+    """K6 bit for bit against its plain version: the JAX test's case in
+    three types, then T=4096, D=896, N=8192 with ~10 % padding (timed)."""
+    from repro_torch.kernels.packing import pack
+    from repro_torch.kernels.ref import pack_ref
+    bits = lambda x: x.view(torch.int16 if x.element_size() == 2
+                            else torch.int32)
+    idx8 = torch.tensor([0, 63, -1, 5, 5, -1, 17, 2], dtype=torch.int32,
+                        device=DEV)
+    cases = [((torch.randn((64, 128), generator=gen, device=DEV) * 10).to(
+        dt), idx8) for dt in (torch.float32, torch.bfloat16, torch.int32)]
+    big = torch.randn((4096, 896), generator=gen, device=DEV)
+    idx = torch.randint(0, 4096, (8192,), generator=gen, device=DEV,
+                        dtype=torch.int32)
+    pad = torch.rand(8192, generator=gen, device=DEV) < 0.1
+    idx = torch.where(pad, -1, idx).to(torch.int32)
+    cases.append((big, idx))
+    for tok, ix in cases:
+        got, want = pack(tok, ix), pack_ref(tok, ix)
+        if not torch.equal(bits(got), bits(want)):
+            raise AssertionError(f"K6 {tok.dtype} {tuple(tok.shape)}: "
+                                 f"differs from the plain version")
+        log(f"  K6 {tok.dtype} T={tok.shape[0]} D={tok.shape[1]} "
+            f"N={ix.shape[0]}: bit-identical")
+    safe = idx.clamp(min=0)
+    ms = device_ms(lambda: pack(big, idx))
+    plain = device_ms(lambda: pack_ref(big, idx))
+    lib = device_ms(lambda: torch.index_select(big, 0, safe))
+    n_real = int((idx >= 0).sum())
+    row = big.shape[1] * big.element_size()
+    moved = idx.shape[0] * row + n_real * row + nbytes(idx)
+    bound = moved / HBM_BYTES_PER_S * 1e3
+    log(f"  K6 T=4096 D=896 N=8192 ({8192 - n_real} padding rows): kernel "
+        f"{ms:.4f} ms, plain {plain:.4f} ms, index_select {lib:.4f} ms, "
+        f"bound {bound:.6f} ms ({moved} B)")
+    return dict(ms=ms, plain_ms=plain, bound_ms=bound, bound_by="bytes",
+                library_ms=lib)
+
+
+def drive_serve(torch, n_episodes=30):
+    """``repro_torch.launch.serve`` at its defaults (qwen2-0.5b full width,
+    4 replicas, 30 episodes) with every launch count set to 0 just before
+    and read just after: K5 once per layer per decode step (one decode step
+    per ``generate(steps=2)``), K1 once per episode, K2/K3/K4/K6 never."""
+    import numpy as np
+    from repro_torch.configs.base import get_config
+    from repro_torch.launch import serve
+    n_layers = get_config(QWEN).n_layers
+    reset_launches()
+    t0 = time.time()
+    summ = serve.main(["--device", DEV, "--episodes", str(n_episodes)])
+    torch.cuda.synchronize()
+    wall = time.time() - t0
+    counts = dict(zip(("K1", "K2", "K3", "K4", "K5", "K6"),
+                      read_launches()))
+    want = dict(K1=n_episodes, K2=0, K3=0, K4=0, K5=n_layers * n_episodes,
+                K6=0)
+    if counts != want:
+        raise AssertionError(f"[serve] launches {counts}, expected {want}")
+    for key, v in summ.items():
+        if not np.isfinite(v).all():
+            raise AssertionError(f"[serve] {key} is not finite")
+    log(f"  serve (defaults): launches {counts}; calibrated t0 "
+        f"{float(summ['t0']) * 1e3:.3f} ms, t1 {float(summ['t1']) * 1e6:.1f} "
+        f"us/item; generate(steps=2) {summ['generate_s'].mean() * 1e3:.2f} "
+        f"ms mean at bs {sorted(set(summ['bs'].tolist()))}; episode loop "
+        f"{float(summ['wall_s']) / n_episodes * 1e3:.1f} ms/episode; whole "
+        f"call {wall:.1f} s")
+    return counts["K5"]
+
+
+def full_width_params(torch):
+    from repro_torch.configs.base import get_config
+    from repro_torch.models.registry import get_model
+    cfg = get_config(QWEN)
+    params = get_model(cfg).init(torch.Generator(device=DEV).manual_seed(0))
+    n = sum(x.numel() for x in _leaves(params))
+    if n != 494_032_768:
+        raise AssertionError(f"{QWEN}: {n} parameters, expected 494032768")
+    return cfg, params
+
+
+def _leaves(tree):
+    for v in tree.values():
+        yield from (_leaves(v) if isinstance(v, dict) else (v,))
+
+
+def run_prefill(torch, cfg, params, calls=3):
+    """``make_prefill_step(model, with_cache=False)`` at full width, B=4,
+    S=2048: K4 once per layer per call; logits against the same step with
+    ``use_kernels=False`` (bf16: max difference and argmax agreement
+    reported; float32: within rtol 1e-3 / atol 1e-3, the band of 24
+    layers summed in two orders); wall ms per call. Returns the K4
+    launches of the bf16 kernel calls."""
+    from repro_torch.models.registry import get_model
+    from repro_torch.serving.engine import make_prefill_step
+    from repro_torch.kernels.flash_attention import flash_attention
+    gen = torch.Generator(device=DEV).manual_seed(4)
+    batch = {"tokens": torch.randint(0, cfg.vocab_size, (4, 2048),
+                                     generator=gen, device=DEV,
+                                     dtype=torch.int32)}
+    launches = 0
+    for dtype in ("bfloat16", "float32"):
+        model = get_model(cfg.replace(dtype=dtype))
+        step = make_prefill_step(model, with_cache=False)
+        plain_step = make_prefill_step(model, with_cache=False,
+                                       use_kernels=False)
+        step(params, batch)                       # warm-up
+        torch.cuda.synchronize()
+        reset_launches()
+        t0 = time.time()
+        for _ in range(calls):
+            got = step(params, batch)
+        torch.cuda.synchronize()
+        ms = (time.time() - t0) / calls * 1e3
+        if flash_attention.launches != cfg.n_layers * calls or \
+                read_launches()[4] != 0:
+            raise AssertionError(f"[prefill] K4 launched "
+                                 f"{flash_attention.launches} times in "
+                                 f"{calls} calls, expected "
+                                 f"{cfg.n_layers * calls}")
+        if dtype == "bfloat16":
+            launches = flash_attention.launches
+        plain_step(params, batch)
+        torch.cuda.synchronize()
+        t0 = time.time()
+        want = plain_step(params, batch)
+        torch.cuda.synchronize()
+        plain_ms = (time.time() - t0) * 1e3
+        if not torch.isfinite(got).all():
+            raise AssertionError(f"[prefill] {dtype}: logits not finite")
+        diff = float((got.float() - want.float()).abs().max())
+        agree = float((got.argmax(-1) == want.argmax(-1)).float().mean())
+        if dtype == "float32":
+            torch.testing.assert_close(got, want, rtol=1e-3, atol=1e-3,
+                                       msg="[prefill] float32 kernels vs "
+                                           "sdpa")
+        log(f"  prefill {dtype} B=4 S=2048 ({cfg.n_layers} layers): "
+            f"{ms:.1f} ms per call with K4 ({flash_attention.launches} "
+            f"launches in {calls} calls), {plain_ms:.1f} ms with sdpa; "
+            f"logits max|diff| {diff:.3g} (max|logit| "
+            f"{float(want.float().abs().max()):.3g}), argmax agreement "
+            f"{agree * 100:.3f} %")
+        del got, want
+        torch.cuda.empty_cache()
+    return launches
+
+
+def run_generate(torch, cfg, params, b=8, prompt=128, new=32):
+    """The engine at full width and its default buckets: B=8, a 128-token
+    prompt, 32 new tokens; prefill ms, decode ms per step, tokens/s."""
+    from repro_torch.models.registry import get_model
+    from repro_torch.serving.engine import ServingEngine
+    engine = ServingEngine(get_model(cfg), params)
+    gen = torch.Generator(device=DEV).manual_seed(5)
+    tokens = torch.randint(0, cfg.vocab_size, (b, prompt), generator=gen,
+                           device=DEV, dtype=torch.int32)
+    engine.generate(tokens, steps=4)              # warm-up
+    reset_launches()
+    t0 = time.time()
+    logits, cache, info = engine.prefill(tokens)
+    cur = torch.argmax(logits, -1).to(torch.int32)[:, None]
+    out, dec = [cur], []
+    for _ in range(new - 1):
+        cur, cache, d_info = engine.decode(cache, cur)
+        out.append(cur)
+        dec.append(d_info["latency_s"])
+    total = time.time() - t0
+    counts = read_launches()
+    if counts[4] != cfg.n_layers * (new - 1) or counts[3]:
+        raise AssertionError(f"[generate] launches K4 {counts[3]}, K5 "
+                             f"{counts[4]}; expected 0 and "
+                             f"{cfg.n_layers * (new - 1)}")
+    toks = torch.cat(out, 1)
+    if toks.shape != (b, new) or not bool(((toks >= 0) & (
+            toks < cfg.vocab_size)).all()):
+        raise AssertionError("[generate] bad tokens")
+    log(f"  generate B={b} prompt {prompt} (bucket {info['bucket']}), "
+        f"{new} new tokens: prefill {info['latency_s'] * 1e3:.2f} ms, decode "
+        f"{sum(dec) / len(dec) * 1e3:.3f} ms/step (min {min(dec) * 1e3:.3f}),"
+        f" {b * new / total:.1f} tokens/s; K5 {counts[4]} launches")
+
+    def decode_steps(n=8):
+        c, kv = cur, cache
+        for _ in range(n):
+            c, kv, _ = engine.decode(kv, c)
+
+    profiled(torch, decode_steps, 8, f"decode B={b}, 8 steps", "step")
+    profiled(torch, lambda: engine.prefill(tokens), 1,
+             f"prefill B={b} S={prompt}", "call")
+
+
+def lm_trace(torch, model, params, tokens, steps, device):
+    """Prefill then ``steps - 1`` greedy decode steps with a float32 cache;
+    the logits of every step (on the CPU) and the tokens."""
+    from repro_torch.serving.engine import make_prefill_step, make_serve_step
+    prefill = make_prefill_step(model)
+    step = make_serve_step(model, greedy=False)
+    cache = model.new_cache(tokens.shape[0], 64, torch.float32, device)
+    logits, cache = prefill(params, cache, {"tokens": tokens.to(device)})
+    out_l, out_t = [], []
+    for i in range(steps):
+        if i:
+            logits, cache = step(params, cache, {"tokens": cur})
+        cur = torch.argmax(logits, -1).to(torch.int32)[:, None]
+        out_l.append(logits.cpu())
+        out_t.append(cur.cpu())
+    return torch.stack(out_l, 1), torch.cat(out_t, 1)
+
+
+def run_lm_reference(torch, steps=16):
+    """A reduced qwen2-0.5b (float32, float32 cache) with the same
+    numpy-made parameters on the card (K5 in every decode step) and on the
+    CPU (plain versions): identical tokens, a first divergence accepted
+    only where the CPU's top-two logits differ by under 1e-5 relative;
+    logits within rtol 1e-3 / atol 1e-4 up to it."""
+    import numpy as np
+    from repro_torch.configs.base import get_config
+    from repro_torch.models.registry import (get_model, params_from_numpy,
+                                             params_to_numpy)
+    cfg = get_config(QWEN).reduced()
+    model = get_model(cfg)
+    tree = params_to_numpy(model.init(torch.Generator().manual_seed(0)))
+    tokens = torch.as_tensor(np.random.default_rng(0).integers(
+        0, cfg.vocab_size, (4, 12)), dtype=torch.int32)
+    runs = [lm_trace(torch, model, params_from_numpy(cfg, tree, dev),
+                     tokens, steps, dev) for dev in (DEV, "cpu")]
+    (lk, tk), (lc, tc) = runs
+    upto, note = steps, "identical"
+    diff = (tk != tc).any(0)
+    if diff.any():
+        upto = int(torch.nonzero(diff)[0])
+        for row in torch.nonzero(tk[:, upto] != tc[:, upto]).flatten():
+            top = torch.topk(lc[row, upto], 2).values
+            gap = float(top[0] - top[1])
+            if gap > 1e-5 * max(1.0, abs(float(top[0]))):
+                raise AssertionError(f"[LM reference] row {int(row)} parts "
+                                     f"at step {upto} with no near-tie "
+                                     f"(gap {gap:.3g})")
+        note = f"identical up to a near-tie at step {upto} (reported)"
+    torch.testing.assert_close(lk[:, :upto + 1], lc[:, :upto + 1],
+                               rtol=1e-3, atol=1e-4,
+                               msg="[LM reference] card vs cpu logits")
+    err = float((lk[:, :upto + 1] - lc[:, :upto + 1]).abs().max())
+    log(f"  reduced {QWEN} float32, B=4, {steps} tokens: card (K5) vs CPU "
+        f"tokens {note}; logits max|diff| {err:.3g} (rtol 1e-3 / atol 1e-4)")
 
 
 def main():
@@ -686,6 +1124,24 @@ def main():
     log("[twin reference] small twin run, card vs CPU")
     run_pair(torch, FCPOConfig(fl_every=1), "twin")
 
+    log("[K5] decode_attention vs plain")
+    k5_err, k5_t = check_k5(torch, gen)
+    log("[K4] flash_attention vs plain")
+    k4_err, k4_t = check_k4(torch, gen)
+    log("[K6] pack vs plain")
+    k6_t = check_k6(torch, gen)
+    log(f"[serve] repro_torch.launch.serve ({QWEN} full width)")
+    k5_n = drive_serve(torch)
+    cfg_lm, params_lm = full_width_params(torch)
+    log("[prefill] make_prefill_step(with_cache=False), full width")
+    k4_n = run_prefill(torch, cfg_lm, params_lm)
+    log("[generate] ServingEngine at full width, default buckets")
+    run_generate(torch, cfg_lm, params_lm)
+    del params_lm
+    torch.cuda.empty_cache()
+    log("[LM reference] reduced model, card vs CPU")
+    run_lm_reference(torch)
+
     rows = [dict(name="diversity_insert", route="cuda",
                  source="src/repro_torch/csrc/diversity_insert.cu",
                  replaces="src/repro/kernels/diversity.py:93",
@@ -700,10 +1156,27 @@ def main():
                      source="src/repro_torch/csrc/queue_advance.cu",
                      replaces="src/repro/kernels/queue_advance.py:50",
                      launches=k3_n, max_abs_err=0.0, **k3_t[8]))
+    rows.append(dict(name="flash_attention", route="cuda",
+                     source="src/repro_torch/csrc/flash_attention.cu",
+                     replaces="src/repro/kernels/flash_attention.py:112",
+                     launches=k4_n, max_abs_err=k4_err, **k4_t["bfloat16"]))
+    rows.append(dict(name="decode_attention", route="cuda",
+                     source="src/repro_torch/csrc/decode_attention.cu",
+                     replaces="src/repro/kernels/decode_attention.py:110",
+                     launches=k5_n, max_abs_err=k5_err,
+                     **k5_t[K5_MAIN[0], K5_MAIN[4], K5_MAIN[5]]))
+    rows.append(dict(name="pack", route="cuda",
+                     source="src/repro_torch/csrc/pack.cu",
+                     replaces="src/repro/kernels/packing.py:34",
+                     launches=0, max_abs_err=0.0, **k6_t))
     log("[A=2048] " + json.dumps(
         {"diversity_insert": k1_t[2048],
          **{f"delta_codec[{c}]": k2_t[(c, 2048)] for c in ("int8", "topk")},
          "queue_advance": k3_t[2048]}))
+    log("[LM other shapes] " + json.dumps(
+        {"flash_attention[float32]": k4_t["float32"],
+         "decode_attention[B=64,kv_len=4096]":
+             k5_t[K5_BIG[0], K5_BIG[4], K5_BIG[5]]}))
     log(json.dumps({"kernels": rows}))
     log(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),

@@ -80,7 +80,8 @@ def _assemble(cfg, policy, opt, buffer, env_state, base, env_params, masks,
 
 
 def fleet_init(cfg: FCPOConfig, n_agents: int, seed: int = 0, *,
-               n_pods: int = 1, device="cuda", env_backend=None) -> Fleet:
+               n_pods: int = 1, device="cuda", env_backend=None,
+               slo_s: Optional[float] = None) -> Fleet:
     """A fresh fleet: random agents and pod base networks from ``seed``,
     the heterogeneous device mix and link bandwidths drawn from the same
     numpy streams as the reference (``default_rng(0)`` / ``(1)``).
@@ -99,7 +100,9 @@ def fleet_init(cfg: FCPOConfig, n_agents: int, seed: int = 0, *,
         [0.5, 0.75, 1.0, 2.0], n_agents), dtype=torch.float32, device=dev)
     bandwidth = torch.as_tensor(np.random.default_rng(1).uniform(
         2.0, 40.0, n_agents), dtype=torch.float32, device=dev)
-    env_params = env_mod.default_env_params(speeds, cfg.slo_s, dev)
+    # slo_s overrides cfg.slo_s, as the JAX fleet_init's slo_s does
+    env_params = env_mod.default_env_params(
+        speeds, cfg.slo_s if slo_s is None else slo_s, dev)
     backend.check_env_params(env_params)
     return _assemble(
         cfg, policy, agent_opt_init(policy.params()),

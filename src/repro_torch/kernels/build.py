@@ -25,7 +25,8 @@ BUILD_DIR = Path(__file__).resolve().parents[3] / "build" / "kernels"
 NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-O3",
               "-std=c++17", "-fmad=false", "-Xptxas", "-v", "-shared",
               "-Xcompiler", "-fPIC")
-KERNELS = ("diversity_insert", "delta_codec", "queue_advance")
+KERNELS = ("diversity_insert", "delta_codec", "queue_advance",
+           "decode_attention", "flash_attention", "pack")
 
 _LIBS: Dict[str, ctypes.CDLL] = {}
 
@@ -102,3 +103,16 @@ def check(lib: ctypes.CDLL, name: str, rc: int) -> None:
         err.argtypes, err.restype = [ctypes.c_int], ctypes.c_char_p
         raise RuntimeError(f"{name}: CUDA error {rc} at launch: "
                            f"{err(rc).decode()}")
+
+
+def check_tensors(kernel: str, device, **tensors) -> None:
+    """Raise unless every named tensor is contiguous, on ``device`` (a CUDA
+    device) and 16-byte aligned (the kernels' vector loads)."""
+    for name, x in tensors.items():
+        if x.device != device:
+            raise ValueError(f"{kernel}: {name} is on {x.device}, expected "
+                             f"{device}")
+        if not x.is_contiguous():
+            raise ValueError(f"{kernel}: {name} must be contiguous")
+        if x.data_ptr() % 16:
+            raise ValueError(f"{kernel}: {name} must be 16-byte aligned")

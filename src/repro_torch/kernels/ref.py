@@ -1,8 +1,8 @@
 """Plain PyTorch versions of the ported kernels (the correctness references).
 
-Port of the Eq. 6, delta-codec and twin-microtick parts of
-``repro.kernels.ref``, written over a leading agent axis (the JAX package
-``vmap``s a per-agent function). Each function follows the JAX operation
+Port of ``repro.kernels.ref``: the attention and packing oracles, and the
+Eq. 6, delta-codec and twin-microtick parts, the latter written over a
+leading agent axis (the JAX package ``vmap``s a per-agent function). Each function follows the JAX operation
 order, so on the CPU it agrees with the JAX oracle to float32 roundoff (and
 bit for bit for the codec and the twin). These are what the kernel wrappers
 run for CPU tensors, and what ``chip_smoke.py`` holds each CUDA kernel
@@ -10,7 +10,64 @@ against on the card.
 """
 from __future__ import annotations
 
+import math
+
 import torch
+
+NEG_INF = -1e30
+
+
+# ---------------------------------------------------------------------------
+# Attention and packing (the LM side)
+# ---------------------------------------------------------------------------
+def _attend(q, k, v, mask):
+    """Softmax attention in float32 from inputs cast to float32; query head
+    h reads kv head h // (Hq / Hkv). q (B, Sq, Hq, D), k/v (B, Sk, Hkv, D),
+    mask broadcastable to (B, Hq, Sq, Sk) or None. Output in q's type."""
+    rep = q.shape[2] // k.shape[2]
+    if rep > 1:
+        k = k.repeat_interleave(rep, dim=2)
+        v = v.repeat_interleave(rep, dim=2)
+    logits = torch.einsum("bqhd,bkhd->bhqk", q.float(), k.float()) \
+        / math.sqrt(q.shape[-1])
+    if mask is not None:
+        logits = torch.where(mask, logits, NEG_INF)
+    probs = torch.softmax(logits, dim=-1)
+    return torch.einsum("bhqk,bkhd->bqhd", probs, v.float()).to(q.dtype)
+
+
+def flash_attention_ref(q, k, v, causal=True):
+    """q: (B, Sq, Hq, D); k, v: (B, Sk, Hkv, D). Returns (B, Sq, Hq, D)."""
+    sq, sk = q.shape[1], k.shape[1]
+    mask = None
+    if causal:
+        mask = (torch.arange(sq, device=q.device)[:, None]
+                >= torch.arange(sk, device=q.device)[None, :])
+    return _attend(q, k, v, mask)
+
+
+def decode_attention_ref(q, k_cache, v_cache, kv_len):
+    """q: (B, 1, Hq, D); caches: (B, S_max, Hkv, D); kv_len: an int, or a
+    (B,) tensor. Single-query attention over the valid prefix of the
+    cache."""
+    kpos = torch.arange(k_cache.shape[1], device=q.device)
+    if isinstance(kv_len, int):        # no host->device copy
+        valid = (kpos < kv_len)[None]                           # (1, S)
+    else:
+        valid = kpos[None, :] < kv_len.reshape(-1, 1)           # (B, S)
+    return _attend(q, k_cache, v_cache, valid[:, None, None, :])
+
+
+def pack_ref(tokens, indices):
+    """tokens: (T, D); indices: (N,) int32 (negative = padding slot -> 0,
+    beyond T clipped to T - 1, as the JAX oracle does). The frame/token
+    packing gather: out[i] = tokens[indices[i]] or 0."""
+    safe = indices.long().clamp(0, tokens.shape[0] - 1)
+    out = tokens[safe]
+    return torch.where((indices >= 0)[:, None], out,
+                       torch.zeros((), dtype=tokens.dtype,
+                                   device=tokens.device))
+
 
 # ---------------------------------------------------------------------------
 # Streaming-moment diversity insert (Eq. 6 engine)

@@ -1,0 +1,183 @@
+"""The port's attention and packing kernels' plain versions against the JAX
+package (``repro.kernels``), on the CPU, from the same numpy inputs.
+
+K4 ``flash_attention`` and K5 ``decode_attention`` take their plain
+versions for CPU tensors; they are held against the JAX oracles
+``repro.kernels.ref.flash_attention_ref`` / ``decode_attention_ref`` (the
+Pallas flash and decode kernels do not run in interpret mode on this
+host's jax) on the JAX tests' sweep, at the JAX tests' tolerances:
+rtol = atol = 2e-5 in float32, 2e-2 in bf16. K6 ``pack`` is held bit for
+bit against the Pallas ``pack`` in interpret mode, which runs here.
+"""
+import jax.numpy as jnp
+import ml_dtypes
+import numpy as np
+import pytest
+import torch
+
+from repro.kernels import ref as jref
+from repro.kernels.packing import pack as j_pack
+from repro_torch.kernels.decode_attention import decode_attention
+from repro_torch.kernels.flash_attention import flash_attention
+from repro_torch.kernels.packing import pack
+from repro_torch.kernels.ref import (decode_attention_ref, flash_attention_ref,
+                                     pack_ref)
+
+# (b, sq, sk, hq, hkv, d, dtype, causal): tests/test_kernels.py FLASH_CASES
+FLASH_CASES = [
+    (2, 128, 128, 4, 4, 64, "float32", True),
+    (2, 128, 128, 4, 2, 64, "float32", True),
+    (1, 256, 256, 8, 1, 64, "float32", True),
+    (1, 128, 128, 4, 4, 128, "bfloat16", True),
+    (1, 128, 128, 2, 2, 256, "float32", True),
+    (2, 128, 128, 4, 4, 80, "float32", False),
+    (1, 384, 384, 7, 1, 64, "float32", True),
+    # ragged and reduced-config shapes of the port's model path
+    (2, 16, 16, 4, 2, 32, "float32", True),
+    (1, 50, 70, 4, 2, 32, "float32", False),
+]
+# (b, hq, hkv, d, s_max, kv_len, dtype): tests/test_kernels.py DECODE_CASES
+DECODE_CASES = [
+    (2, 4, 4, 64, 256, 256, "float32"),
+    (2, 4, 2, 64, 512, 300, "float32"),
+    (1, 8, 2, 128, 512, 77, "float32"),
+    (1, 14, 2, 64, 512, 500, "float32"),
+    (1, 4, 4, 128, 256, 128, "bfloat16"),
+    (2, 16, 16, 256, 256, 199, "float32"),
+    (3, 4, 2, 32, 48, 17, "float32"),       # the reduced serve path
+]
+TORCH = {"float32": torch.float32, "bfloat16": torch.bfloat16}
+JAX = {"float32": jnp.float32, "bfloat16": jnp.bfloat16}
+
+
+def tol(dtype):
+    return 2e-2 if dtype == "bfloat16" else 2e-5
+
+
+def both(x, dtype):
+    """The same values as a JAX array and a torch tensor of ``dtype`` (bf16
+    rounded once, by numpy, for both)."""
+    if dtype == "bfloat16":
+        x = x.astype(ml_dtypes.bfloat16)
+        return jnp.asarray(x), torch.from_numpy(x.astype(np.float32)).to(
+            torch.bfloat16)
+    return jnp.asarray(x), torch.from_numpy(np.array(x))
+
+
+def close(got, want, dtype):
+    np.testing.assert_allclose(got.float().numpy(),
+                               np.asarray(want, np.float32),
+                               rtol=tol(dtype), atol=tol(dtype))
+
+
+@pytest.mark.parametrize("case", FLASH_CASES)
+def test_flash_attention_plain_matches_jax_oracle(case):
+    b, sq, sk, hq, hkv, d, dtype, causal = case
+    rng = np.random.default_rng(sum(case[:6]))
+    (qj, qt), (kj, kt), (vj, vt) = (
+        both(rng.normal(size=s).astype(np.float32), dtype)
+        for s in ((b, sq, hq, d), (b, sk, hkv, d), (b, sk, hkv, d)))
+    before = flash_attention.launches
+    got = flash_attention(qt, kt, vt, causal=causal)
+    assert flash_attention.launches == before       # CPU: plain version
+    assert got.dtype == TORCH[dtype] and got.shape == (b, sq, hq, d)
+    close(got, jref.flash_attention_ref(qj, kj, vj, causal=causal), dtype)
+
+
+@pytest.mark.parametrize("case", DECODE_CASES)
+def test_decode_attention_plain_matches_jax_oracle(case):
+    b, hq, hkv, d, s_max, kv_len, dtype = case
+    rng = np.random.default_rng(sum(case[:6]))
+    (qj, qt), (kj, kt), (vj, vt) = (
+        both(rng.normal(size=s).astype(np.float32), dtype)
+        for s in ((b, 1, hq, d), (b, s_max, hkv, d), (b, s_max, hkv, d)))
+    before = decode_attention.launches
+    got = decode_attention(qt, kt, vt, kv_len)
+    assert decode_attention.launches == before
+    assert got.dtype == TORCH[dtype] and got.shape == (b, 1, hq, d)
+    close(got, jref.decode_attention_ref(qj, kj, vj, kv_len), dtype)
+
+
+def test_decode_attention_mixed_cache_type_matches_jax_oracle():
+    """float32 queries over a bf16 cache (the reduced engine's default)."""
+    rng = np.random.default_rng(5)
+    q = rng.normal(size=(2, 1, 4, 32)).astype(np.float32)
+    qj, qt = both(q, "float32")
+    (kj, kt), (vj, vt) = (both(rng.normal(size=(2, 64, 2, 32)).astype(
+        np.float32), "bfloat16") for _ in range(2))
+    got = decode_attention(qt, kt, vt, 40)
+    assert got.dtype == torch.float32
+    close(got, jref.decode_attention_ref(qj, kj, vj, 40), "float32")
+
+
+def test_decode_attention_ignores_invalid_tail():
+    """Garbage beyond kv_len must not affect the result (the kernel never
+    reads it), as tests/test_kernels.py asks of the Pallas kernel."""
+    rng = np.random.default_rng(0)
+    q = torch.tensor(rng.normal(size=(1, 1, 4, 64)), dtype=torch.float32)
+    kc = torch.tensor(rng.normal(size=(1, 512, 4, 64)), dtype=torch.float32)
+    vc = torch.tensor(rng.normal(size=(1, 512, 4, 64)), dtype=torch.float32)
+    out1 = decode_attention(q, kc, vc, 200)
+    kc2, vc2 = kc.clone(), vc.clone()
+    kc2[:, 200:] = 1e9
+    vc2[:, 200:] = -1e9
+    out2 = decode_attention(q, kc2, vc2, 200)
+    np.testing.assert_allclose(out1.numpy(), out2.numpy(), atol=1e-6)
+    want = jref.decode_attention_ref(*(jnp.asarray(x.numpy()) for x in
+                                       (q, kc2, vc2)), 200)
+    close(out2, want, "float32")
+
+
+def test_decode_plain_with_per_row_lengths_matches_jax_oracle():
+    """The plain version also takes a (B,) kv_len, as the oracle does."""
+    rng = np.random.default_rng(3)
+    arrs = [rng.normal(size=s).astype(np.float32)
+            for s in ((3, 1, 4, 32), (3, 64, 2, 32), (3, 64, 2, 32))]
+    lens = np.array([1, 33, 64], np.int32)
+    got = decode_attention_ref(*(torch.from_numpy(a) for a in arrs),
+                               torch.from_numpy(lens))
+    close(got, jref.decode_attention_ref(*(jnp.asarray(a) for a in arrs),
+                                         jnp.asarray(lens)), "float32")
+
+
+def test_flash_decode_agree_on_the_last_row():
+    """Causal flash attention's last query row is decode attention over the
+    whole sequence (two plain versions, one function)."""
+    rng = np.random.default_rng(9)
+    q, k, v = (torch.tensor(rng.normal(size=s), dtype=torch.float32)
+               for s in ((2, 40, 14, 64), (2, 40, 2, 64), (2, 40, 2, 64)))
+    full = flash_attention_ref(q, k, v, causal=True)
+    last = decode_attention_ref(q[:, -1:].contiguous(), k, v, 40)
+    torch.testing.assert_close(full[:, -1:], last, rtol=2e-5, atol=2e-5)
+
+
+@pytest.mark.parametrize("dtype", ["float32", "bfloat16", "int32"])
+def test_pack_plain_bit_identical_to_pallas_interpret(dtype):
+    rng = np.random.default_rng(0)
+    x = (rng.normal(size=(64, 128)) * 10).astype(np.float32)
+    if dtype == "int32":
+        tok_j, tok_t = jnp.asarray(x.astype(np.int32)), torch.from_numpy(
+            x.astype(np.int32))
+    else:
+        tok_j, tok_t = both(x, dtype)
+    idx = np.array([0, 63, -1, 5, 5, -1, 17, 2], np.int32)
+    before = pack.launches
+    got = pack(tok_t, torch.from_numpy(idx))
+    assert pack.launches == before
+    want = np.asarray(j_pack(tok_j, jnp.asarray(idx), interpret=True))
+    assert got.dtype == tok_t.dtype and got.shape == (8, 128)
+    if dtype == "bfloat16":
+        got, want = got.float(), want.astype(np.float32)
+    np.testing.assert_array_equal(got.numpy(), want)
+    assert not got[2].any() and not got[5].any()
+
+
+def test_pack_plain_clips_like_the_jax_oracle():
+    """An index past T - 1 reads row T - 1 and negatives give zero rows,
+    bit for bit as ``repro.kernels.ref.pack_ref``."""
+    rng = np.random.default_rng(1)
+    tok = rng.normal(size=(32, 24)).astype(np.float32)
+    idx = rng.integers(-8, 40, 200).astype(np.int32)
+    got = pack_ref(torch.from_numpy(tok), torch.from_numpy(idx))
+    want = np.asarray(jref.pack_ref(jnp.asarray(tok), jnp.asarray(idx)))
+    np.testing.assert_array_equal(got.numpy(), want)

@@ -179,3 +179,118 @@ def test_twin_trainer_launches_k3_once_per_interval(cuda_device):
     assert queue_advance.launches == 3 * 10        # n_steps per episode
     assert diversity_insert.launches == 3
     assert all(np.isfinite(v).all() for v in hist.values())
+
+
+# ---------------------------------------------------------------------------
+# K4 flash_attention, K5 decode_attention, K6 pack, and the LM engine
+# ---------------------------------------------------------------------------
+# the JAX tests' sweeps (tests/test_kernels.py), plus the port's shapes
+FLASH_CASES = [
+    # (b, sq, sk, hq, hkv, d, dtype, causal)
+    (2, 128, 128, 4, 4, 64, torch.float32, True),
+    (2, 128, 128, 4, 2, 64, torch.float32, True),
+    (1, 256, 256, 8, 1, 64, torch.float32, True),
+    (1, 128, 128, 4, 4, 128, torch.bfloat16, True),
+    (1, 128, 128, 2, 2, 256, torch.float32, True),
+    (2, 128, 128, 4, 4, 80, torch.float32, False),
+    (1, 384, 384, 7, 1, 64, torch.float32, True),
+    (2, 50, 70, 4, 2, 32, torch.float32, False),
+    (2, 512, 512, 14, 2, 64, torch.bfloat16, True),
+]
+DECODE_CASES = [
+    # (b, hq, hkv, d, s_max, kv_len, q dtype, cache dtype)
+    (2, 4, 4, 64, 256, 256, torch.float32, torch.float32),
+    (2, 4, 2, 64, 512, 300, torch.float32, torch.float32),
+    (1, 8, 2, 128, 512, 77, torch.float32, torch.float32),
+    (1, 14, 2, 64, 512, 500, torch.float32, torch.float32),
+    (1, 4, 4, 128, 256, 128, torch.bfloat16, torch.bfloat16),
+    (2, 16, 16, 256, 256, 199, torch.float32, torch.float32),
+    (8, 14, 2, 64, 256, 17, torch.bfloat16, torch.bfloat16),
+    (3, 4, 2, 32, 48, 17, torch.float32, torch.bfloat16),
+]
+
+
+def attn_tol(dtype):
+    return 2e-2 if dtype == torch.bfloat16 else 2e-5
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("case", FLASH_CASES)
+def test_k4_matches_plain_on_the_card(cuda_device, case):
+    from repro_torch.kernels.flash_attention import flash_attention
+    from repro_torch.kernels.ref import flash_attention_ref
+    b, sq, sk, hq, hkv, d, dtype, causal = case
+    gen = torch.Generator(device=cuda_device).manual_seed(sq + d)
+    q, k, v = (torch.randn(s, generator=gen, device=cuda_device).to(dtype)
+               for s in ((b, sq, hq, d), (b, sk, hkv, d), (b, sk, hkv, d)))
+    before = flash_attention.launches
+    got = flash_attention(q, k, v, causal=causal)
+    assert flash_attention.launches == before + 1
+    want = flash_attention_ref(q, k, v, causal=causal)
+    torch.testing.assert_close(got.float(), want.float(),
+                               rtol=attn_tol(dtype), atol=attn_tol(dtype))
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("case", DECODE_CASES)
+def test_k5_matches_plain_on_the_card(cuda_device, case):
+    from repro_torch.kernels.decode_attention import decode_attention
+    from repro_torch.kernels.ref import decode_attention_ref
+    b, hq, hkv, d, s_max, kv_len, qt, ct = case
+    gen = torch.Generator(device=cuda_device).manual_seed(s_max + d)
+    q = torch.randn((b, 1, hq, d), generator=gen, device=cuda_device).to(qt)
+    kc, vc = (torch.randn((b, s_max, hkv, d), generator=gen,
+                          device=cuda_device).to(ct) for _ in range(2))
+    before = decode_attention.launches
+    got = decode_attention(q, kc, vc, kv_len)
+    assert decode_attention.launches == before + 1
+    want = decode_attention_ref(q, kc, vc, kv_len)
+    torch.testing.assert_close(got.float(), want.float(), rtol=attn_tol(qt),
+                               atol=attn_tol(qt))
+    # garbage past kv_len never enters the result
+    kc[:, kv_len:], vc[:, kv_len:] = 1e9, float("nan")
+    assert torch.equal(decode_attention(q, kc, vc, kv_len), got)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16,
+                                   torch.int32])
+def test_k6_bit_identical_to_plain_on_the_card(cuda_device, dtype):
+    from repro_torch.kernels.packing import pack
+    from repro_torch.kernels.ref import pack_ref
+    gen = torch.Generator(device=cuda_device).manual_seed(0)
+    for t, d, n in ((64, 128, 8), (4096, 896, 8192), (33, 3, 100)):
+        tok = (torch.randn((t, d), generator=gen, device=cuda_device) * 10
+               ).to(dtype)
+        idx = torch.randint(-t // 9, t + 2, (n,), generator=gen,
+                            device=cuda_device, dtype=torch.int32)
+        before = pack.launches
+        got = pack(tok, idx)
+        assert pack.launches == before + 1
+        want = pack_ref(tok, idx)
+        bits = lambda x: x.view(torch.int16 if x.element_size() == 2
+                                else torch.int32)
+        assert torch.equal(bits(got), bits(want))
+
+
+@pytest.mark.cuda
+def test_engine_decode_launches_k5_in_every_layer(cuda_device):
+    from repro_torch.configs.base import get_config
+    from repro_torch.kernels.decode_attention import decode_attention
+    from repro_torch.kernels.flash_attention import flash_attention
+    from repro_torch.models.registry import get_model
+    from repro_torch.serving.engine import ServingEngine
+    cfg = get_config("qwen2-0.5b").reduced().replace(n_layers=3)
+    model = get_model(cfg)
+    params = model.init(torch.Generator(device=cuda_device).manual_seed(0))
+    engines = [ServingEngine(model, params, max_cache_len=64,
+                             batch_buckets=(4,), seq_buckets=(16,),
+                             cache_dtype=torch.float32, use_kernels=uk)
+               for uk in (True, False)]
+    tok = torch.randint(0, cfg.vocab_size, (3, 16), dtype=torch.int32)
+    decode_attention.launches = flash_attention.launches = 0
+    out = engines[0].generate(tok, steps=5)
+    assert decode_attention.launches == 4 * 3      # per decode step, layer
+    assert flash_attention.launches == 0           # prefill into the cache
+    assert torch.equal(out, engines[1].generate(tok, steps=5))
+    assert decode_attention.launches == 4 * 3

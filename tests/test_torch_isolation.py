@@ -25,7 +25,7 @@ def test_importing_every_module_pulls_in_no_jax_and_no_repro():
         "bad = sorted(k for k in sys.modules if k == 'jax' or "
         "k.startswith(('jax.', 'jaxlib')) or k == 'repro' or "
         "k.startswith('repro.'))\n"
-        "assert len(mods) >= 33, mods\n"
+        "assert len(mods) >= 46, mods\n"
         "assert not bad, bad\n"
         "print(len(mods))\n")
     out = subprocess.run([sys.executable, "-c", code], capture_output=True,
@@ -90,3 +90,21 @@ def test_cpu_tensors_take_the_plain_version_and_count_no_launch():
     want = queue_advance_ref(*state, arrivals, caps)
     assert all(torch.equal(g, w) for g, w in zip(got, want))
     assert queue_advance.launches == before
+
+    from repro_torch.kernels.decode_attention import decode_attention
+    from repro_torch.kernels.flash_attention import flash_attention
+    from repro_torch.kernels.packing import pack
+    from repro_torch.kernels.ref import (decode_attention_ref,
+                                         flash_attention_ref, pack_ref)
+    q, k, v = torch.randn(2, 9, 4, 32), torch.randn(2, 9, 2, 32), \
+        torch.randn(2, 9, 2, 32)
+    before = (flash_attention.launches, decode_attention.launches,
+              pack.launches)
+    assert torch.equal(flash_attention(q, k, v, causal=True),
+                       flash_attention_ref(q, k, v, causal=True))
+    assert torch.equal(decode_attention(q[:, :1], k, v, 5),
+                       decode_attention_ref(q[:, :1], k, v, 5))
+    idx = torch.tensor([3, -1, 0, 8], dtype=torch.int32)
+    assert torch.equal(pack(k[0, :, 0], idx), pack_ref(k[0, :, 0], idx))
+    assert (flash_attention.launches, decode_attention.launches,
+            pack.launches) == before

@@ -42,12 +42,15 @@ In order, it:
      (a first action divergence is accepted only at a near-tie of the
      Gumbel-max scores, and reported);
  11. holds K5 ``decode_attention`` and K4 ``flash_attention`` against their
-     plain versions (the JAX tests' sweeps, the invalid cache tail, and the
-     full-width qwen2-0.5b shapes: K5 on the serve path and at B=64 /
-     S_max 4096, K4 at B=4, S=2048) within rtol = atol = 2e-5 in float32
-     and 2e-2 in bf16, and K6 ``pack`` bit for bit; times each, its plain
-     version and a PyTorch call of the same function
-     (``scaled_dot_product_attention``, ``index_select``);
+     plain versions (the JAX tests' sweeps, K4's bf16 tensor-core path on
+     every shape of the sweep, K5 with several splits and the combine, the
+     invalid cache tail, and the full-width qwen2-0.5b shapes: K5 on the
+     serve path and at B=64 / S_max 4096, K4 at B=4, S=2048) within
+     rtol = atol = 2e-5 in float32 and 2e-2 in bf16, and K6 ``pack`` bit
+     for bit; times each, its plain version and a PyTorch call of the same
+     function (``scaled_dot_product_attention``, ``index_select``), K4
+     and K5 as the median of five readings, K5 also with 20 calls per
+     graph (the graph's own launch out);
  12. drives ``repro_torch.launch.serve`` at its defaults (qwen2-0.5b full
      width, 4 replicas, 30 episodes): K5 once per layer per decode step,
      K1 once per episode, the others never;
@@ -100,9 +103,11 @@ def eager_ms(fn, iters=50, warmup=5):
     return t0.elapsed_time(t1) / iters
 
 
-def device_ms(fn, iters=50):
-    """Mean device time of ``fn``: captured once in a CUDA graph and
-    replayed back to back, so the host's launch overhead is out."""
+def device_ms(fn, iters=50, per_graph=1):
+    """Mean device time of ``fn``: captured ``per_graph`` times in one CUDA
+    graph and replayed back to back, so the host's launch overhead is out
+    (with ``per_graph`` > 1 also the graph's own launch, which matters for
+    kernels of a few microseconds)."""
     import torch
     side = torch.cuda.Stream()
     side.wait_stream(torch.cuda.current_stream())
@@ -112,7 +117,8 @@ def device_ms(fn, iters=50):
     torch.cuda.current_stream().wait_stream(side)
     graph = torch.cuda.CUDAGraph()
     with torch.cuda.graph(graph):
-        fn()
+        for _ in range(per_graph):
+            fn()
     graph.replay()
     torch.cuda.synchronize()
     t0 = torch.cuda.Event(enable_timing=True)
@@ -122,7 +128,14 @@ def device_ms(fn, iters=50):
         graph.replay()
     t1.record()
     torch.cuda.synchronize()
-    return t0.elapsed_time(t1) / iters
+    return t0.elapsed_time(t1) / iters / per_graph
+
+
+def median_ms(fn, iters=50, samples=5):
+    """The median of ``samples`` ``device_ms`` readings: one reading of a
+    kernel of a few microseconds moves by a microsecond or two between
+    replays of its graph."""
+    return sorted(device_ms(fn, iters) for _ in range(samples))[samples // 2]
 
 
 def nbytes(*xs):
@@ -673,6 +686,9 @@ FLASH_CASES = [
     (4, 2048, 2048, 14, 2, 64, "float32", True),   # the prefill shape
     (4, 2048, 2048, 14, 2, 64, "bfloat16", True),
 ]
+# K4's bf16 path (wgmma, TMA) on every float32 shape of the sweep above
+FLASH_BF16_CASES = [c[:6] + ("bfloat16", c[7]) for c in FLASH_CASES[:-2]
+                    if c[6] == "float32"]
 # (b, hq, hkv, d, s_max, kv_len, q dtype, cache dtype): DECODE_CASES, then
 # the serve path (qwen2-0.5b, cache 256, bf16; and reduced over a bf16
 # cache) and the engine defaults (B=64, cache 4096)
@@ -687,6 +703,18 @@ DECODE_CASES = [
     (8, 4, 2, 32, 256, 17, "float32", "bfloat16"),
     *[(64, 14, 2, 64, 4096, n, "bfloat16", "bfloat16")
       for n in (1, 777, 4096)],
+]
+# K5 with several splits and the combine (tests/test_torch_cuda.py
+# DECODE_SPLIT_CASES): kv_len 4096 at B=2, one past a split boundary, a long
+# S_max with a short kv_len, D=80 and 256, a group of 16 heads
+DECODE_SPLIT_CASES = [
+    (2, 14, 2, 64, 4096, 4096, "bfloat16", "bfloat16"),
+    (2, 4, 2, 64, 4352, 4097, "float32", "float32"),
+    (2, 4, 2, 32, 4352, 4097, "float32", "bfloat16"),
+    (1, 8, 2, 128, 8192, 300, "float32", "float32"),
+    (1, 4, 1, 80, 2048, 1500, "bfloat16", "bfloat16"),
+    (1, 16, 16, 256, 1024, 1000, "float32", "float32"),
+    (1, 16, 1, 64, 1024, 700, "bfloat16", "bfloat16"),
 ]
 K5_MAIN = (8, 14, 2, 64, 256, 17, "bfloat16", "bfloat16")
 K5_BIG = (64, 14, 2, 64, 4096, 4096, "bfloat16", "bfloat16")
@@ -714,9 +742,10 @@ def check_k4(torch, gen):
     prefill shape. Returns (max |err| at the prefill shape, timing)."""
     import torch.nn.functional as F
     from repro_torch.kernels.flash_attention import flash_attention
-    from repro_torch.kernels.ref import flash_attention_ref
+    from repro_torch.kernels.ref import (flash_attention_bf16p_ref,
+                                         flash_attention_ref)
     err = 0.0
-    for case in FLASH_CASES:
+    for case in FLASH_CASES + FLASH_BF16_CASES:
         q, k, v = k4_inputs(torch, gen, case)
         got = flash_attention(q, k, v, causal=case[-1])
         want = flash_attention_ref(q, k, v, causal=case[-1])
@@ -727,16 +756,21 @@ def check_k4(torch, gen):
         e = float((got.float() - want.float()).abs().max())
         if case == K4_MAIN:
             err = e
+            emu = flash_attention_bf16p_ref(q, k, v, causal=case[-1])
+            e_emu = float((got.float() - emu.float()).abs().max())
+            log(f"  K4 {case}: max|err| {e_emu:.3g} against the bf16-P "
+                f"emulation (kernels/ref.py::flash_attention_bf16p_ref)")
+            del emu
         log(f"  K4 {case}: ok, max|err| {e:.3g} (tol {tol})")
         del got, want
     timing = {}
     for case in (K4_MAIN, FLASH_CASES[-2]):
         b, sq, sk, hq, hkv, d, dtype, causal = case
         q, k, v = k4_inputs(torch, gen, case)
-        ms = device_ms(lambda: flash_attention(q, k, v, causal=causal), 10)
-        plain = device_ms(lambda: flash_attention_ref(q, k, v, causal=causal),
-                          3)
-        lib = device_ms(lambda: F.scaled_dot_product_attention(
+        ms = median_ms(lambda: flash_attention(q, k, v, causal=causal), 10)
+        plain = median_ms(lambda: flash_attention_ref(q, k, v,
+                                                      causal=causal), 3)
+        lib = median_ms(lambda: F.scaled_dot_product_attention(
             q.transpose(1, 2), k.transpose(1, 2), v.transpose(1, 2),
             is_causal=causal, enable_gqa=True))
         pairs = sq * (sq + 1) // 2 if causal else sq * sk
@@ -769,10 +803,11 @@ def check_k5(torch, gen):
     ignored; times it at the serve path's shape and at the engine
     defaults. Returns (max |err| at the serve shape, timing)."""
     import torch.nn.functional as F
-    from repro_torch.kernels.decode_attention import decode_attention
+    from repro_torch.kernels.decode_attention import (decode_attention,
+                                                      num_splits)
     from repro_torch.kernels.ref import decode_attention_ref
     err = 0.0
-    for case in DECODE_CASES:
+    for case in DECODE_CASES + DECODE_SPLIT_CASES:
         q, kc, vc = k5_inputs(torch, gen, case)
         n = case[5]
         got = decode_attention(q, kc, vc, n)
@@ -789,17 +824,19 @@ def check_k5(torch, gen):
                 raise AssertionError(f"K5 {case}: the cache past kv_len "
                                      f"changed the result")
         torch.cuda.synchronize()
-        log(f"  K5 {case}: ok, max|err| {e:.3g} (tol {tol})"
+        log(f"  K5 {case}: ok, {num_splits(case[0], case[2], n)} split(s), "
+            f"max|err| {e:.3g} (tol {tol})"
             + (", tail ignored" if n < case[4] else ""))
     timing = {}
     for case in (K5_MAIN, K5_BIG):
         b, hq, hkv, d, s_max, n, qt, ct = case
         q, kc, vc = k5_inputs(torch, gen, case)
-        ms = device_ms(lambda: decode_attention(q, kc, vc, n))
-        plain = device_ms(lambda: decode_attention_ref(q, kc, vc, n), 10)
+        ms = median_ms(lambda: decode_attention(q, kc, vc, n))
+        plain = median_ms(lambda: decode_attention_ref(q, kc, vc, n), 10)
         kv = [c[:, :n].transpose(1, 2) for c in (kc, vc)]
-        lib = device_ms(lambda: F.scaled_dot_product_attention(
-            q.transpose(1, 2), *kv, enable_gqa=True))
+        sdpa = lambda: F.scaled_dot_product_attention(
+            q.transpose(1, 2), *kv, enable_gqa=True)
+        lib = median_ms(sdpa)
         moved = 2 * nbytes(q) + 2 * b * n * hkv * d * kc.element_size()
         flops = 4 * b * hq * n * d
         t_ops, t_bytes = flops / peak_flops(qt), moved / HBM_BYTES_PER_S
@@ -807,12 +844,15 @@ def check_k5(torch, gen):
             ms=ms, plain_ms=plain, bound_ms=max(t_ops, t_bytes) * 1e3,
             bound_by="operations" if t_ops >= t_bytes else "bytes",
             library_ms=lib)
-        log(f"  K5 B={b} S_max={s_max} kv_len={n} {qt}: kernel {ms:.4f} ms "
+        log(f"  K5 B={b} S_max={s_max} kv_len={n} {qt} "
+            f"({num_splits(b, hkv, n)} split(s)): kernel {ms:.4f} ms "
             f"(device; {eager_ms(lambda: decode_attention(q, kc, vc, n)):.4f}"
             f" ms eager), plain {plain:.4f} ms, sdpa "
             f"{lib:.4f} ms, bound "
             f"{timing[(b, s_max, n)]['bound_ms']:.6f} ms ({moved} B); "
-            f"{moved / ms / 1e6:.1f} GB/s")
+            f"{moved / ms / 1e6:.1f} GB/s; 20 calls per graph: kernel "
+            f"{device_ms(lambda: decode_attention(q, kc, vc, n), 20, 20):.4f}"
+            f" ms, sdpa {device_ms(sdpa, 20, 20):.4f} ms")
     return err, timing
 
 
@@ -908,8 +948,9 @@ def run_prefill(torch, cfg, params, calls=3):
     S=2048: K4 once per layer per call; logits against the same step with
     ``use_kernels=False`` (bf16: max difference and argmax agreement
     reported; float32: within rtol 1e-3 / atol 1e-3, the band of 24
-    layers summed in two orders); wall ms per call. Returns the K4
-    launches of the bf16 kernel calls."""
+    layers summed in two orders); wall ms per call; one bf16 call under
+    the profiler (where its device time goes). Returns the K4 launches of
+    the bf16 kernel calls."""
     from repro_torch.models.registry import get_model
     from repro_torch.serving.engine import make_prefill_step
     from repro_torch.kernels.flash_attention import flash_attention
@@ -937,8 +978,11 @@ def run_prefill(torch, cfg, params, calls=3):
                                  f"{flash_attention.launches} times in "
                                  f"{calls} calls, expected "
                                  f"{cfg.n_layers * calls}")
+        n_k4 = flash_attention.launches
         if dtype == "bfloat16":
-            launches = flash_attention.launches
+            launches = n_k4
+            profiled(torch, lambda: step(params, batch), 1,
+                     f"prefill {dtype} B=4 S=2048, cache-less", "call")
         plain_step(params, batch)
         torch.cuda.synchronize()
         t0 = time.time()
@@ -954,7 +998,7 @@ def run_prefill(torch, cfg, params, calls=3):
                                        msg="[prefill] float32 kernels vs "
                                            "sdpa")
         log(f"  prefill {dtype} B=4 S=2048 ({cfg.n_layers} layers): "
-            f"{ms:.1f} ms per call with K4 ({flash_attention.launches} "
+            f"{ms:.1f} ms per call with K4 ({n_k4} "
             f"launches in {calls} calls), {plain_ms:.1f} ms with sdpa; "
             f"logits max|diff| {diff:.3g} (max|logit| "
             f"{float(want.float().abs().max()):.3g}), argmax agreement "

@@ -2,10 +2,13 @@
 
 Replaces the Pallas kernel ``repro/kernels/decode_attention.py:110``
 (``decode_attention`` -> ``decode_attention_bhd`` :66). CUDA source:
-``csrc/decode_attention.cu`` (one block per (batch row, kv head); the group
-of query heads shares each K/V tile; online softmax in float32; only the
-``kv_len`` valid keys are read). Plain version:
-``kernels/ref.py::decode_attention_ref``.
+``csrc/decode_attention.cu`` (split-KV: one block per (split of the cache
+prefix, kv head, batch row); up to eight query heads of the group share
+each K/V tile, which arrives by ``cp.async`` into a two-stage ring; online
+softmax in float32; only the ``kv_len`` valid keys are read; with more than
+one split a second kernel combines the partials). Plain version:
+``kernels/ref.py::decode_attention_ref``; its split-and-combine,
+``decode_attention_split_ref``.
 
 Bound on an H100: the valid K/V prefix read once, 2 B kv_len Hkv D
 sizeof(T) bytes; at B=64, kv_len 4096, Hkv=2, D=64 in bf16, 134 MB or
@@ -15,7 +18,8 @@ sets the time.
 ``kv_len`` is a host int shared by the batch (the engine's cache offset is
 one), so a launch needs no device->host sync. CPU tensors take the plain
 version; CUDA tensors launch the kernel (there is no fallback).
-``decode_attention.launches`` counts kernel launches.
+``decode_attention.launches`` counts wrapper calls that launched the
+kernel (one, whether or not the combine kernel follows).
 """
 from __future__ import annotations
 
@@ -28,9 +32,35 @@ from repro_torch.kernels.ref import decode_attention_ref
 
 HEAD_DIMS = (32, 64, 80, 128, 256)
 DTYPES = {torch.float32: 0, torch.bfloat16: 1}
-MAX_SMEM_BYTES = 232448     # dynamic shared memory one block may take
+SPLIT_TARGET_BLOCKS = 4 * 132   # a few blocks on each of the H100's SMs
+SPLIT_MIN_KEYS = 256            # fewer keys than this per split: one split
+SPLIT_ALIGN = 64                # a split's length is a multiple of this
+MAX_SPLITS = 64
 _P, _I = ctypes.c_void_p, ctypes.c_int
-_ARGTYPES = [_P] * 4 + [_I] * 8 + [_P]
+_ARGTYPES = [_P] * 5 + [_I] * 10 + [_P]
+
+
+def num_splits(b: int, hkv: int, kv_len: int) -> int:
+    """How many ranges K5 cuts the cache prefix into: enough blocks
+    (B * Hkv per split) for a few on every SM, but at least
+    ``SPLIT_MIN_KEYS`` keys per split, so a short cache (the serve path)
+    takes one split and no combine."""
+    want = -(-SPLIT_TARGET_BLOCKS // (b * hkv))
+    return max(1, min(want, -(-kv_len // SPLIT_MIN_KEYS), MAX_SPLITS))
+
+
+def split_chunk(kv_len: int, n_split: int) -> int:
+    """Keys per split: ceil(kv_len / n_split), rounded up to a multiple of
+    ``SPLIT_ALIGN``."""
+    chunk = -(-kv_len // n_split)
+    return -(-chunk // SPLIT_ALIGN) * SPLIT_ALIGN
+
+
+def split_bounds(kv_len: int, n_split: int) -> list:
+    """The key ranges [start, end) of the ``n_split`` splits, as the kernel
+    cuts them; a range may be empty (start >= kv_len)."""
+    chunk = split_chunk(kv_len, n_split)
+    return [(i * chunk, min(kv_len, (i + 1) * chunk)) for i in range(n_split)]
 
 
 def decode_attention(q, k_cache, v_cache, kv_len):
@@ -66,20 +96,22 @@ def decode_attention(q, k_cache, v_cache, kv_len):
     if not 1 <= kv_len <= s_max:
         raise ValueError(f"decode_attention: kv_len {kv_len} outside "
                          f"[1, S_max={s_max}]")
+    if b > 65535:
+        raise ValueError(f"decode_attention: B={b} must be at most 65535 "
+                         f"(a grid dimension)")
     build.check_tensors("decode_attention", q.device, q=q, k_cache=k_cache,
                         v_cache=v_cache)
     lib = build.load("decode_attention")
-    smem_fn = lib.decode_attention_smem_bytes
-    smem_fn.argtypes, smem_fn.restype = [_I, _I], ctypes.c_longlong
-    if smem_fn(hq // hkv, d) > MAX_SMEM_BYTES:
-        raise ValueError(f"decode_attention: a group of {hq // hkv} query "
-                         f"heads at D={d} needs more than the "
-                         f"{MAX_SMEM_BYTES} B of shared memory of one block")
     out = torch.empty_like(q)
+    n_split = num_splits(b, hkv, kv_len)
+    part = torch.empty(b * hq * n_split * (d + 2), dtype=torch.float32,
+                       device=q.device) if n_split > 1 else None
     fn = lib.decode_attention_launch
     fn.argtypes, fn.restype = _ARGTYPES, _I
     rc = fn(q.data_ptr(), k_cache.data_ptr(), v_cache.data_ptr(),
-            out.data_ptr(), b, hq, hkv, d, s_max, kv_len, DTYPES[q.dtype],
+            out.data_ptr(), part.data_ptr() if part is not None else None,
+            b, hq, hkv, d, s_max, kv_len, n_split,
+            split_chunk(kv_len, n_split), DTYPES[q.dtype],
             DTYPES[k_cache.dtype], torch.cuda.current_stream(q.device)
             .cuda_stream)
     build.check(lib, "decode_attention", rc)

@@ -2,10 +2,14 @@
 
 Replaces the Pallas kernel ``repro/kernels/flash_attention.py:112``
 (``flash_attention`` -> ``flash_attention_bhsd`` :74). CUDA source:
-``csrc/flash_attention.cu`` (one block per (q tile, q head, batch row), a
+``csrc/flash_attention.cu``: one block per (q tile, q head, batch row), a
 loop over KV tiles with an online softmax in float32, KV tiles above the
 causal diagonal skipped; query head h reads kv head h // group, no repeated
-KV in device memory). Plain version: ``kernels/ref.py::flash_attention_ref``.
+KV in device memory. bf16 runs on the tensor cores (``wgmma``, K/V tiles
+through a TMA ring signalled by mbarriers, P rounded to bf16 before P V;
+its plain form is ``kernels/ref.py::flash_attention_bf16p_ref``); float32
+on the CUDA cores in float32. Plain version:
+``kernels/ref.py::flash_attention_ref``.
 
 Bound on an H100: 4 B Hq Sq Sk D flops (halved under the causal mask); at
 the prefill shape B=4, S=2048, Hq=14, Hkv=2, D=64 in bf16, 30.1 GFLOP per

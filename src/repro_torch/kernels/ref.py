@@ -58,6 +58,65 @@ def decode_attention_ref(q, k_cache, v_cache, kv_len):
     return _attend(q, k_cache, v_cache, valid[:, None, None, :])
 
 
+def decode_attention_split_ref(q, k_cache, v_cache, kv_len, bounds):
+    """K5's split-KV arithmetic in plain PyTorch (float32): the partials
+    (m, l, acc) of each key range [start, end) of ``bounds``, clipped to
+    [0, kv_len), then their combine m* = max m_i, w_i = exp(m_i - m*),
+    out = sum w_i acc_i / max(sum w_i l_i, 1e-30). A range with no valid
+    key has m = -inf, l = 0, acc = 0 and weight exactly 0. q: (B, 1, Hq, D);
+    caches: (B, S_max, Hkv, D); kv_len: an int. Returns (B, 1, Hq, D) in
+    q's type."""
+    rep = q.shape[2] // k_cache.shape[2]
+    qf = q[:, 0].float()                                       # (B, Hq, D)
+    kf = k_cache.float().repeat_interleave(rep, dim=2)
+    vf = v_cache.float().repeat_interleave(rep, dim=2)
+    b, hq, d = qf.shape
+    ms, ls, accs = [], [], []
+    for start, end in bounds:
+        end = min(end, kv_len)
+        if end <= start:
+            ms.append(torch.full((b, hq), -math.inf, device=q.device))
+            ls.append(torch.zeros(b, hq, device=q.device))
+            accs.append(torch.zeros(b, hq, d, device=q.device))
+            continue
+        s = torch.einsum("bhd,bkhd->bhk", qf, kf[:, start:end]) \
+            / math.sqrt(d)
+        m = s.amax(-1)
+        p = torch.exp(s - m[..., None])
+        ms.append(m)
+        ls.append(p.sum(-1))
+        accs.append(torch.einsum("bhk,bkhd->bhd", p, vf[:, start:end]))
+    m = torch.stack(ms)                                     # (n, B, Hq)
+    m_star = m.amax(0)
+    w = torch.where(m == -math.inf, torch.zeros_like(m),
+                    torch.exp(m - m_star))
+    l_star = (w * torch.stack(ls)).sum(0)
+    out = (w[..., None] * torch.stack(accs)).sum(0) \
+        / torch.clamp_min(l_star, 1e-30)[..., None]
+    return out[:, None].to(q.dtype)
+
+
+def flash_attention_bf16p_ref(q, k, v, causal=True):
+    """K4's bf16 numerics in plain PyTorch: float32 scores and softmax
+    (m the row max, l the float32 sum of p = exp(s - m)), P rounded to bf16
+    before P V in float32, out = (P V) / l rounded once to q's type.
+    Shapes as ``flash_attention_ref``."""
+    sq, sk = q.shape[1], k.shape[1]
+    rep = q.shape[2] // k.shape[2]
+    kf = k.float().repeat_interleave(rep, dim=2)
+    vf = v.float().repeat_interleave(rep, dim=2)
+    s = torch.einsum("bqhd,bkhd->bhqk", q.float(), kf) / math.sqrt(q.shape[-1])
+    if causal:
+        mask = (torch.arange(sq, device=q.device)[:, None]
+                >= torch.arange(sk, device=q.device)[None, :])
+        s = torch.where(mask, s, -math.inf)
+    p = torch.exp(s - s.amax(-1, keepdim=True))
+    l = p.sum(-1)
+    o = torch.einsum("bhqk,bkhd->bqhd", p.to(torch.bfloat16).float(), vf)
+    return (o / torch.clamp_min(l, 1e-30).transpose(1, 2)[..., None]).to(
+        q.dtype)
+
+
 def pack_ref(tokens, indices):
     """tokens: (T, D); indices: (N,) int32 (negative = padding slot -> 0,
     beyond T clipped to T - 1, as the JAX oracle does). The frame/token

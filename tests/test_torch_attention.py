@@ -6,8 +6,10 @@ versions for CPU tensors; they are held against the JAX oracles
 ``repro.kernels.ref.flash_attention_ref`` / ``decode_attention_ref`` (the
 Pallas flash and decode kernels do not run in interpret mode on this
 host's jax) on the JAX tests' sweep, at the JAX tests' tolerances:
-rtol = atol = 2e-5 in float32, 2e-2 in bf16. K6 ``pack`` is held bit for
-bit against the Pallas ``pack`` in interpret mode, which runs here.
+rtol = atol = 2e-5 in float32, 2e-2 in bf16. So are the plain forms of the
+CUDA kernels' own arithmetic: K5's split-KV partials and combine, and K4's
+bf16 path (P rounded to bf16 before P V). K6 ``pack`` is held bit for bit
+against the Pallas ``pack`` in interpret mode, which runs here.
 """
 import jax.numpy as jnp
 import ml_dtypes
@@ -17,11 +19,16 @@ import torch
 
 from repro.kernels import ref as jref
 from repro.kernels.packing import pack as j_pack
-from repro_torch.kernels.decode_attention import decode_attention
+from repro_torch.kernels import build
+from repro_torch.kernels.decode_attention import (MAX_SPLITS, SPLIT_ALIGN,
+                                                  decode_attention,
+                                                  num_splits, split_bounds)
 from repro_torch.kernels.flash_attention import flash_attention
 from repro_torch.kernels.packing import pack
-from repro_torch.kernels.ref import (decode_attention_ref, flash_attention_ref,
-                                     pack_ref)
+from repro_torch.kernels.ref import (decode_attention_ref,
+                                     decode_attention_split_ref,
+                                     flash_attention_bf16p_ref,
+                                     flash_attention_ref, pack_ref)
 
 # (b, sq, sk, hq, hkv, d, dtype, causal): tests/test_kernels.py FLASH_CASES
 FLASH_CASES = [
@@ -181,3 +188,85 @@ def test_pack_plain_clips_like_the_jax_oracle():
     got = pack_ref(torch.from_numpy(tok), torch.from_numpy(idx))
     want = np.asarray(jref.pack_ref(jnp.asarray(tok), jnp.asarray(idx)))
     np.testing.assert_array_equal(got.numpy(), want)
+
+
+# (b, hq, hkv, d, s_max, kv_len, bounds): K5's split-and-combine on key
+# ranges that the kernel's rule gives, or that it must survive
+SPLIT_CASES = {
+    "one_split": (2, 14, 2, 64, 256, 200, [(0, 256)]),
+    "many_splits": (2, 4, 2, 64, 512, 300, split_bounds(300, 5)),
+    "boundary_at_kv_len": (1, 8, 2, 32, 256, 192, [(0, 128), (128, 192)]),
+    "splits_past_kv_len": (2, 4, 4, 80, 256, 100,
+                           [(0, 64), (64, 128), (128, 192), (192, 256)]),
+    "kv_len_1": (3, 4, 2, 128, 48, 1, split_bounds(1, 3)),
+}
+
+
+@pytest.mark.parametrize("name", sorted(SPLIT_CASES))
+def test_decode_split_and_combine_matches_plain_and_jax_oracle(name):
+    """K5's arithmetic with several splits: partials (m, l, acc) per key
+    range, then the combine; a range with no valid key adds exactly 0."""
+    b, hq, hkv, d, s_max, kv_len, bounds = SPLIT_CASES[name]
+    rng = np.random.default_rng(len(name))
+    arrs = [rng.normal(size=s).astype(np.float32)
+            for s in ((b, 1, hq, d), (b, s_max, hkv, d), (b, s_max, hkv, d))]
+    q, kc, vc = (torch.from_numpy(a) for a in arrs)
+    got = decode_attention_split_ref(q, kc, vc, kv_len, bounds)
+    assert got.shape == (b, 1, hq, d) and torch.isfinite(got).all()
+    close(got, decode_attention_ref(q, kc, vc, kv_len).numpy(), "float32")
+    close(got, jref.decode_attention_ref(*(jnp.asarray(a) for a in arrs),
+                                         kv_len), "float32")
+
+
+@pytest.mark.parametrize("b,hkv,kv_len", [
+    (8, 2, 17), (8, 2, 159), (1, 2, 17), (64, 2, 4096), (2, 2, 4096),
+    (2, 2, 4097), (64, 2, 1), (1, 1, 32768)])
+def test_decode_split_rule(b, hkv, kv_len):
+    """One split (no combine) on the serve path's short caches, several at
+    the engine's default B=64 / kv_len 4096; the ranges tile [0, kv_len)
+    in multiples of 64 keys."""
+    n = num_splits(b, hkv, kv_len)
+    assert 1 <= n <= MAX_SPLITS
+    if kv_len <= 256:
+        assert n == 1
+    if (b, hkv, kv_len) == (64, 2, 4096):
+        assert n > 1
+    bounds = split_bounds(kv_len, n)
+    assert len(bounds) == n
+    assert all(s % SPLIT_ALIGN == 0 for s, _ in bounds)
+    assert [k for s, e in bounds for k in range(s, e)] == list(range(kv_len))
+
+
+@pytest.mark.parametrize("case", FLASH_CASES)
+def test_flash_bf16p_emulation_within_band_of_jax_oracle(case):
+    """K4's bf16 numerics (P rounded to bf16 before P V) stay inside the
+    JAX tests' bf16 band of the oracle on every shape of the sweep."""
+    b, sq, sk, hq, hkv, d, _, causal = case
+    rng = np.random.default_rng(sum(case[:6]))
+    (qj, qt), (kj, kt), (vj, vt) = (
+        both(rng.normal(size=s).astype(np.float32), "bfloat16")
+        for s in ((b, sq, hq, d), (b, sk, hkv, d), (b, sk, hkv, d)))
+    got = flash_attention_bf16p_ref(qt, kt, vt, causal=causal)
+    assert got.dtype == torch.bfloat16 and got.shape == (b, sq, hq, d)
+    close(got, jref.flash_attention_ref(qj, kj, vj, causal=causal),
+          "bfloat16")
+
+
+# the flags of the parent tree; K1, K2, K3 and K6 keep them and their hashes
+OLD_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-O3", "-std=c++17",
+             "-fmad=false", "-Xptxas", "-v", "-shared", "-Xcompiler",
+             "-fPIC")
+
+
+@pytest.mark.parametrize("name", build.KERNELS)
+def test_build_flags_per_kernel(name):
+    import hashlib
+    flags = build.flags(name)
+    if name in ("flash_attention", "decode_attention"):
+        assert flags == tuple(f for f in OLD_FLAGS if f != "-fmad=false")
+    else:
+        assert flags == OLD_FLAGS
+        src = (build.CSRC / f"{name}.cu").read_bytes()
+        tag = hashlib.sha256(src + " ".join(OLD_FLAGS).encode()).hexdigest()
+        assert build.library_path(name).name == f"{name}-{tag[:16]}.so"
+    assert "use_fast_math" not in " ".join(flags)

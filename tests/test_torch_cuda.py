@@ -210,6 +210,23 @@ DECODE_CASES = [
 ]
 
 
+# K4's bf16 path (wgmma, TMA) on every shape of the sweep
+FLASH_BF16_CASES = [c[:6] + (torch.bfloat16, c[7]) for c in FLASH_CASES
+                    if c[6] == torch.float32]
+# K5 with several splits of the cache prefix and a combine: kv_len 4096 at
+# B=2, kv_len one past a split boundary, a long S_max with a short kv_len,
+# D=80 and 256, and a group of 16 query heads (two head chunks)
+DECODE_SPLIT_CASES = [
+    (2, 14, 2, 64, 4096, 4096, torch.bfloat16, torch.bfloat16),
+    (2, 4, 2, 64, 4352, 4097, torch.float32, torch.float32),
+    (2, 4, 2, 32, 4352, 4097, torch.float32, torch.bfloat16),
+    (1, 8, 2, 128, 8192, 300, torch.float32, torch.float32),
+    (1, 4, 1, 80, 2048, 1500, torch.bfloat16, torch.bfloat16),
+    (1, 16, 16, 256, 1024, 1000, torch.float32, torch.float32),
+    (1, 16, 1, 64, 1024, 700, torch.bfloat16, torch.bfloat16),
+]
+
+
 def attn_tol(dtype):
     return 2e-2 if dtype == torch.bfloat16 else 2e-5
 
@@ -232,6 +249,12 @@ def test_k4_matches_plain_on_the_card(cuda_device, case):
 
 
 @pytest.mark.cuda
+@pytest.mark.parametrize("case", FLASH_BF16_CASES)
+def test_k4_bf16_matches_plain_on_the_card(cuda_device, case):
+    test_k4_matches_plain_on_the_card(cuda_device, case)
+
+
+@pytest.mark.cuda
 @pytest.mark.parametrize("case", DECODE_CASES)
 def test_k5_matches_plain_on_the_card(cuda_device, case):
     from repro_torch.kernels.decode_attention import decode_attention
@@ -250,6 +273,15 @@ def test_k5_matches_plain_on_the_card(cuda_device, case):
     # garbage past kv_len never enters the result
     kc[:, kv_len:], vc[:, kv_len:] = 1e9, float("nan")
     assert torch.equal(decode_attention(q, kc, vc, kv_len), got)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("case", DECODE_SPLIT_CASES)
+def test_k5_splits_match_plain_on_the_card(cuda_device, case):
+    from repro_torch.kernels.decode_attention import num_splits
+    b, hq, hkv, _, _, kv_len = case[:6]
+    assert num_splits(b, hkv, kv_len) > 1
+    test_k5_matches_plain_on_the_card(cuda_device, case)
 
 
 @pytest.mark.cuda

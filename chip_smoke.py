@@ -6,13 +6,15 @@
 In order, it:
   1. prints the card's name and power limit (nvidia-smi) and fails without
      CUDA;
-  2. builds every kernel of the port from ``src/repro_torch/csrc`` (one
-     nvcc per source, all started together) and prints the ptxas reports;
+  2. builds every kernel of the port from ``src/repro_torch/csrc``, and K1
+     once more with its phase marks defined as clock64 stamps (one nvcc
+     per build, all started together), and prints the ptxas reports;
   3. holds K1 ``diversity_insert`` against its plain PyTorch version on the
      card at A=8 and A=2048 (T=10, N=64) from empty, half-full and full
      buffers: identical decision traces (a first divergence is accepted only
      at a near-tie, score gap below 1e-5 relative) and floats within
-     rtol 1e-4 / atol 1e-5;
+     rtol 1e-4 / atol 1e-5; then reads the stamped K1's cycles per phase
+     on full buffers at A=8 and A=2048;
   4. holds K2 ``delta_codec`` against its plain version bit for bit in all
      three codecs at all 12 leaf sizes of one iAgent, at A=8 and A=2048
      (random data, plus a grid with exact int8 halfway cases and |x| ties);
@@ -22,7 +24,8 @@ In order, it:
      full post queue), with conservation checked;
   6. times each kernel, its plain version and (K2 topk) ``torch.topk`` at
      the main path's shapes: device time by CUDA-graph replay (CUDA
-     events), and the eager per-call time with the host's launch cost;
+     events; K1 the median of five readings at 1 and at 20 calls per
+     graph), and the eager per-call time with the host's launch cost;
   7. drives ``repro_torch.launch.train_fleet`` at its defaults (8 agents,
      2 pods, 20 episodes), then with ``--fl-codec int8`` and ``--fl-codec
      topk``, with every launch count set to 0 just before each run and read
@@ -47,10 +50,13 @@ In order, it:
      invalid cache tail, and the full-width qwen2-0.5b shapes: K5 on the
      serve path and at B=64 / S_max 4096, K4 at B=4, S=2048) within
      rtol = atol = 2e-5 in float32 and 2e-2 in bf16, and K6 ``pack`` bit
-     for bit; times each, its plain version and a PyTorch call of the same
-     function (``scaled_dot_product_attention``, ``index_select``), K4
-     and K5 as the median of five readings, K5 also with 20 calls per
-     graph (the graph's own launch out);
+     for bit (every word path, all-padding, one row, bf16 rows); times
+     each, its plain version and a PyTorch call of the same function
+     (``scaled_dot_product_attention``, ``index_select``) as the median of
+     five readings, K5, K6 and ``index_select`` also with 20 calls per
+     graph (the graph's own launch out); K6 and ``index_select`` read
+     their token tables cold (four tables, more than the L2 holds, in
+     turn);
  12. drives ``repro_torch.launch.serve`` at its defaults (qwen2-0.5b full
      width, 4 replicas, 30 episodes): K5 once per layer per decode step,
      K1 once per episode, the others never;
@@ -66,8 +72,12 @@ Any failure raises and exits non-zero.
 """
 from __future__ import annotations
 
+import contextlib
+import ctypes
+import itertools
 import json
 import math
+import string
 import subprocess
 import sys
 import time
@@ -103,11 +113,14 @@ def eager_ms(fn, iters=50, warmup=5):
     return t0.elapsed_time(t1) / iters
 
 
-def device_ms(fn, iters=50, per_graph=1):
+def device_ms(fn, iters=50, per_graph=1, graphs=1):
     """Mean device time of ``fn``: captured ``per_graph`` times in one CUDA
     graph and replayed back to back, so the host's launch overhead is out
     (with ``per_graph`` > 1 also the graph's own launch, which matters for
-    kernels of a few microseconds)."""
+    kernels of a few microseconds). With ``graphs`` > 1 that many graphs
+    are captured, each from the next calls of ``fn``, and replayed in
+    turn: an ``fn`` that walks through inputs larger than the L2 then reads
+    each of them cold."""
     import torch
     side = torch.cuda.Stream()
     side.wait_stream(torch.cuda.current_stream())
@@ -115,27 +128,33 @@ def device_ms(fn, iters=50, per_graph=1):
         for _ in range(3):
             fn()
     torch.cuda.current_stream().wait_stream(side)
-    graph = torch.cuda.CUDAGraph()
-    with torch.cuda.graph(graph):
-        for _ in range(per_graph):
-            fn()
-    graph.replay()
+    captured = []
+    for _ in range(graphs):
+        graph = torch.cuda.CUDAGraph()
+        with torch.cuda.graph(graph):
+            for _ in range(per_graph):
+                fn()
+        captured.append(graph)
+    for graph in captured:
+        graph.replay()
     torch.cuda.synchronize()
     t0 = torch.cuda.Event(enable_timing=True)
     t1 = torch.cuda.Event(enable_timing=True)
     t0.record()
-    for _ in range(iters):
-        graph.replay()
+    for i in range(iters):
+        captured[i % graphs].replay()
     t1.record()
     torch.cuda.synchronize()
     return t0.elapsed_time(t1) / iters / per_graph
 
 
-def median_ms(fn, iters=50, samples=5):
+def median_ms(fn, iters=50, samples=5, per_graph=1, graphs=1):
     """The median of ``samples`` ``device_ms`` readings: one reading of a
     kernel of a few microseconds moves by a microsecond or two between
-    replays of its graph."""
-    return sorted(device_ms(fn, iters) for _ in range(samples))[samples // 2]
+    replays of its graph. With ``per_graph`` 20 the graph's own launch is
+    spread over 20 calls: that reading is the device's own time."""
+    return sorted(device_ms(fn, iters, per_graph, graphs)
+                  for _ in range(samples))[samples // 2]
 
 
 def nbytes(*xs):
@@ -235,7 +254,9 @@ def check_k1(torch, cfg, gen):
             e = k1_compare(torch, cfg, args, out_k, out_p, f"A={a} {label}")
             err = max(err, e)
             log(f"  K1 A={a} {label}: ok, max|err| {e:.3g}")
-        ms = device_ms(lambda: diversity_insert(*args, **kw))
+        ms = median_ms(lambda: diversity_insert(*args, **kw))
+        ms20 = median_ms(lambda: diversity_insert(*args, **kw), 10,
+                         per_graph=20)
         plain = device_ms(lambda: diversity_insert_ref(*args, **kw))
         eager = eager_ms(lambda: diversity_insert(*args, **kw))
         outs = out_k
@@ -246,10 +267,139 @@ def check_k1(torch, cfg, gen):
             else "operations"
         timing[a] = dict(ms=ms, plain_ms=plain, bound_ms=bound, bound_by=by,
                          library_ms=None)
-        log(f"  K1 A={a}: kernel {ms:.4f} ms (device; {eager:.4f} ms per "
-            f"eager call), plain {plain:.4f} ms, bound {bound:.6f} ms ({by}, "
-            f"{moved} B)")
+        log(f"  K1 A={a} (full buffer): kernel {ms:.4f} ms (median of 5 "
+            f"graph replays; {ms20:.4f} ms at 20 calls per graph; "
+            f"{eager:.4f} ms per eager call), plain {plain:.4f} ms, bound "
+            f"{bound:.6f} ms ({by}, {moved} B)")
     return err, timing
+
+
+# (mark in csrc/diversity_insert.cu, label): the phase that ends at the mark
+K1_PHASES = (("LOAD", "load"), ("MEAN_COV", "mean+cov"),
+             ("CHOLESKY", "cholesky"), ("SOLVE_NORM", "solve+norm"),
+             ("KL", "kl"), ("ARGMIN", "argmin"), ("EXCHANGE", "exchange"),
+             ("UPDATE", "update"), ("STORE", "store"))
+K1_MAX_BLOCKS, K1_WARPS = 4096, 2
+K1_STAMPS = string.Template("""#define K1_PHASE_MARKS
+#include <cuda_runtime.h>
+enum { $enum, K1_NPH };
+__device__ unsigned long long k1_phase_sum[$blocks][$warps][K1_NPH];
+__shared__ unsigned long long k1_phase_acc[$warps][K1_NPH + 1];
+__device__ __forceinline__ void k1_stamp_start() {
+  if ((threadIdx.x & 31) == 0) {
+    const int w = threadIdx.x >> 5;
+    for (int i = 0; i < K1_NPH; ++i) k1_phase_acc[w][i] = 0ull;
+    k1_phase_acc[w][K1_NPH] = clock64();
+  }
+}
+__device__ __forceinline__ void k1_stamp(int ph) {
+  if ((threadIdx.x & 31) == 0) {
+    const int w = threadIdx.x >> 5;
+    const unsigned long long now = clock64();
+    k1_phase_acc[w][ph] += now - k1_phase_acc[w][K1_NPH];
+    k1_phase_acc[w][K1_NPH] = now;
+  }
+}
+__device__ __forceinline__ void k1_stamp_flush() {
+  if ((threadIdx.x & 31) == 0 && blockIdx.x < $blocks) {
+    const int w = threadIdx.x >> 5;
+    for (int i = 0; i < K1_NPH; ++i)
+      k1_phase_sum[blockIdx.x][w][i] = k1_phase_acc[w][i];
+  }
+}
+#define K1_MARK_START() k1_stamp_start()
+#define K1_MARK(phase) k1_stamp(K1_PH_##phase)
+#define K1_MARK_END() k1_stamp_flush()
+#include "$source"
+extern "C" int k1_phase_read(void* host, int n_blocks) {
+  return static_cast<int>(cudaMemcpyFromSymbol(
+      host, k1_phase_sum, sizeof(unsigned long long) * n_blocks * $warps *
+      K1_NPH));
+}
+""")
+
+
+def k1_stamped_source(source):
+    """A translation unit that builds K1 from ``source`` (the path of
+    ``csrc/diversity_insert.cu``) with its phase marks defined as clock64
+    stamps: lane 0 of each warp adds the cycles since its previous mark to
+    the phase the mark ends, in shared memory, and each block writes its
+    sums to ``k1_phase_sum`` at the end (``k1_phase_read`` copies them
+    out). A mark costs lane 0 one clock64 and three shared-memory
+    accesses, which the phase it ends absorbs."""
+    return K1_STAMPS.substitute(
+        enum=", ".join(f"K1_PH_{mark}" for mark, _ in K1_PHASES),
+        blocks=K1_MAX_BLOCKS, warps=K1_WARPS, source=source)
+
+
+def start_k1_stamped():
+    """Start nvcc on the stamped K1 with K1's flags; returns the process
+    and the library it writes (``build/kernels``, gitignored)."""
+    from repro_torch.kernels import build
+    build.BUILD_DIR.mkdir(parents=True, exist_ok=True)
+    unit = build.BUILD_DIR / "diversity_insert-stamped.cu"
+    unit.write_text(k1_stamped_source(build.CSRC / "diversity_insert.cu"))
+    out = unit.with_suffix(".so")
+    proc = subprocess.Popen(
+        [build.nvcc_path(), *build.flags("diversity_insert"), "-o", str(out),
+         str(unit)], stdout=subprocess.PIPE, stderr=subprocess.STDOUT,
+        text=True)
+    return proc, out
+
+
+def finish_k1_stamped(proc, out):
+    """Wait for ``start_k1_stamped``'s nvcc and load its library; raises
+    with the compiler's output if the build failed."""
+    text, _ = proc.communicate()
+    out.with_suffix(".log").write_text(text)
+    if proc.returncode != 0:
+        raise RuntimeError(f"nvcc failed for the stamped K1 (exit "
+                           f"{proc.returncode}):\n{text}")
+    return ctypes.CDLL(str(out))
+
+
+@contextlib.contextmanager
+def launching(name, lib):
+    """Within the block, kernel ``name``'s wrapper launches ``lib`` (a build
+    of another translation unit with the same C launch function)."""
+    from repro_torch.kernels import build
+    saved = build.load(name)
+    build._LIBS[name] = lib
+    try:
+        yield
+    finally:
+        build._LIBS[name] = saved
+
+
+def k1_phases(torch, cfg, gen, lib):
+    """The stamped K1 on a full buffer at A=8 and A=2048: the cycles lane 0
+    of each warp spends in each phase, averaged over the agents; per block
+    for load and store, per candidate for the rest (the kernel takes
+    candidates in pairs)."""
+    import numpy as np
+    from repro_torch.core.buffer import RIDGE
+    from repro_torch.kernels.diversity import diversity_insert
+    kw = dict(alpha=cfg.alpha, beta=cfg.beta, ridge=RIDGE)
+    read = lib.k1_phase_read
+    read.argtypes, read.restype = [ctypes.c_void_p, ctypes.c_int], ctypes.c_int
+    for a in (8, 2048):
+        args = k1_inputs(torch, a, 96, cfg.n_steps, gen, cfg)
+        with launching("diversity_insert", lib):
+            for _ in range(3):                     # the last launch counts
+                diversity_insert(*args, **kw)
+            torch.cuda.synchronize()
+        buf = np.zeros((a, K1_WARPS, len(K1_PHASES)), np.uint64)
+        rc = read(buf.ctypes.data, a)
+        if rc != 0:
+            raise RuntimeError(f"k1_phase_read: CUDA error {rc}")
+        cyc = buf.astype(np.float64).mean(0)
+        per = [1 if label in ("load", "store") else cfg.n_steps
+               for _, label in K1_PHASES]
+        for w in range(K1_WARPS):
+            parts = [f"{label} {cyc[w, i] / per[i]:.0f}"
+                     for i, (_, label) in enumerate(K1_PHASES) if cyc[w, i]]
+            log(f"  K1 A={a} full, warp {w}: {' | '.join(parts)}; "
+                f"{cyc[w].sum():.0f} cycles in all")
 
 
 def k1_flops_per_candidate(cfg):
@@ -861,8 +1011,8 @@ def check_k6(torch, gen):
     three types, then T=4096, D=896, N=8192 with ~10 % padding (timed)."""
     from repro_torch.kernels.packing import pack
     from repro_torch.kernels.ref import pack_ref
-    bits = lambda x: x.view(torch.int16 if x.element_size() == 2
-                            else torch.int32)
+    bits = lambda x: x.view({1: torch.uint8, 2: torch.int16,
+                             4: torch.int32}[x.element_size()])
     idx8 = torch.tensor([0, 63, -1, 5, 5, -1, 17, 2], dtype=torch.int32,
                         device=DEV)
     cases = [((torch.randn((64, 128), generator=gen, device=DEV) * 10).to(
@@ -873,24 +1023,62 @@ def check_k6(torch, gen):
     pad = torch.rand(8192, generator=gen, device=DEV) < 0.1
     idx = torch.where(pad, -1, idx).to(torch.int32)
     cases.append((big, idx))
+    # every row padding, one row, N past a multiple of the 8 rows a block
+    # takes, bf16 rows of 1,792 bytes, tokens 4 and 1 bytes off 16-byte
+    # alignment (the 4- and 1-byte word paths)
+    flat = torch.randn(4096 * 896 + 1, generator=gen, device=DEV)
+    cases += [(big[:64], torch.full((300,), -1, dtype=torch.int32,
+                                    device=DEV)),
+              (big, idx[:1]),
+              (big, torch.cat([idx, idx[:1]])),
+              (big.to(torch.bfloat16), idx),
+              (flat[1:].view(4096, 896), idx),
+              ((flat * 100).to(torch.int8).view(torch.uint8)[1:1 + 512 * 893]
+               .view(512, 893), torch.where(idx[:1000] < 0, -1,
+                                            idx[:1000] % 600))]
     for tok, ix in cases:
         got, want = pack(tok, ix), pack_ref(tok, ix)
         if not torch.equal(bits(got), bits(want)):
-            raise AssertionError(f"K6 {tok.dtype} {tuple(tok.shape)}: "
-                                 f"differs from the plain version")
+            raise AssertionError(f"K6 {tok.dtype} {tuple(tok.shape)} N="
+                                 f"{ix.shape[0]} (data_ptr % 16 = "
+                                 f"{tok.data_ptr() % 16}): differs from the "
+                                 f"plain version")
         log(f"  K6 {tok.dtype} T={tok.shape[0]} D={tok.shape[1]} "
-            f"N={ix.shape[0]}: bit-identical")
+            f"N={ix.shape[0]} (data_ptr % 16 = {tok.data_ptr() % 16}, "
+            f"{int((ix < 0).sum())} padding): bit-identical")
+    # Timed cold: four token tables of 14.7 MB (more than the 50 MB L2
+    # together) taken in turn, each call also writing a 29.4 MB bucket, so
+    # no call finds rows an earlier call left in L2. The bound charges each
+    # distinct row read once (a duplicate index may hit L2 within a call).
     safe = idx.clamp(min=0)
-    ms = device_ms(lambda: pack(big, idx))
-    plain = device_ms(lambda: pack_ref(big, idx))
-    lib = device_ms(lambda: torch.index_select(big, 0, safe))
+    tables = [big] + [torch.randn((4096, 896), generator=gen, device=DEV)
+                      for _ in range(3)]
+    turn = itertools.count()
+
+    def cold(f):
+        return lambda: f(tables[next(turn) % len(tables)])
+
+    kernel = cold(lambda t: pack(t, idx))
+    select = cold(lambda t: torch.index_select(t, 0, safe))
+    ms = median_ms(kernel, graphs=len(tables))
+    ms20 = median_ms(kernel, 10, per_graph=20)
+    lib = median_ms(select, graphs=len(tables))
+    lib20 = median_ms(select, 10, per_graph=20)
+    plain = median_ms(cold(lambda t: pack_ref(t, idx)), graphs=len(tables))
+    warm = median_ms(lambda: pack(big, idx))
+    warm_lib = median_ms(lambda: torch.index_select(big, 0, safe))
     n_real = int((idx >= 0).sum())
+    n_rows = int(torch.unique(idx[idx >= 0]).numel())
     row = big.shape[1] * big.element_size()
-    moved = idx.shape[0] * row + n_real * row + nbytes(idx)
+    moved = idx.shape[0] * row + n_rows * row + nbytes(idx)
     bound = moved / HBM_BYTES_PER_S * 1e3
-    log(f"  K6 T=4096 D=896 N=8192 ({8192 - n_real} padding rows): kernel "
-        f"{ms:.4f} ms, plain {plain:.4f} ms, index_select {lib:.4f} ms, "
-        f"bound {bound:.6f} ms ({moved} B)")
+    log(f"  K6 T=4096 D=896 N=8192 ({8192 - n_real} padding rows, {n_rows} "
+        f"distinct rows), cold tables, median of 5 graph replays: kernel "
+        f"{ms:.4f} ms, index_select {lib:.4f} ms; 20 calls per graph: "
+        f"kernel {ms20:.4f} ms, index_select {lib20:.4f} ms; plain "
+        f"{plain:.4f} ms; one warm table (1 call per graph): kernel "
+        f"{warm:.4f} ms, index_select {warm_lib:.4f} ms; bound "
+        f"{bound:.6f} ms ({moved} B)")
     return dict(ms=ms, plain_ms=plain, bound_ms=bound, bound_by="bytes",
                 library_ms=lib)
 
@@ -1127,8 +1315,11 @@ def main():
     torch.backends.cudnn.allow_tf32 = False
 
     t0 = time.time()
+    stamped = start_k1_stamped()
     paths = build.build()
-    log(f"[build] {len(paths)} kernels in {time.time() - t0:.1f} s")
+    k1_stamped = finish_k1_stamped(*stamped)
+    log(f"[build] {len(paths)} kernels and the stamped K1 in "
+        f"{time.time() - t0:.1f} s")
     for name, path in paths.items():
         report = path.with_suffix(".log")
         if report.exists():
@@ -1141,6 +1332,8 @@ def main():
     gen.manual_seed(0)
     log("[K1] diversity_insert vs plain")
     k1_err, k1_t = check_k1(torch, cfg, gen)
+    log("[K1 phases] clock64 stamps at the kernel's phase marks")
+    k1_phases(torch, cfg, gen, k1_stamped)
     log("[K2] delta_codec vs plain")
     k2_t = check_k2(torch, gen)
     log("[K3] queue_advance vs plain")

@@ -1,13 +1,20 @@
 """K1 ``diversity_insert`` — the Eq. 6 buffer ingest on the GPU.
 
 Replaces the Pallas kernel ``repro/kernels/diversity.py:93``
-(``diversity_insert``). CUDA source: ``csrc/diversity_insert.cu`` (one warp
-per agent; slots, moments and candidates in shared memory for the whole
-T-step chain). Plain version: ``kernels/ref.py::diversity_insert_ref``.
+(``diversity_insert``). CUDA source: ``csrc/diversity_insert.cu``. One
+block of two warps per agent; slots, p_sum and candidates in shared memory
+for the whole T-step chain. Candidates go in pairs: the slot t would take
+is known before t is scored, so warp 0 factors t and t + 1 for both
+outcomes of t in the same instructions (9 lanes a factor, the forward solve
+as its ninth row), while warp 1 takes the three lowest slot scores and the
+three KLs; one barrier a pair. Every value is formed as in the one-lane
+kernel it replaces, so the results are that kernel's bit for bit. Plain
+version: ``kernels/ref.py::diversity_insert_ref``.
 
 Bound on an H100 at N=64, D=8, NA=15, T=10: ~7.7 KB read + ~6.9 KB written
-per agent, ~9 µs of HBM time at A=2048 (3.35 TB/s); at small A the serial
-Cholesky-and-solve chain and the launch set the time.
+per agent, ~9 µs of HBM time at A=2048 (3.35 TB/s); at small A the chain of
+the factor's columns (one ``sqrtf``, one division and one shuffle each)
+sets the time, at A=2048 the issue of the 32 warps an SM holds.
 
 CPU tensors take the plain version; CUDA tensors launch the kernel (there
 is no fallback). ``diversity_insert.launches`` counts kernel launches.

@@ -1,13 +1,18 @@
 """K6 ``pack`` — the frame/token packing row gather on the GPU.
 
 Replaces the Pallas kernel ``repro/kernels/packing.py:34`` (``pack``).
-CUDA source: ``csrc/pack.cu`` (one block per output row; raw-byte copies,
-so every element type is copied bit for bit). Plain version:
+CUDA source: ``csrc/pack.cu``: one warp per output row, eight rows per
+block, a grid of at most the blocks the card holds at once; the indices of
+32 rows come in one load and go out by shuffle; each lane issues all of its
+row's loads before its stores (plain stores: the caller reads the bucket
+next); a padding row is written as zeros and reads nothing. Raw-byte copies in 16-, 4- or
+1-byte words, so every element type is copied bit for bit. Plain version:
 ``kernels/ref.py::pack_ref``; the two agree bit for bit.
 
-Bound on an H100: the N output rows written, the rows of non-negative
-indices read and the indices: at T=4096, D=896 float32, N=8192 with ~10 %
-padding, 55.9 MB or 16.7 µs at 3.35 TB/s.
+Bound on an H100: the N output rows written, each distinct row of a
+non-negative index read once and the indices: at T=4096, D=896 float32,
+N=8192 with ~10 % padding drawn uniformly, ~3,480 distinct rows, 41.9 MB
+or 12.5 µs at 3.35 TB/s from a cold table; HBM sets the time.
 
 No module of the port calls it yet (nor of the JAX package, beyond its
 kernel wrappers). CPU tensors take the plain version; CUDA tensors launch

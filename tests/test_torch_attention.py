@@ -179,6 +179,37 @@ def test_pack_plain_bit_identical_to_pallas_interpret(dtype):
     assert not got[2].any() and not got[5].any()
 
 
+# (T, D, dtype, indices): rows of 3 float32 (12 bytes: K6's 4-byte words on
+# the card) and 3 bf16 (6 bytes: its 1-byte words), and one row (N=1)
+PACK_NARROW = {
+    "float32_rows_of_3": (40, 3, "float32", [0, 39, -1, 7, 7, -3, 12, 45]),
+    "bfloat16_rows_of_3": (40, 3, "bfloat16", [5, -1, 39, 0, 41, 5, -2]),
+    "n1": (16, 128, "float32", [9]),
+    "n1_padding": (16, 128, "bfloat16", [-1]),
+}
+
+
+@pytest.mark.pallas
+@pytest.mark.parametrize("name", sorted(PACK_NARROW))
+def test_pack_plain_bit_identical_to_pallas_interpret_narrow(name):
+    """K6's plain version == the Pallas ``pack`` (interpret mode) bit for bit
+    on the row sizes that take the card's narrower word paths, and on one
+    output row."""
+    t, d, dtype, idx = PACK_NARROW[name]
+    rng = np.random.default_rng(len(name))
+    tok_j, tok_t = both((rng.normal(size=(t, d)) * 10).astype(np.float32),
+                        dtype)
+    idx = np.array(idx, np.int32)
+    got = pack(tok_t, torch.from_numpy(idx))
+    want = np.asarray(j_pack(tok_j, jnp.asarray(idx), interpret=True))
+    assert got.dtype == tok_t.dtype and got.shape == (len(idx), d)
+    bits = np.uint16 if dtype == "bfloat16" else np.uint32
+    np.testing.assert_array_equal(
+        got.view(torch.int16 if dtype == "bfloat16" else torch.int32)
+        .numpy().view(bits), want.view(bits))
+    assert not got[torch.from_numpy(idx) < 0].any()
+
+
 def test_pack_plain_clips_like_the_jax_oracle():
     """An index past T - 1 reads row T - 1 and negatives give zero rows,
     bit for bit as ``repro.kernels.ref.pack_ref``."""

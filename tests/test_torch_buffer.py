@@ -112,6 +112,79 @@ def test_diversity_insert_plain_matches_pallas_kernel():
     assert_insert_matches(out_t, out_j, state, s, p, "pallas")
 
 
+def pallas_case(name):
+    """(state, cand_states, cand_probs) of the cases K1's redesign touches:
+    slot scores tied at the minimum (the argmin takes the lower index), a
+    NaN slot score (NaN is the minimum; nothing goes in), N=128 slots (four
+    per lane of a warp), one candidate (T=1), and a buffer that goes from
+    empty to full within the episode."""
+    n, fill, t = dict(tied=(8, 12, 10), nan=(8, 12, 6), n128=(128, 140, 12),
+                      t1=(16, 20, 1), empty_to_full=(8, 0, 20))[name]
+    rng = np.random.default_rng(sum(map(ord, name)))
+    a = 3
+    state = [np.array(x) for x in prefilled(rng, n, a, fill)]
+    if name == "tied":
+        score = state[2]
+        score[:, [2, 5, 6]] = score.min(-1, keepdims=True)
+    if name == "nan":
+        state[2][:, 3] = np.nan
+    s, p = cands_np(rng, a, t)
+    return state, s, p
+
+
+@pytest.mark.pallas
+@pytest.mark.parametrize("name", ["tied", "nan", "n128", "t1",
+                                  "empty_to_full"])
+def test_diversity_insert_plain_matches_pallas_cases(name):
+    """K1's plain version == the Pallas kernel (interpret mode) on the
+    cases of ``pallas_case``; the decisions that those cases force are
+    checked too."""
+    from repro.kernels import ops as kops
+    state, s, p = pallas_case(name)
+    out_j = kops.diversity_insert(*[jnp.asarray(x) for x in state],
+                                  jnp.asarray(s), jnp.asarray(p), **KW)
+    out_t = diversity_insert(*t_args(state, s, p), **KW)
+    div = assert_insert_matches(out_t, out_j, state, s, p, f"pallas {name}")
+    slot, do = out_t[8].numpy(), out_t[9].numpy()
+    if name == "tied":      # the lowest of the tied slots goes first
+        assert all(slot[a, 0] == 2 for a in range(3) if a not in div)
+    if name == "nan":       # the NaN slot is the minimum: nothing goes in
+        assert (slot == 3).all() and not do.any()
+        assert np.isnan(out_t[2].numpy()[:, 3]).all()
+    if name == "empty_to_full":
+        assert (slot[:, :8] == np.arange(8)).all() and do[:, :8].all()
+        assert out_t[3].numpy().all() and (out_t[7].numpy() == 8).all()
+
+
+def test_k1_stamps_anchor_in_todays_source():
+    """K1's phase marks are empty in ``csrc/diversity_insert.cu`` as built
+    (no timing code), every phase that ``chip_smoke.py`` reads is marked in
+    today's source, and its timing build defines the marks as clock64
+    stamps before it includes that source."""
+    import importlib.util
+    import re
+    from pathlib import Path
+    from repro_torch.kernels import build
+    path = Path(__file__).resolve().parents[1] / "chip_smoke.py"
+    spec = importlib.util.spec_from_file_location("chip_smoke", path)
+    smoke = importlib.util.module_from_spec(spec)
+    spec.loader.exec_module(smoke)
+    source = build.CSRC / "diversity_insert.cu"
+    src = source.read_text()
+    assert "clock64" not in re.sub(r"//.*", "", src)
+    guard = src[src.index("#ifndef K1_PHASE_MARKS"):]
+    guard = guard[:guard.index("#endif")]
+    for mark in ("K1_MARK_START()", "K1_MARK(phase)", "K1_MARK_END()"):
+        assert f"#define {mark}\n" in guard
+    marks = re.findall(r"^ *K1_MARK\((\w+)\);$", src, re.M)
+    assert set(marks) == {mark for mark, _ in smoke.K1_PHASES}
+    assert src.count("K1_MARK_START();") == src.count("K1_MARK_END();") == 1
+    unit = smoke.k1_stamped_source(source)
+    assert (unit.index("#define K1_PHASE_MARKS")
+            < unit.index("#define K1_MARK(phase) k1_stamp(K1_PH_##phase)")
+            < unit.index(f'#include "{source}"'))
+
+
 @pytest.mark.parametrize("seed", [0, 1, 2, 3])
 def test_randomized_sequence_probe(seed):
     """tests/test_buffer.py's randomized sequence (buffer_size=8, 48

@@ -34,8 +34,8 @@ def cuda_device():
     return torch.device("cuda")
 
 
-def k1_inputs(rng, a, fill, t):
-    cfg = FCPOConfig()
+def k1_inputs(rng, a, fill, t, n=64):
+    cfg = FCPOConfig(buffer_size=n)
     b = buffer_init(cfg, a, "cpu")
     state = [b.states, b.probs, b.score, b.filled, b.s_sum, b.s_outer,
              b.p_sum, b.n_filled]
@@ -51,14 +51,15 @@ def k1_inputs(rng, a, fill, t):
     return state + list(cands(t))
 
 
-@pytest.mark.cuda
-@pytest.mark.parametrize("fill", [0, 32, 96])
-def test_k1_matches_plain_on_the_card(cuda_device, fill):
-    rng = np.random.default_rng(fill)
-    args = k1_inputs(rng, 256, fill, 10)
+def assert_k1_matches(args, device, equal_nan=False):
+    """K1 on the card against its plain version on the CPU: one launch,
+    identical decision traces except a first divergence at a near-tie
+    (score gap below 1e-5 relative), floats within rtol 1e-4 / atol 1e-5
+    on the agents that did not diverge (NaN where the plain version has
+    NaN, with ``equal_nan``). Returns the kernel's outputs."""
     before = diversity_insert.launches
     out_k = [x.cpu() for x in diversity_insert(
-        *[x.to(cuda_device) for x in args], **KW)]
+        *[x.to(device) for x in args], **KW)]
     assert diversity_insert.launches == before + 1
     out_p = diversity_insert_ref(*args, **KW)
     diff = (out_k[8] != out_p[8]) | (out_k[9] != out_p[9])
@@ -79,9 +80,51 @@ def test_k1_matches_plain_on_the_card(cuda_device, fill):
     for k, p in zip(out_k, out_p):
         k, p = k[keep], p[keep]
         if k.is_floating_point():
-            torch.testing.assert_close(k, p, rtol=1e-4, atol=1e-5)
+            torch.testing.assert_close(k, p, rtol=1e-4, atol=1e-5,
+                                       equal_nan=equal_nan)
         else:
             assert torch.equal(k, p)
+    return out_k
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("fill", [0, 32, 96])
+def test_k1_matches_plain_on_the_card(cuda_device, fill):
+    rng = np.random.default_rng(fill)
+    assert_k1_matches(k1_inputs(rng, 256, fill, 10), cuda_device)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("n,t", [(1, 7), (3, 7), (5, 1)])
+def test_k1_few_slots_match_plain_on_the_card(cuda_device, n, t):
+    """Fewer slots than the three lowest scores the kernel keeps, an odd
+    number of candidates (the last pair has one), from empty buffers."""
+    rng = np.random.default_rng(10 * n + t)
+    assert_k1_matches(k1_inputs(rng, 64, 0, t, n), cuda_device)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("a", [8, 2048])
+@pytest.mark.parametrize("n", [64, 128])
+@pytest.mark.parametrize("case", ["tied", "nan", "t1"])
+def test_k1_cases_match_plain_on_the_card(cuda_device, a, n, case):
+    """Full buffers of N slots: scores tied at the minimum (the lower slot
+    goes first), a NaN score (the minimum: nothing goes in), and one
+    candidate per agent."""
+    rng = np.random.default_rng(a + n + len(case))
+    args = k1_inputs(rng, a, n + 8, 1 if case == "t1" else 10, n)
+    score = args[2].clone()
+    first = torch.clamp_max(score.argmin(-1), 3).to(torch.int32)
+    if case == "tied":
+        score[:, [3, n // 2, n - 1]] = score.amin(-1, keepdim=True)
+    if case == "nan":
+        score[:, n // 3] = float("nan")
+    args[2] = score
+    out_k = assert_k1_matches(args, cuda_device, equal_nan=case == "nan")
+    if case == "nan":
+        assert (out_k[8] == n // 3).all() and not out_k[9].any()
+    if case == "tied":      # the lowest of the tied slots goes first
+        assert torch.equal(out_k[8][:, 0], first)
 
 
 @pytest.mark.cuda
@@ -303,6 +346,55 @@ def test_k6_bit_identical_to_plain_on_the_card(cuda_device, dtype):
         bits = lambda x: x.view(torch.int16 if x.element_size() == 2
                                 else torch.int32)
         assert torch.equal(bits(got), bits(want))
+
+
+def k6_case(name, device, gen):
+    """(tokens, indices) of the K6 edge cases: every row padding, one row,
+    N not a multiple of the 8 rows a block takes, bf16 rows of 1,792 bytes
+    (D=896), and tokens 4 or 1 bytes past a 16-byte boundary (the 4- and
+    1-byte word paths)."""
+    t, d, n, dtype = dict(all_padding=(64, 896, 300, torch.float32),
+                          n1=(64, 896, 1, torch.float32),
+                          ragged_n=(4096, 896, 8193, torch.float32),
+                          bf16_1792=(4096, 896, 8192, torch.bfloat16),
+                          offset4=(512, 896, 1000, torch.float32),
+                          offset1=(512, 893, 1000, torch.uint8))[name]
+    if dtype == torch.uint8:
+        flat = torch.randint(0, 256, (t * d + 1,), generator=gen,
+                             device=device, dtype=torch.uint8)
+    else:
+        flat = (torch.randn((t * d + 1,), generator=gen, device=device) * 10
+                ).to(dtype)
+    tok = flat[1:].view(t, d) if name.startswith("offset") else \
+        flat[:-1].view(t, d)
+    idx = torch.randint(-t // 9, t + 2, (n,), generator=gen, device=device,
+                        dtype=torch.int32)
+    if name == "all_padding":
+        idx = -1 - idx.abs()
+    return tok, idx
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("name", ["all_padding", "n1", "ragged_n",
+                                  "bf16_1792", "offset4", "offset1"])
+def test_k6_edge_cases_bit_identical_to_plain_on_the_card(cuda_device, name):
+    from repro_torch.kernels.packing import pack
+    from repro_torch.kernels.ref import pack_ref
+    gen = torch.Generator(device=cuda_device).manual_seed(len(name))
+    tok, idx = k6_case(name, cuda_device, gen)
+    if name == "offset4":
+        assert tok.data_ptr() % 16 == 4
+    if name == "offset1":
+        assert tok.data_ptr() % 2 == 1
+    before = pack.launches
+    got = pack(tok, idx)
+    assert pack.launches == before + 1
+    want = pack_ref(tok, idx)
+    bits = {2: torch.int16, 4: torch.int32, 1: torch.uint8}[
+        tok.element_size()]
+    assert torch.equal(got.view(bits), want.view(bits))
+    if name == "all_padding":
+        assert not got.view(bits).any()
 
 
 @pytest.mark.cuda

@@ -7,8 +7,8 @@ In order, it:
   1. prints the card's name and power limit (nvidia-smi) and fails without
      CUDA;
   2. builds every kernel of the port from ``src/repro_torch/csrc``, and K1
-     once more with its phase marks defined as clock64 stamps (one nvcc
-     per build, all started together), and prints the ptxas reports;
+     and K3 once more with their phase marks defined as clock64 stamps (one
+     nvcc per build, all started together), and prints the ptxas reports;
   3. holds K1 ``diversity_insert`` against its plain PyTorch version on the
      card at A=8 and A=2048 (T=10, N=64) from empty, half-full and full
      buffers: identical decision traces (a first divergence is accepted only
@@ -16,21 +16,25 @@ In order, it:
      rtol 1e-4 / atol 1e-5; then reads the stamped K1's cycles per phase
      on full buffers at A=8 and A=2048;
   4. holds K2 ``delta_codec`` against its plain version bit for bit in all
-     three codecs at all 12 leaf sizes of one iAgent, at A=8 and A=2048
-     (random data, plus a grid with exact int8 halfway cases and |x| ties);
+     three codecs at all 12 leaf sizes of one iAgent, at A=8 and A=2048,
+     through ``delta_codec_leaves`` (one launch for the 12 leaves, as the
+     trainer calls it; random data, a grid with exact int8 halfway cases
+     and |x| ties, and rows with NaN, +-inf or zeros);
   5. holds K3 ``queue_advance`` against its plain version bit for bit at
      A=8 and A=2048 (R=512, H=64, K=20), ten intervals chained from empty
      pipelines in three regimes (idle, nominal, overload with drops and a
-     full post queue), with conservation checked;
+     full post queue), with conservation checked; then reads the stamped
+     K3's cycles per phase on the nominal regime's loaded state;
   6. times each kernel, its plain version and (K2 topk) ``torch.topk`` at
      the main path's shapes: device time by CUDA-graph replay (CUDA
-     events; K1 the median of five readings at 1 and at 20 calls per
-     graph), and the eager per-call time with the host's launch cost;
+     events; K1, K2 and K3 the median of five readings at 1 and at 20
+     calls per graph, K2 a call being one round of 12 leaves), and the
+     eager per-call time with the host's launch cost;
   7. drives ``repro_torch.launch.train_fleet`` at its defaults (8 agents,
      2 pods, 20 episodes), then with ``--fl-codec int8`` and ``--fl-codec
      topk``, with every launch count set to 0 just before each run and read
-     just after: K1 must launch once per episode, K2 twelve times per FL
-     round, K3 never; the histories must be finite;
+     just after: K1 must launch once per episode, K2 once per FL round, K3
+     never; the histories must be finite;
   8. drives the twin: ``train_fleet --env-backend twin`` (20 episodes, K3
      once per control interval), then ``repro_torch.launch.simulate`` at
      its defaults (60 intervals, K3 once per interval) and after four
@@ -280,82 +284,103 @@ K1_PHASES = (("LOAD", "load"), ("MEAN_COV", "mean+cov"),
              ("KL", "kl"), ("ARGMIN", "argmin"), ("EXCHANGE", "exchange"),
              ("UPDATE", "update"), ("STORE", "store"))
 K1_MAX_BLOCKS, K1_WARPS = 4096, 2
-K1_STAMPS = string.Template("""#define K1_PHASE_MARKS
+# the same for csrc/queue_advance.cu: warp 0 runs the chains, warp 1 + i
+# takes agent i's ring (up to 8 agents a block)
+K3_WARPS = 9
+K3_PHASES = (("LOAD", "load"), ("SCALAR", "scalar chain"), ("COPY", "copy"),
+             ("BARRIER", "barrier"), ("REQUESTS", "requests"),
+             ("FOLD", "fold"), ("STORE", "store"))
+STAMPS = string.Template("""#define ${P}_PHASE_MARKS
 #include <cuda_runtime.h>
-enum { $enum, K1_NPH };
-__device__ unsigned long long k1_phase_sum[$blocks][$warps][K1_NPH];
-__shared__ unsigned long long k1_phase_acc[$warps][K1_NPH + 1];
-__device__ __forceinline__ void k1_stamp_start() {
+enum { $enum, ${P}_NPH };
+__device__ unsigned long long ${p}_phase_sum[$blocks][$warps][${P}_NPH];
+__shared__ unsigned long long ${p}_phase_acc[$warps][${P}_NPH + 1];
+__device__ __forceinline__ void ${p}_stamp_start() {
   if ((threadIdx.x & 31) == 0) {
     const int w = threadIdx.x >> 5;
-    for (int i = 0; i < K1_NPH; ++i) k1_phase_acc[w][i] = 0ull;
-    k1_phase_acc[w][K1_NPH] = clock64();
+    for (int i = 0; i < ${P}_NPH; ++i) ${p}_phase_acc[w][i] = 0ull;
+    ${p}_phase_acc[w][${P}_NPH] = clock64();
   }
 }
-__device__ __forceinline__ void k1_stamp(int ph) {
+__device__ __forceinline__ void ${p}_stamp(int ph) {
   if ((threadIdx.x & 31) == 0) {
     const int w = threadIdx.x >> 5;
     const unsigned long long now = clock64();
-    k1_phase_acc[w][ph] += now - k1_phase_acc[w][K1_NPH];
-    k1_phase_acc[w][K1_NPH] = now;
+    ${p}_phase_acc[w][ph] += now - ${p}_phase_acc[w][${P}_NPH];
+    ${p}_phase_acc[w][${P}_NPH] = now;
   }
 }
-__device__ __forceinline__ void k1_stamp_flush() {
+__device__ __forceinline__ void ${p}_stamp_flush() {
   if ((threadIdx.x & 31) == 0 && blockIdx.x < $blocks) {
     const int w = threadIdx.x >> 5;
-    for (int i = 0; i < K1_NPH; ++i)
-      k1_phase_sum[blockIdx.x][w][i] = k1_phase_acc[w][i];
+    for (int i = 0; i < ${P}_NPH; ++i)
+      ${p}_phase_sum[blockIdx.x][w][i] = ${p}_phase_acc[w][i];
   }
 }
-#define K1_MARK_START() k1_stamp_start()
-#define K1_MARK(phase) k1_stamp(K1_PH_##phase)
-#define K1_MARK_END() k1_stamp_flush()
+#define ${P}_MARK_START() ${p}_stamp_start()
+#define ${P}_MARK(phase) ${p}_stamp(${P}_PH_##phase)
+#define ${P}_MARK_END() ${p}_stamp_flush()
 #include "$source"
-extern "C" int k1_phase_read(void* host, int n_blocks) {
+extern "C" int ${p}_phase_read(void* host, int n_blocks) {
   return static_cast<int>(cudaMemcpyFromSymbol(
-      host, k1_phase_sum, sizeof(unsigned long long) * n_blocks * $warps *
-      K1_NPH));
+      host, ${p}_phase_sum, sizeof(unsigned long long) * n_blocks * $warps *
+      ${P}_NPH));
 }
 """)
 
 
-def k1_stamped_source(source):
-    """A translation unit that builds K1 from ``source`` (the path of
-    ``csrc/diversity_insert.cu``) with its phase marks defined as clock64
-    stamps: lane 0 of each warp adds the cycles since its previous mark to
-    the phase the mark ends, in shared memory, and each block writes its
-    sums to ``k1_phase_sum`` at the end (``k1_phase_read`` copies them
+def stamped_source(prefix, phases, source, warps, blocks=K1_MAX_BLOCKS):
+    """A translation unit that builds the kernel in ``source`` with its
+    phase marks (``<prefix>_MARK(...)``) defined as clock64 stamps: lane 0
+    of each warp adds the cycles since its previous mark to the phase the
+    mark ends, in shared memory, and each block writes its sums to
+    ``<prefix>_phase_sum`` at the end (``<prefix>_phase_read`` copies them
     out). A mark costs lane 0 one clock64 and three shared-memory
     accesses, which the phase it ends absorbs."""
-    return K1_STAMPS.substitute(
-        enum=", ".join(f"K1_PH_{mark}" for mark, _ in K1_PHASES),
-        blocks=K1_MAX_BLOCKS, warps=K1_WARPS, source=source)
+    return STAMPS.substitute(
+        P=prefix, p=prefix.lower(),
+        enum=", ".join(f"{prefix}_PH_{mark}" for mark, _ in phases),
+        blocks=blocks, warps=warps, source=source)
 
 
-def start_k1_stamped():
-    """Start nvcc on the stamped K1 with K1's flags; returns the process
-    and the library it writes (``build/kernels``, gitignored)."""
+def start_stamped(name, prefix, phases, warps):
+    """Start nvcc on kernel ``name`` built with its phase marks as clock64
+    stamps (``stamped_source``) and its own flags; returns the process and
+    the library it writes (``build/kernels``, gitignored)."""
     from repro_torch.kernels import build
     build.BUILD_DIR.mkdir(parents=True, exist_ok=True)
-    unit = build.BUILD_DIR / "diversity_insert-stamped.cu"
-    unit.write_text(k1_stamped_source(build.CSRC / "diversity_insert.cu"))
+    unit = build.BUILD_DIR / f"{name}-stamped.cu"
+    unit.write_text(stamped_source(prefix, phases, build.CSRC / f"{name}.cu",
+                                   warps))
     out = unit.with_suffix(".so")
     proc = subprocess.Popen(
-        [build.nvcc_path(), *build.flags("diversity_insert"), "-o", str(out),
-         str(unit)], stdout=subprocess.PIPE, stderr=subprocess.STDOUT,
-        text=True)
+        [build.nvcc_path(), *build.flags(name), "-o", str(out), str(unit)],
+        stdout=subprocess.PIPE, stderr=subprocess.STDOUT, text=True)
     return proc, out
 
 
-def finish_k1_stamped(proc, out):
-    """Wait for ``start_k1_stamped``'s nvcc and load its library; raises
-    with the compiler's output if the build failed."""
+def finish_stamped(proc, out):
+    """Wait for ``start_stamped``'s nvcc and load its library; raises with
+    the compiler's output if the build failed."""
     text, _ = proc.communicate()
     out.with_suffix(".log").write_text(text)
     if proc.returncode != 0:
-        raise RuntimeError(f"nvcc failed for the stamped K1 (exit "
+        raise RuntimeError(f"nvcc failed for {out.stem} (exit "
                            f"{proc.returncode}):\n{text}")
     return ctypes.CDLL(str(out))
+
+
+def read_phases(lib, prefix, n_blocks, warps, n_phases):
+    """The stamped kernel's cycles per (block, warp, phase) after its last
+    launch."""
+    import numpy as np
+    read = getattr(lib, f"{prefix.lower()}_phase_read")
+    read.argtypes, read.restype = [ctypes.c_void_p, ctypes.c_int], ctypes.c_int
+    buf = np.zeros((n_blocks, warps, n_phases), np.uint64)
+    rc = read(buf.ctypes.data, n_blocks)
+    if rc != 0:
+        raise RuntimeError(f"{prefix.lower()}_phase_read: CUDA error {rc}")
+    return buf.astype(np.float64)
 
 
 @contextlib.contextmanager
@@ -376,23 +401,16 @@ def k1_phases(torch, cfg, gen, lib):
     of each warp spends in each phase, averaged over the agents; per block
     for load and store, per candidate for the rest (the kernel takes
     candidates in pairs)."""
-    import numpy as np
     from repro_torch.core.buffer import RIDGE
     from repro_torch.kernels.diversity import diversity_insert
     kw = dict(alpha=cfg.alpha, beta=cfg.beta, ridge=RIDGE)
-    read = lib.k1_phase_read
-    read.argtypes, read.restype = [ctypes.c_void_p, ctypes.c_int], ctypes.c_int
     for a in (8, 2048):
         args = k1_inputs(torch, a, 96, cfg.n_steps, gen, cfg)
         with launching("diversity_insert", lib):
             for _ in range(3):                     # the last launch counts
                 diversity_insert(*args, **kw)
             torch.cuda.synchronize()
-        buf = np.zeros((a, K1_WARPS, len(K1_PHASES)), np.uint64)
-        rc = read(buf.ctypes.data, a)
-        if rc != 0:
-            raise RuntimeError(f"k1_phase_read: CUDA error {rc}")
-        cyc = buf.astype(np.float64).mean(0)
+        cyc = read_phases(lib, "K1", a, K1_WARPS, len(K1_PHASES)).mean(0)
         per = [1 if label in ("load", "store") else cfg.n_steps
                for _, label in K1_PHASES]
         for w in range(K1_WARPS):
@@ -415,9 +433,13 @@ def k1_flops_per_candidate(cfg):
 # ---------------------------------------------------------------------------
 # K2 delta_codec
 # ---------------------------------------------------------------------------
-def k2_rows(torch, a, l, gen, grid):
+def k2_rows(torch, a, l, gen, kind):
+    """(delta, residual) rows of one leaf: random deltas with residuals;
+    the quarter grid (exact int8 halfway cases, |x| ties); or special
+    (random rows, every fourth holding NaN, +inf and -inf, the next all
+    zeros: the 1e-12 scale floor)."""
     dev = torch.device(DEV)
-    if grid:
+    if kind == "grid":
         # multiples of 1/4 with max |x| = 63.5: scale is exactly 0.5, so odd
         # quarters land on int8 halfway cases, and |x| ties abound for topk
         x = torch.randint(-254, 255, (a, l), generator=gen, device=dev) / 4.0
@@ -425,39 +447,57 @@ def k2_rows(torch, a, l, gen, grid):
         return x.contiguous(), torch.zeros_like(x)
     d = torch.randn(a, l, generator=gen, device=dev) * 0.01
     r = torch.randn(a, l, generator=gen, device=dev) * 0.001
+    if kind == "special":
+        d[0::4, 0], d[0::4, l // 2], d[0::4, -1] = math.nan, math.inf, \
+            -math.inf
+        d[1::4], r[1::4] = 0.0, 0.0
     return d, r
 
 
 def check_k2(torch, gen):
+    """K2 through ``delta_codec_leaves``, one launch over the 12 leaves as
+    the trainer calls it: bit for bit (as int32 patterns, NaN payloads
+    included) against the plain version per leaf on the card; then the
+    round timed (median of five, at 1 and at 20 rounds per graph) beside
+    the plain version and ``torch.topk`` over the same leaves."""
     from repro_torch.fl.transport import topk_k
-    from repro_torch.kernels.delta_codec import delta_codec
+    from repro_torch.kernels.delta_codec import (delta_codec,
+                                                 delta_codec_leaves)
     from repro_torch.kernels.ref import delta_codec_ref
+    ks = [topk_k(l, 0.05) for l in LEAF_SIZES]
+    bits = lambda x: x.view(torch.int32)
     for a in (8, 2048):
         for codec in ("float32", "int8", "topk"):
-            for l in LEAF_SIZES:
-                for grid in (False, True):
-                    d, r = k2_rows(torch, a, l, gen, grid)
-                    k = topk_k(l, 0.05)
-                    dk, rk = delta_codec(d, r, codec=codec, k=k)
+            for kind in ("random", "grid", "special"):
+                rows = [k2_rows(torch, a, l, gen, kind) for l in LEAF_SIZES]
+                before = delta_codec.launches
+                decs, ress = delta_codec_leaves(
+                    [d for d, _ in rows], [r for _, r in rows], codec=codec,
+                    ks=ks)
+                if delta_codec.launches != before + 1:
+                    raise AssertionError(f"K2 {codec} A={a}: "
+                                         f"{delta_codec.launches - before} "
+                                         f"launches for 12 leaves, not 1")
+                for (d, r), k, dk, rk in zip(rows, ks, decs, ress):
                     dp, rp = delta_codec_ref(d, r, codec=codec, k=k)
-                    torch.cuda.synchronize()
-                    if not (torch.equal(dk, dp) and torch.equal(rk, rp)):
-                        bad = (dk != dp) | (rk != rp)
+                    bad = (bits(dk) != bits(dp)) | (bits(rk) != bits(rp))
+                    if bool(bad.any()):
                         raise AssertionError(
-                            f"K2 {codec} A={a} L={l} grid={grid}: "
+                            f"K2 {codec} A={a} L={d.shape[1]} {kind}: "
                             f"{int(bad.sum())} values differ from the plain "
                             f"version")
-            log(f"  K2 {codec} A={a}: bit-identical at all 12 leaf sizes")
+            torch.cuda.synchronize()
+            log(f"  K2 {codec} A={a}: one launch, bit-identical at all 12 "
+                f"leaf sizes (random, grid, NaN/inf/zero rows)")
     timing = {}
     for a in (8, 2048):
-        rows = [k2_rows(torch, a, l, gen, False) for l in LEAF_SIZES]
-        ks = [topk_k(l, 0.05) for l in LEAF_SIZES]
+        rows = [k2_rows(torch, a, l, gen, "random") for l in LEAF_SIZES]
+        ds, rs = [d for d, _ in rows], [r for _, r in rows]
         moved = sum(nbytes(d, r) * 2 for d, r in rows)
         bound = moved / HBM_BYTES_PER_S * 1e3
         for codec in ("int8", "topk"):
             def run_kernel():
-                for (d, r), k in zip(rows, ks):
-                    delta_codec(d, r, codec=codec, k=k)
+                delta_codec_leaves(ds, rs, codec=codec, ks=ks)
 
             def run_plain():
                 for (d, r), k in zip(rows, ks):
@@ -467,14 +507,16 @@ def check_k2(torch, gen):
                 for (d, r), k in zip(rows, ks):
                     torch.topk((d + r).abs(), k, dim=-1)
 
-            ms = device_ms(run_kernel)
+            ms = median_ms(run_kernel)
+            ms20 = median_ms(run_kernel, 10, per_graph=20)
             plain = device_ms(run_plain)
-            lib = device_ms(run_library) if codec == "topk" else None
+            lib = median_ms(run_library) if codec == "topk" else None
             eager = eager_ms(run_kernel)
             timing[(codec, a)] = dict(ms=ms, plain_ms=plain, bound_ms=bound,
                                       bound_by="bytes", library_ms=lib)
-            log(f"  K2 {codec} A={a} (one round = 12 leaves): kernel "
-                f"{ms:.4f} ms (device; {eager:.4f} ms eager), plain "
+            log(f"  K2 {codec} A={a} (one round = 12 leaves, one launch): "
+                f"kernel {ms:.4f} ms (median of 5 graph replays; {ms20:.4f} "
+                f"ms at 20 rounds per graph; {eager:.4f} ms eager), plain "
                 f"{plain:.4f} ms, torch.topk "
                 f"{'-' if lib is None else f'{lib:.4f} ms'}, bound "
                 f"{bound:.6f} ms ({moved} B)")
@@ -520,7 +562,9 @@ def k3_interval(torch, regime, a, sp, gen, cfg, env_params, rate, phase):
 
 def check_k3(torch, cfg, gen):
     """K3 bit for bit against its plain version, ten chained intervals per
-    regime; times it on the nominal regime's loaded state."""
+    regime; times it on the nominal regime's loaded state (median of five,
+    at 1 and at 20 calls per graph). Returns (timing, {A: the loaded
+    state's arguments})."""
     from repro_torch.core.env import default_env_params
     from repro_torch.data.workload import fleet_traces
     from repro_torch.kernels.queue_advance import queue_advance
@@ -530,7 +574,7 @@ def check_k3(torch, cfg, gen):
     from repro_torch.sim.state import SimParams, sim_init
     import numpy as np
     sp = SimParams()
-    timing = {}
+    timing, loads = {}, {}
     for a in (8, 2048):
         speeds = torch.as_tensor(np.random.default_rng(0).choice(
             [0.5, 0.75, 1.0, 2.0], a), dtype=torch.float32, device=DEV)
@@ -580,17 +624,47 @@ def check_k3(torch, cfg, gen):
                 loaded = (state, arrivals, caps)
         state, arrivals, caps = loaded
         args = (*state, arrivals, caps)
-        ms = device_ms(lambda: queue_advance(*args))
+        ms = median_ms(lambda: queue_advance(*args))
+        ms20 = median_ms(lambda: queue_advance(*args), 10, per_graph=20)
         plain = device_ms(lambda: queue_advance_ref(*args))
         eager = eager_ms(lambda: queue_advance(*args))
         moved = nbytes(*args) + nbytes(*state)
         bound = moved / HBM_BYTES_PER_S * 1e3
         timing[a] = dict(ms=ms, plain_ms=plain, bound_ms=bound,
                          bound_by="bytes", library_ms=None)
-        log(f"  K3 A={a}: kernel {ms:.4f} ms (device; {eager:.4f} ms per "
-            f"eager call), plain {plain:.4f} ms, bound {bound:.6f} ms "
-            f"(bytes, {moved} B)")
-    return timing
+        log(f"  K3 A={a}: kernel {ms:.4f} ms (median of 5 graph replays; "
+            f"{ms20:.4f} ms at 20 calls per graph; {eager:.4f} ms per eager "
+            f"call), plain {plain:.4f} ms, bound {bound:.6f} ms (bytes, "
+            f"{moved} B)")
+        loads[a] = args
+    return timing, loads
+
+
+def k3_phases(torch, sp, loads, lib):
+    """The stamped K3 on the nominal regime's loaded state at A=8 and
+    A=2048: the cycles lane 0 of each warp spends in each phase, for warp 0
+    (the scalar chains) and averaged over the agents' warps; the chain also
+    per tick."""
+    import numpy as np
+    from repro_torch.kernels.queue_advance import queue_advance
+    for a, args in loads.items():
+        with launching("queue_advance", lib):
+            for _ in range(3):                     # the last launch counts
+                queue_advance(*args)
+            torch.cuda.synchronize()
+        nb = min(K3_WARPS - 1, a)
+        blocks = -(-a // nb)
+        cyc = read_phases(lib, "K3", blocks, K3_WARPS, len(K3_PHASES))
+        agent = np.arange(blocks)[:, None] * nb + np.arange(K3_WARPS - 1)
+        used = (np.arange(K3_WARPS - 1) < nb)[None, :] & (agent < a)
+        for who, c in (("warp 0", cyc[:, 0].mean(0)),
+                       ("agent warps", cyc[:, 1:][used].mean(0))):
+            parts = [f"{label} {c[j]:.0f}"
+                     for j, (_, label) in enumerate(K3_PHASES) if c[j]]
+            log(f"  K3 A={a} nominal, {who}: {' | '.join(parts)}; "
+                f"{c.sum():.0f} cycles in all")
+        log(f"  K3 A={a}: the chain {cyc[:, 0, 1].mean() / sp.k_ticks:.0f} "
+            f"cycles a tick")
 
 
 # ---------------------------------------------------------------------------
@@ -636,10 +710,10 @@ def drive(torch, argv, n_episodes, fl_every, n_steps):
     if k1 != n_episodes:
         raise AssertionError(f"{argv}: K1 launched {k1} times, expected "
                              f"{n_episodes} (one per episode)")
-    want_k2 = 0 if "--fl-codec" not in argv else 12 * rounds
+    want_k2 = 0 if "--fl-codec" not in argv else rounds
     if k2 != want_k2:
         raise AssertionError(f"{argv}: K2 launched {k2} times, expected "
-                             f"{want_k2} (12 per FL round)")
+                             f"{want_k2} (one per FL round)")
     want_k3 = n_episodes * n_steps if "twin" in argv else 0
     if k3 != want_k3:
         raise AssertionError(f"{argv}: K3 launched {k3} times, expected "
@@ -1315,10 +1389,11 @@ def main():
     torch.backends.cudnn.allow_tf32 = False
 
     t0 = time.time()
-    stamped = start_k1_stamped()
+    stamped = (start_stamped("diversity_insert", "K1", K1_PHASES, K1_WARPS),
+               start_stamped("queue_advance", "K3", K3_PHASES, K3_WARPS))
     paths = build.build()
-    k1_stamped = finish_k1_stamped(*stamped)
-    log(f"[build] {len(paths)} kernels and the stamped K1 in "
+    k1_stamped, k3_stamped = (finish_stamped(*job) for job in stamped)
+    log(f"[build] {len(paths)} kernels and the stamped K1 and K3 in "
         f"{time.time() - t0:.1f} s")
     for name, path in paths.items():
         report = path.with_suffix(".log")
@@ -1337,7 +1412,11 @@ def main():
     log("[K2] delta_codec vs plain")
     k2_t = check_k2(torch, gen)
     log("[K3] queue_advance vs plain")
-    k3_t = check_k3(torch, cfg, gen)
+    k3_t, k3_loads = check_k3(torch, cfg, gen)
+    log("[K3 phases] clock64 stamps at the kernel's phase marks")
+    from repro_torch.sim.state import SimParams
+    k3_phases(torch, SimParams(), k3_loads, k3_stamped)
+    del k3_loads
 
     n = cfg.n_steps
     log("[main path] repro_torch.launch.train_fleet")

@@ -4,8 +4,9 @@ Port of ``repro.fl.codec``: clients transmit ``params - base`` deltas,
 encoded per leaf with error feedback — the residual of every lossy round is
 kept per agent and added back before the next encode. Each stacked
 (A, ...) leaf is flattened to (A, L) rows with its own scale (int8) and
-budget ``k = topk_k(L, frac)`` (topk), and goes through the K2
-``delta_codec`` kernel (one launch per leaf on the GPU, the plain version on
+budget ``k = topk_k(L, frac)`` (topk), and all leaves of the round go
+through the K2 kernel together (``delta_codec_leaves``: one launch per
+round on the GPU for the iAgent's 12 leaves, the plain version per leaf on
 the CPU).
 """
 from __future__ import annotations
@@ -15,7 +16,7 @@ from typing import Dict
 import torch
 
 from repro_torch.fl.transport import TransportConfig, topk_k
-from repro_torch.kernels.delta_codec import delta_codec
+from repro_torch.kernels.delta_codec import delta_codec_leaves
 
 
 def codec_roundtrip(delta: Dict[str, torch.Tensor],
@@ -24,15 +25,14 @@ def codec_roundtrip(delta: Dict[str, torch.Tensor],
     """Encode->decode a fleet's deltas with error feedback. Returns
     (decoded, new_residual) dicts with ``decoded + new_residual == delta +
     residual`` per leaf (bit-exact for float32/topk)."""
-    decoded, new_res = {}, {}
-    for name, d in delta.items():
-        a = d.shape[0]
-        df = d.reshape(a, -1).contiguous()
-        rf = residual[name].reshape(a, -1).contiguous()
-        k = topk_k(df.shape[1], transport.topk_frac)
-        dec, nr = delta_codec(df, rf, codec=transport.codec, k=k)
-        decoded[name], new_res[name] = dec.reshape(d.shape), nr.reshape(d.shape)
-    return decoded, new_res
+    flat = lambda x: x.reshape(x.shape[0], -1).contiguous()
+    names = list(delta)
+    ds = [flat(delta[n]) for n in names]
+    decs, ress = delta_codec_leaves(
+        ds, [flat(residual[n]) for n in names], codec=transport.codec,
+        ks=[topk_k(d.shape[1], transport.topk_frac) for d in ds])
+    return ({n: x.reshape(delta[n].shape) for n, x in zip(names, decs)},
+            {n: x.reshape(delta[n].shape) for n, x in zip(names, ress)})
 
 
 def residuals_init(params: Dict[str, torch.Tensor]) -> Dict[str, torch.Tensor]:

@@ -1,14 +1,24 @@
 """K3 ``queue_advance`` — the twin's K-microtick data-plane advance on the GPU.
 
 Replaces the Pallas kernel ``repro/kernels/queue_advance.py:50``
-(``queue_advance``). CUDA source: ``csrc/queue_advance.cu`` (one warp per
-agent; the arrival ring and the latency histogram in shared memory for all
-K ticks, the counters and credits in registers). Plain version:
+(``queue_advance``). CUDA source: ``csrc/queue_advance.cu``: a warp per
+agent, up to 8 agents a block, in two phases. Lane i of warp 0 runs the
+scalar chain of the K ticks for the block's agent i (every counter and
+both credits; none of them reads the ring) and writes each tick's schedule
+to shared memory, while the rings and histograms land by ``cp.async``;
+then each agent's warp takes its requests completed in the interval, each
+finding its completion tick and its arrival in the schedule, and rebuilds
+the ring from the last writer of each slot. Plain version:
 ``kernels/ref.py::queue_advance_ref``; the two agree bit for bit.
+
+Precondition, met by every state the twin reaches from ``sim_init``:
+monotone counters head <= p_inf <= launch <= p_pre <= tail with tail -
+head <= R, and credits, caps and arrivals >= 0.
 
 Bound on an H100 at R=512, H=64, K=20: 4,832 B per agent (each input read
 once, each output written once), 0.0115 µs at A=8 and 2.95 µs at A=2048 of
-HBM time (3.35 TB/s); the chain of K dependent ticks sets the time.
+HBM time (3.35 TB/s); the chain of K dependent ticks and the requests'
+searches of the schedule set the time.
 
 CPU tensors take the plain version; CUDA tensors launch the kernel (there
 is no fallback). ``queue_advance.launches`` counts kernel launches.
@@ -27,6 +37,7 @@ _P, _I = ctypes.c_void_p, ctypes.c_int
 _ARGTYPES = [_P] * 12 + [_I] * 4 + [_P]
 # dynamic shared memory one block may take on sm_90 (227 KB)
 MAX_SMEM_BYTES = 232448
+AGENTS_PER_BLOCK = 8     # csrc/queue_advance.cu
 
 
 def _check(x, name, shape, dtype, device):
@@ -47,7 +58,9 @@ def queue_advance(arrive, counters, credits, lat_sum, hist, arrivals, caps):
     int32, credits (A, 2) float32, lat_sum (A,) float32, hist (A, H) int32,
     arrivals (A, K) int32, caps (A, SIM_NCAPS) float32. Returns new
     (arrive, counters, credits, lat_sum, hist), as ``queue_advance_ref``;
-    the inputs are left as they were."""
+    the inputs are left as they were. The kernel assumes the twin's
+    invariant (module docstring): monotone counters with tail - head <= R,
+    and credits, caps and arrivals >= 0."""
     if arrive.device.type == "cpu":
         return queue_advance_ref(arrive, counters, credits, lat_sum, hist,
                                  arrivals, caps)
@@ -71,11 +84,16 @@ def queue_advance(arrive, counters, credits, lat_sum, hist, arrivals, caps):
     if a < 1 or hist_n < 1:
         raise ValueError(f"queue_advance: needs A >= 1 agents and H >= 1 "
                          f"buckets, got A={a}, H={hist_n}")
-    smem = (ring + hist_n) * 4
+    # a block's schedules and scalars, and one agent's ring, histogram and
+    # tick sums (csrc/queue_advance.cu, shared_words and smem_bytes)
+    nb = AGENTS_PER_BLOCK
+    smem = ((((nb + 1) * (3 * k + 2) + nb * (SIM_NCOUNTERS + 2 + SIM_NCAPS)
+              + 3) & ~3) + ((ring + hist_n + k + 3) & ~3)) * 4
     if smem > MAX_SMEM_BYTES:
-        raise ValueError(f"queue_advance: ring {ring} + histogram {hist_n} "
-                         f"need {smem} B of shared memory, more than the "
-                         f"{MAX_SMEM_BYTES} B one block may take")
+        raise ValueError(f"queue_advance: ring {ring}, histogram {hist_n} "
+                         f"and {k} ticks need {smem} B of shared memory an "
+                         f"agent, more than the {MAX_SMEM_BYTES} B one block "
+                         f"may take")
     outs = tuple(torch.empty_like(x) for x, *_ in ins[:5])
     lib = build.load("queue_advance")
     fn = lib.queue_advance_launch

@@ -179,7 +179,7 @@ def test_k1_stamps_anchor_in_todays_source():
     marks = re.findall(r"^ *K1_MARK\((\w+)\);$", src, re.M)
     assert set(marks) == {mark for mark, _ in smoke.K1_PHASES}
     assert src.count("K1_MARK_START();") == src.count("K1_MARK_END();") == 1
-    unit = smoke.k1_stamped_source(source)
+    unit = smoke.stamped_source("K1", smoke.K1_PHASES, source, smoke.K1_WARPS)
     assert (unit.index("#define K1_PHASE_MARKS")
             < unit.index("#define K1_MARK(phase) k1_stamp(K1_PH_##phase)")
             < unit.index(f'#include "{source}"'))

@@ -16,7 +16,7 @@ import torch
 from repro_torch.configs.fcpo import FCPOConfig
 from repro_torch.core.buffer import RIDGE, buffer_init
 from repro_torch.fl.transport import topk_k
-from repro_torch.kernels.delta_codec import delta_codec
+from repro_torch.kernels.delta_codec import delta_codec, delta_codec_leaves
 from repro_torch.kernels.diversity import diversity_insert
 from repro_torch.kernels.queue_advance import queue_advance
 from repro_torch.kernels.ref import (delta_codec_ref, diversity_insert_ref,
@@ -161,20 +161,26 @@ def test_trainer_launches_both_kernels_on_the_card(cuda_device):
                                 "--episodes", "3", "--fl-every", "1",
                                 "--fl-codec", "int8"])
     assert diversity_insert.launches == 3          # one per episode
-    assert delta_codec.launches == 3 * 12          # one per leaf per round
+    assert delta_codec.launches == 3 * 1           # one per round
     assert all(np.isfinite(v).all() for v in hist.values())
 
 
 def k3_interval(rng, regime, a, k):
     """Arrivals (A, K) and caps (A, 6) of one interval: idle (0-1 arrivals
     per tick), nominal (the nominal traces' rates, 15-45 req/s at 50 ms
-    ticks) or overload (3-6x what the caps serve, smallest batch)."""
+    ticks), overload (3-6x what the caps serve, smallest batch) or wrap
+    (service outruns 3-5 arrivals a tick, queues of 4: a ring of 8 is
+    written over several times an interval)."""
     if regime == "overload":
         c_post = rng.uniform(0.2, 0.5, a)
         caps = np.stack([rng.uniform(1, 2, a), c_post, np.ones(a),
                          np.ones(a), np.full(a, 8.0), np.full(a, 5.0)], 1)
         arrivals = rng.poisson(rng.uniform(3, 6, (a, 1)) * c_post[:, None],
                                (a, k))
+    elif regime == "wrap":
+        caps = np.tile([4.0, 4.0, 4.0, 1.0, 4.0, 3.0], (a, 1))
+        caps[:, 1] = rng.uniform(3.5, 5.0, a)
+        arrivals = rng.integers(3, 6, (a, k))
     else:
         caps = np.stack([rng.uniform(1, 12, a), rng.uniform(1, 14, a),
                          rng.integers(1, 65, a), rng.integers(1, 4, a),
@@ -211,6 +217,101 @@ def test_k3_bit_identical_to_plain_on_the_card(cuda_device, regime):
     assert torch.equal(arrived, dropped + completed + c[:, 0] - c[:, 4])
     assert int(completed.sum()) > 0
     assert (int(dropped.sum()) > 0) == (regime == "overload")
+
+
+# (R, H, K): rings of 8, 32 and 512 slots, one or 64 histogram buckets, one
+# or 20 ticks an interval
+K3_GEOMETRIES = [(r, h, k) for r in (8, 32, 512) for h in (1, 64)
+                 for k in (1, 20)]
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("geometry", K3_GEOMETRIES,
+                         ids=[f"R{r}-H{h}-K{k}" for r, h, k in K3_GEOMETRIES])
+@pytest.mark.parametrize("regime", ["idle", "nominal", "overload", "wrap"])
+def test_k3_regimes_and_geometries_bit_identical_on_the_card(
+        cuda_device, regime, geometry):
+    """A = 1, 8, 256 and 2048, ten chained intervals from empty pipelines:
+    one launch a call, every output equal to the plain version's (on the
+    card), the inputs as they were, requests conserved; in the wrap regime
+    on a ring of 8, more than R requests admitted in one interval."""
+    r, h, k = geometry
+    rng = np.random.default_rng(r + h + k + len(regime))
+    for a in (1, 8, 256, 2048):
+        i32 = dict(dtype=torch.int32, device=cuda_device)
+        state = [torch.zeros(a, r, **i32), torch.zeros(a, 12, **i32),
+                 torch.zeros(a, 2, device=cuda_device),
+                 torch.zeros(a, device=cuda_device), torch.zeros(a, h, **i32)]
+        most = 0
+        for _ in range(10):
+            arrivals, caps = (x.to(cuda_device)
+                              for x in k3_interval(rng, regime, a, k))
+            args = (*state, arrivals, caps)
+            kept = [x.clone() for x in args]
+            before = queue_advance.launches
+            got = queue_advance(*args)
+            assert queue_advance.launches == before + 1
+            want = queue_advance_ref(*args)
+            for name, g, w in zip(("arrive", "counters", "credits",
+                                   "lat_sum", "hist"), got, want):
+                assert torch.equal(g, w), f"A={a}: {name} differs"
+            assert all(torch.equal(x, y) for x, y in zip(args, kept))
+            most = max(most, int((got[1][:, 0] - state[1][:, 0]).max()))
+            state = list(got)
+        c = state[1]
+        assert torch.equal(c[:, 7], c[:, 8] + c[:, 9] + c[:, 0] - c[:, 4])
+        if regime == "wrap" and r == 8 and k == 20:
+            assert most > r
+
+
+def codec_leaves(rng, a, device):
+    """The 12 iAgent leaves, a leaf of 5,000 values (two chunks of the
+    block path) and a leaf of 3,072 that starts 4 bytes past a 16-byte
+    boundary (scalar loads). Rows cycle through random deltas with
+    residuals, the quarter grid (int8 halfway cases, |x| ties), a row with
+    NaN, +inf and -inf, and zeros. Budgets ceil(0.05 L), k = L for the
+    leaf of 7."""
+    sizes = LEAF_SIZES + (5000, 3072)
+    ds, rs = [], []
+    for i, l in enumerate(sizes):
+        d = (rng.normal(size=(a, l)) * 0.01).astype(np.float32)
+        r = (rng.normal(size=(a, l)) * 0.001).astype(np.float32)
+        grid = (rng.integers(-254, 255, (a, l)) / 4.0).astype(np.float32)
+        grid[:, 0] = 63.5
+        d[1::4], r[1::4] = grid[1::4], 0.0
+        d[2::4, 0], d[2::4, l // 2], d[2::4, -1] = np.nan, np.inf, -np.inf
+        d[3::4], r[3::4] = 0.0, 0.0
+        if i == len(sizes) - 1:     # 4 bytes past a 16-byte boundary
+            flat = torch.zeros(2 * a * l + 1, device=device)
+            dt, rt = flat[1:1 + a * l].view(a, l), flat[1 + a * l:].view(a, l)
+            dt.copy_(torch.tensor(d))
+            rt.copy_(torch.tensor(r))
+            assert dt.data_ptr() % 16 == 4
+        else:
+            dt, rt = (torch.tensor(x, device=device) for x in (d, r))
+        ds.append(dt)
+        rs.append(rt)
+    ks = [topk_k(l, 0.05) for l in sizes]
+    ks[LEAF_SIZES.index(7)] = 7
+    return ds, rs, ks
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("a", [1, 8, 2048])
+@pytest.mark.parametrize("codec", ["float32", "int8", "topk"])
+def test_k2_segmented_bit_identical_to_plain_on_the_card(cuda_device, codec,
+                                                         a):
+    """``delta_codec_leaves`` over 14 leaves in one launch, every output
+    bit for bit (NaN payloads included) the plain version's on the card."""
+    ds, rs, ks = codec_leaves(np.random.default_rng(a), a, cuda_device)
+    before = delta_codec.launches
+    decs, ress = delta_codec_leaves(ds, rs, codec=codec, ks=ks)
+    assert delta_codec.launches == before + 1
+    bits = lambda x: x.view(torch.int32)
+    for d, r, k, dec, res in zip(ds, rs, ks, decs, ress):
+        want = delta_codec_ref(d, r, codec=codec, k=k)
+        assert torch.equal(bits(dec), bits(want[0])), f"L={d.shape[1]}"
+        assert torch.equal(bits(res), bits(want[1])), f"L={d.shape[1]}"
 
 
 @pytest.mark.cuda

@@ -24,7 +24,7 @@ from repro_torch.core import federated as tfed
 from repro_torch.core.agent import ActionMask, tensors_from_numpy
 from repro_torch.fl import codec as tcodec
 from repro_torch.fl import transport as ttr
-from repro_torch.kernels.delta_codec import delta_codec
+from repro_torch.kernels.delta_codec import delta_codec, delta_codec_leaves
 from repro_torch.kernels.ref import delta_codec_ref
 from test_torch_support import (close, exact, jax_agents,
                                 np_tree, to_rollout)
@@ -91,6 +91,68 @@ def test_codec_bit_identical_to_pallas_kernel(codec):
                                    codec=codec, k=k)
         exact(bits(dec_t), bits(dec_j), f"decoded L={l}")
         exact(bits(res_t), bits(res_j), f"residual L={l}")
+
+
+def segmented_round(rng, a=5):
+    """All 12 iAgent leaves, each of ``a`` rows: random deltas with random
+    residuals; the quarter grid (exact int8 halfway cases, |x| ties); a row
+    holding NaN, +inf and -inf; an all-zero row (the 1e-12 scale floor);
+    random again. Budgets ceil(0.05 L), except k = L for the leaf of 7 and
+    k > L for the last leaf of 4 (k >= L keeps the whole row)."""
+    ds, rs = [], []
+    for l in LEAF_SIZES:
+        d, r = codec_rows(rng, a, l, "random")
+        d[1], r[1] = codec_rows(rng, 1, l, "grid")[0][0], 0.0
+        d[2, 0], d[2, l // 2], d[2, -1] = np.nan, np.inf, -np.inf
+        d[3], r[3] = 0.0, 0.0
+        ds.append(d)
+        rs.append(r)
+    ks = [ttr.topk_k(l, 0.05) for l in LEAF_SIZES]
+    ks[LEAF_SIZES.index(7)] = 7
+    ks[-1] = 9
+    return ds, rs, ks
+
+
+@pytest.mark.parametrize("kind", ["oracle", pytest.param(
+    "pallas", marks=pytest.mark.pallas)])
+@pytest.mark.parametrize("codec", ["float32", "int8", "topk"])
+def test_segmented_codec_matches_jax_per_leaf(codec, kind):
+    """``delta_codec_leaves`` (one call over the 12 leaves, the CPU path)
+    against the JAX package per leaf: ``vmap(ref.delta_codec_ref)`` or the
+    Pallas ``delta_codec`` in interpret mode; bit for bit, NaN payloads
+    included."""
+    from repro.kernels.delta_codec import delta_codec as j_pallas_codec
+    ds, rs, ks = segmented_round(np.random.default_rng(11))
+    decs, ress = delta_codec_leaves([torch.tensor(d) for d in ds],
+                                    [torch.tensor(r) for r in rs],
+                                    codec=codec, ks=ks)
+    assert len(decs) == len(ress) == len(LEAF_SIZES)
+    for d, r, k, dec_t, res_t in zip(ds, rs, ks, decs, ress):
+        if kind == "pallas":
+            dec_j, res_j = j_pallas_codec(jnp.asarray(d), jnp.asarray(r),
+                                          codec=codec, k=k, interpret=True)
+        else:
+            dec_j, res_j = jax.vmap(lambda x, y: jref.delta_codec_ref(
+                x, y, codec=codec, k=k))(jnp.asarray(d), jnp.asarray(r))
+        msg = f"{codec} L={d.shape[1]} k={k}"
+        exact(bits(dec_t), bits(dec_j), f"decoded {msg}")
+        exact(bits(res_t), bits(res_j), f"residual {msg}")
+        if codec == "topk" and k >= d.shape[1]:
+            assert not bits(res_t).any(), msg      # the whole row is kept
+    one = delta_codec(torch.tensor(ds[2]), torch.tensor(rs[2]), codec=codec,
+                      k=ks[2])
+    exact(bits(one[0]), bits(decs[2]))
+    exact(bits(one[1]), bits(ress[2]))
+
+
+def test_segmented_codec_checks_its_arguments():
+    d = torch.zeros(2, 3)
+    with pytest.raises(ValueError, match="unknown codec"):
+        delta_codec_leaves([d], [d], codec="fp8", ks=[1])
+    with pytest.raises(ValueError, match="the same number"):
+        delta_codec_leaves([d, d], [d], codec="int8", ks=[1, 1])
+    with pytest.raises(ValueError, match="the same number"):
+        delta_codec_leaves([], [], codec="int8", ks=[])
 
 
 def params_pair(a, seed):

@@ -139,6 +139,178 @@ def test_queue_advance_plain_matches_jax_overloaded_default_geometry(kind):
     exact(st.arrived, st.dropped + st.completed + st.in_flight)
 
 
+def k3_two_phases(arrive, counters, credits, lat_sum, hist, arrivals, caps):
+    """A numpy emulation of ``csrc/queue_advance.cu``'s decomposition, per
+    agent: phase 1 runs the scalar chain of all K ticks and keeps the
+    schedule (head and tail before each tick); phase 2 takes each request
+    completed in the interval, finds its completion tick and its arrival
+    (the input ring if it was in flight at the start, else the microtick of
+    the tick that admitted it), and adds its latency to a per-tick integer
+    sum, the effective count and the histogram; lat_sum folds the per-tick
+    sums in tick order; the last R requests admitted (the last writer of
+    each slot they map onto) write their admission tick into the ring, and
+    every other slot keeps its input value."""
+    out = [x.copy() for x in (arrive, counters, credits, lat_sum, hist)]
+    n_agents, ring = arrive.shape
+    k, hist_n = arrivals.shape[1], hist.shape[1]
+    f32, one = np.float32, np.float32(1.0)
+
+    def tick_of(sched, j):       # the last tick whose segment holds j
+        return sum(sched[u] - sched[0] <= j for u in range(1, k))
+
+    for i in range(n_agents):
+        c = [int(v) for v in counters[i]]
+        cr_pre, cr_post = credits[i]
+        c_pre, c_post = caps[i, tref.CAP_PRE], caps[i, tref.CAP_POST]
+        batch, t_batch, qcap, slo = (int(caps[i, j]) for j in (
+            tref.CAP_BATCH, tref.CAP_TBATCH, tref.CAP_QCAP, tref.CAP_SLO))
+        s_head, s_tail = [], []
+        for t in range(k):                                  # phase 1
+            n_arr, m = int(arrivals[i, t]), c[tref.SIM_TICK]
+            s_head.append(c[tref.SIM_HEAD])
+            s_tail.append(c[tref.SIM_TAIL])
+            done = c[tref.SIM_BUSY] > 0 and m >= c[tref.SIM_DONE_AT]
+            p_inf = c[tref.SIM_LAUNCH] if done else c[tref.SIM_PINF]
+            busy = 0 if done else c[tref.SIM_BUSY]
+            post = np.minimum(cr_post + c_post, c_post + one)
+            n_post = min(int(post), p_inf - c[tref.SIM_HEAD])
+            post = post - f32(n_post)
+            head = c[tref.SIM_HEAD] + n_post
+            ready = c[tref.SIM_PPRE] - c[tref.SIM_LAUNCH]
+            room = qcap - (c[tref.SIM_LAUNCH] - head)
+            n_launch = max(min(ready, batch, room), 0)
+            do_launch = busy == 0 and n_launch > 0
+            launch = c[tref.SIM_LAUNCH] + (n_launch if do_launch else 0)
+            done_at = m + t_batch if do_launch else c[tref.SIM_DONE_AT]
+            busy = 1 if do_launch else busy
+            pre = np.minimum(cr_pre + c_pre, c_pre + one)
+            n_pre = max(min(int(pre), c[tref.SIM_TAIL] - c[tref.SIM_PPRE],
+                            max(qcap - (c[tref.SIM_PPRE] - launch), 0)), 0)
+            pre = pre - f32(n_pre)
+            p_pre = c[tref.SIM_PPRE] + n_pre
+            free = min(qcap - (c[tref.SIM_TAIL] - p_pre),
+                       ring - (c[tref.SIM_TAIL] - head))
+            admit = min(max(min(n_arr, free), 0), n_arr)
+            c[tref.SIM_TAIL] += admit
+            c[tref.SIM_PPRE], c[tref.SIM_LAUNCH], c[tref.SIM_PINF] = \
+                p_pre, launch, p_inf
+            c[tref.SIM_HEAD], c[tref.SIM_BUSY], c[tref.SIM_DONE_AT] = \
+                head, busy, done_at
+            c[tref.SIM_ARRIVED] += n_arr
+            c[tref.SIM_DROPPED] += n_arr - admit
+            c[tref.SIM_COMPLETED] += n_post
+            c[tref.SIM_TICK] = m + 1
+            cr_pre, cr_post = pre, post
+        s_head.append(c[tref.SIM_HEAD])
+        s_tail.append(c[tref.SIM_TAIL])
+        head0, tail0 = s_head[0], s_tail[0]
+        tick0 = int(counters[i, tref.SIM_TICK])
+        lsum, neff = [0] * k, 0
+        for j in range(s_head[k] - head0):                  # phase 2
+            t = tick_of(s_head, j)
+            arrival = (arrive[i, (head0 + j) % ring] if j < tail0 - head0
+                       else tick0 + tick_of(s_tail, j - (tail0 - head0)))
+            lat = tick0 + t + 1 - int(arrival)
+            lsum[t] += lat
+            neff += lat <= slo
+            out[4][i, min(max(lat, 0), hist_n - 1)] += 1
+        ls = lat_sum[i]
+        for t in range(k):
+            ls = ls + f32(lsum[t])
+        out[3][i] = ls
+        c[tref.SIM_EFFECTIVE] += neff
+        out[1][i], out[2][i] = c, (cr_pre, cr_post)
+        n_adm = s_tail[k] - tail0
+        for j in range(max(n_adm - ring, 0), n_adm):        # last writers
+            out[0][i, (tail0 + j) % ring] = tick0 + tick_of(s_tail, j)
+    return out
+
+
+def wrap_args(rng, a, sp):
+    """A ring of 8 under heavy load: service outruns 3-5 arrivals a tick,
+    so far more than R requests are admitted in one interval and most of
+    them also complete in it."""
+    caps = np.tile(np.asarray([4.0, 4.0, 4.0, 1.0, 4.0, 3.0], np.float32),
+                   (a, 1))
+    caps[:, tref.CAP_POST] = rng.uniform(3.5, 5.0, a)
+    arrivals = rng.integers(3, 6, (a, sp.k_ticks)).astype(np.int32)
+    return arrivals, caps
+
+
+# (ring, hist_n, k_ticks, intervals, arrivals and caps): the small geometry,
+# the default geometry in overload, a ring of 8 wrapping several times an
+# interval, one tick an interval, one histogram bucket
+K3_CASES = {
+    "small": (32, 16, 8, 5, small_args),
+    "default_overload": (512, 64, 20, 3, overload_args),
+    "ring8_wrap": (8, 16, 20, 4, wrap_args),
+    "k1": (32, 16, 1, 12, small_args),
+    "h1": (32, 1, 8, 5, small_args),
+}
+
+
+@pytest.mark.parametrize("kind", ["oracle", pytest.param(
+    "pallas", marks=pytest.mark.pallas)])
+@pytest.mark.parametrize("case", list(K3_CASES))
+def test_k3_two_phase_decomposition_matches_jax(case, kind):
+    """The kernel's decomposition (``k3_two_phases``), the port's plain
+    version and JAX (``vmap(ref.queue_advance_ref)`` or the Pallas kernel
+    in interpret mode) agree bit for bit over chained intervals."""
+    ring, hist_n, k, n_int, draw = K3_CASES[case]
+    sp = tstate.SimParams(ring=ring, k_ticks=k, hist_n=max(hist_n, 2))
+    rng = np.random.default_rng(len(case))
+    a = 4
+    state = empty_state(a, sp)
+    state[4] = np.zeros((a, hist_n), np.int32)
+    wrapped = False
+    for i in range(n_int):
+        arrivals, caps = draw(rng, a, sp)
+        want = run_jax(kind, state, arrivals, caps)
+        assert_sim_equal(k3_two_phases(*state, arrivals, caps), want,
+                         f"{case} two phases, interval {i}")
+        got = queue_advance(*(torch.tensor(x) for x in state),
+                            torch.tensor(arrivals), torch.tensor(caps))
+        assert_sim_equal(got, want, f"{case} plain, interval {i}")
+        new = [np.asarray(x) for x in want]
+        admitted = new[1][:, tref.SIM_TAIL] - state[1][:, tref.SIM_TAIL]
+        done = new[1][:, tref.SIM_HEAD] - state[1][:, tref.SIM_HEAD]
+        in_flight = state[1][:, tref.SIM_TAIL] - state[1][:, tref.SIM_HEAD]
+        wrapped |= bool(((admitted > ring) & (done > in_flight)).any())
+        state = new
+    assert state[1][:, tref.SIM_COMPLETED].sum() > 0
+    assert wrapped or case != "ring8_wrap"
+
+
+def test_k3_stamps_anchor_in_todays_source():
+    """K3's phase marks are empty in ``csrc/queue_advance.cu`` as built (no
+    timing code), every phase that ``chip_smoke.py`` reads is marked in
+    today's source, and its timing build defines the marks as clock64
+    stamps before it includes that source."""
+    import importlib.util
+    import re
+    from pathlib import Path
+    from repro_torch.kernels import build
+    path = Path(__file__).resolve().parents[1] / "chip_smoke.py"
+    spec = importlib.util.spec_from_file_location("chip_smoke", path)
+    smoke = importlib.util.module_from_spec(spec)
+    spec.loader.exec_module(smoke)
+    source = build.CSRC / "queue_advance.cu"
+    src = source.read_text()
+    assert "clock64" not in re.sub(r"//.*", "", src)
+    guard = src[src.index("#ifndef K3_PHASE_MARKS"):]
+    guard = guard[:guard.index("#endif")]
+    for mark in ("K3_MARK_START()", "K3_MARK(phase)", "K3_MARK_END()"):
+        assert f"#define {mark}\n" in guard
+    marks = set(re.findall(r"^ *K3_MARK\((\w+)\);$", src, re.M))
+    assert marks == {mark for mark, _ in smoke.K3_PHASES}
+    assert src.count("K3_MARK_START();") == 1
+    unit = smoke.stamped_source("K3", smoke.K3_PHASES, source,
+                                smoke.K3_WARPS)
+    assert (unit.index("#define K3_PHASE_MARKS")
+            < unit.index("#define K3_MARK(phase) k3_stamp(K3_PH_##phase)")
+            < unit.index(f'#include "{source}"'))
+
+
 def test_queue_advance_plain_keeps_its_inputs_and_checks_the_ring():
     sp = tstate.SimParams(**SMALL)
     state = [torch.tensor(x) for x in empty_state(2, sp)]

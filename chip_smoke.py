@@ -32,23 +32,38 @@ In order, it:
      eager per-call time with the host's launch cost;
   7. drives ``repro_torch.launch.train_fleet`` at its defaults (8 agents,
      2 pods, 20 episodes), then with ``--fl-codec int8`` and ``--fl-codec
-     topk``, with every launch count set to 0 just before each run and read
-     just after: K1 must launch once per episode, K2 once per FL round, K3
-     never; the histories must be finite;
+     topk``, each under the default ``--driver scan`` (the episode, FL
+     round and pod merge as CUDA graphs) and then ``--driver reference``,
+     with every launch count set to 0 just before each run and read just
+     after: under both drivers K1 must launch once per episode, K2 once
+     per FL round, K3 never; the histories must be finite and equal
+     between the drivers; prints ms per episode with the graphs' capture
+     time apart;
   8. drives the twin: ``train_fleet --env-backend twin`` (20 episodes, K3
-     once per control interval), then ``repro_torch.launch.simulate`` at
-     its defaults (60 intervals, K3 once per interval) and after four
+     once per control interval, both drivers), then
+     ``repro_torch.launch.simulate`` at its defaults (60 intervals, the
+     interval body one CUDA graph, K3 once per interval) and after four
      twin-trained episodes with ``--compare-fluid``; summaries finite,
      requests conserved for every agent;
-  9. profiles ten episodes of the default fluid run and of the twin run
-     (host wall, device busy share, the kernels taking the most device
-     time);
- 10. checks small runs (A=4, P=2, int8 codec, pre-drawn action noise) on
+  9. times ten episodes of the default fluid run and of the twin run under
+     each driver alone, then ten more under ``torch.profiler`` (the graph
+     driver's after eight that capture its three graphs), and
+     ``simulate_fleet`` graphed and as an eager loop the same way: host
+     wall, capture time, device busy share (against the wall alone too:
+     the profiler slows graph replays), kernels and host graph launches
+     per episode, the kernels taking the most device time, and the launch
+     counters against the profiler's count of each kernel;
+ 10. ``[graph parity]``: the graph driver against the reference driver on
+     the card (A=8, P=2, ``fl_every=1``, eight episodes: two pod merges,
+     int8, stragglers, noise from the fleet's generator), fluid and twin:
+     identical actions, histories and final state bit for bit, equal
+     launch counts;
+ 11. checks small runs (A=4, P=2, int8 codec, pre-drawn action noise) on
      the card against the same runs on the CPU (plain versions): the fluid
      trainer, and the twin trainer with its final twin state exactly equal
      (a first action divergence is accepted only at a near-tie of the
      Gumbel-max scores, and reported);
- 11. holds K5 ``decode_attention`` and K4 ``flash_attention`` against their
+ 12. holds K5 ``decode_attention`` and K4 ``flash_attention`` against their
      plain versions (the JAX tests' sweeps, K4's bf16 tensor-core path on
      every shape of the sweep, K5 with several splits and the combine, the
      invalid cache tail, and the full-width qwen2-0.5b shapes: K5 on the
@@ -61,16 +76,16 @@ In order, it:
      graph (the graph's own launch out); K6 and ``index_select`` read
      their token tables cold (four tables, more than the L2 holds, in
      turn);
- 12. drives ``repro_torch.launch.serve`` at its defaults (qwen2-0.5b full
+ 13. drives ``repro_torch.launch.serve`` at its defaults (qwen2-0.5b full
      width, 4 replicas, 30 episodes): K5 once per layer per decode step,
      K1 once per episode, the others never;
- 13. runs the cache-less prefill step at full width (B=4, S=2048; K4 once
+ 14. runs the cache-less prefill step at full width (B=4, S=2048; K4 once
      per layer) against the same step on ``sdpa``, in bf16 and float32;
      then the engine at its default buckets (B=8, 128-token prompt, 32 new
      tokens: prefill ms, decode ms per step, tokens/s); then a reduced
      model on the card against the CPU (identical tokens up to a near-tie,
      logits within rtol 1e-3 / atol 1e-4);
- 14. prints the kernel table as one JSON line, then
+ 15. prints the kernel table as one JSON line, then
      ``{"ok": true, "device": {...}}`` as the last line.
 Any failure raises and exits non-zero.
 """
@@ -692,36 +707,73 @@ def read_launches():
     return tuple(fn.launches for fn in wrappers())
 
 
+@contextlib.contextmanager
+def graph_spy(module):
+    """Collect every ``GraphedBody`` that ``module`` makes while the block
+    runs (for their capture times and host graph launches)."""
+    made = []
+    cls = module.GraphedBody
+
+    class Spy(cls):
+        def __init__(self, *args, **kw):
+            super().__init__(*args, **kw)
+            made.append(self)
+
+    module.GraphedBody = Spy
+    try:
+        yield made
+    finally:
+        module.GraphedBody = cls
+
+
 def drive(torch, argv, n_episodes, fl_every, n_steps):
-    """One ``train_fleet`` run with the launch counts set to 0 just before
-    and read just after. Returns (K1, K2, K3 launches)."""
+    """One ``train_fleet`` run under each driver (``scan``, the default,
+    then ``--driver reference``), the launch counts set to 0 just before
+    each and read just after: K1 once per episode, K2 once per FL round
+    under int8/topk, K3 once per twin control interval, finite histories,
+    equal between the drivers. Returns the scan run's (K1, K2, K3)."""
+    import numpy as np
+    from repro_torch.core import fleet as fleet_mod
     from repro_torch.launch import train_fleet
-    reset_launches()
-    t0 = time.time()
-    _, hist = train_fleet.main([*argv, "--device", DEV])
-    torch.cuda.synchronize()
-    wall = time.time() - t0
-    k1, k2, k3 = read_launches()[:3]
-    for key, v in hist.items():
-        if len(v) != n_episodes or not all(map(math.isfinite, v)):
-            raise AssertionError(f"{argv}: history {key} is not "
-                                 f"{n_episodes} finite values")
     rounds = n_episodes // fl_every
-    if k1 != n_episodes:
-        raise AssertionError(f"{argv}: K1 launched {k1} times, expected "
-                             f"{n_episodes} (one per episode)")
-    want_k2 = 0 if "--fl-codec" not in argv else rounds
-    if k2 != want_k2:
-        raise AssertionError(f"{argv}: K2 launched {k2} times, expected "
-                             f"{want_k2} (one per FL round)")
-    want_k3 = n_episodes * n_steps if "twin" in argv else 0
-    if k3 != want_k3:
-        raise AssertionError(f"{argv}: K3 launched {k3} times, expected "
-                             f"{want_k3} (one per twin control interval)")
-    log(f"  {' '.join(argv) or '(defaults)'}: K1 {k1}, K2 {k2}, K3 {k3} "
-        f"launches, {wall / n_episodes * 1e3:.1f} ms/episode (wall incl. "
-        f"trace set-up)")
-    return k1, k2, k3
+    want = (n_episodes, 0 if "--fl-codec" not in argv else rounds,
+            n_episodes * n_steps if "twin" in argv else 0)
+    counts, hists = {}, {}
+    for driver in ("scan", "reference"):
+        reset_launches()
+        with graph_spy(fleet_mod) as graphs:
+            t0 = time.time()
+            _, hist = train_fleet.main([*argv, "--device", DEV,
+                                        "--driver", driver])
+            torch.cuda.synchronize()
+            wall = time.time() - t0
+        counts[driver], hists[driver] = read_launches()[:3], hist
+        for key, v in hist.items():
+            if len(v) != n_episodes or not all(map(math.isfinite, v)):
+                raise AssertionError(f"{argv} {driver}: history {key} is "
+                                     f"not {n_episodes} finite values")
+        if counts[driver] != want:
+            raise AssertionError(
+                f"{argv} {driver}: K1, K2, K3 launched {counts[driver]} "
+                f"times, expected {want} (K1 once per episode, K2 once per "
+                f"FL round under int8/topk, K3 once per twin interval)")
+        capture = sum(g.capture_s for g in graphs)
+        replays = sum(g.replays for g in graphs)
+        log(f"  {' '.join(argv) or '(defaults)'} --driver {driver}: K1 "
+            f"{want[0]}, K2 {want[1]}, K3 {want[2]} launches, "
+            f"{(wall - capture) / n_episodes * 1e3:.2f} ms/episode (wall "
+            f"incl. trace set-up, capture out)"
+            + (f"; capture {capture:.3f} s, {replays} graph launches "
+               f"({replays / n_episodes:.2f}/episode)"
+               if driver == "scan" else ""))
+    same = all(np.array_equal(hists["scan"][k], v)
+               for k, v in hists["reference"].items())
+    for k, v in hists["reference"].items():
+        np.testing.assert_allclose(hists["scan"][k], v, rtol=RTOL, atol=ATOL,
+                                   err_msg=f"{argv}: scan vs reference {k}")
+    log(f"  histories of the two drivers: "
+        f"{'bit for bit' if same else 'within rtol 1e-4 / atol 1e-5'}")
+    return counts["scan"]
 
 
 def drive_simulate(argv, want_k3):
@@ -748,7 +800,8 @@ def drive_simulate(argv, want_k3):
         raise AssertionError(f"simulate {argv}: nothing completed")
     log(f"  simulate {' '.join(argv) or '(defaults)'}: K3 {k3} launches, "
         f"evaluation {summ['wall_s'] / 60 * 1e3:.2f} ms/interval (60 "
-        f"intervals, wall), whole call {wall:.2f} s; effective throughput "
+        f"intervals graphed, wall incl. capture), whole call {wall:.2f} s; "
+        f"effective throughput "
         f"{float(summ['effective_throughput'].mean()):.2f} req/s, p99 "
         f"{float(summ['p99_latency_s'].mean()) * 1e3:.0f} ms, requests "
         f"conserved")
@@ -842,37 +895,155 @@ def first_action_divergence(torch, cfg, card, cpu):
     return False
 
 
+def timed(torch, fn):
+    """Host wall seconds of ``fn`` between two synchronizations."""
+    torch.cuda.synchronize()
+    t0 = time.time()
+    fn()
+    torch.cuda.synchronize()
+    return time.time() - t0
+
+
 def profile_episodes(torch, cfg, backend="fluid", n_episodes=10):
-    """Where the time of the CLI default run goes (in ``backend``):
-    ``n_episodes`` (after two warm-up episodes) under ``torch.profiler``;
-    prints the host wall per episode, the device's busy share and the
-    kernels taking the most device time."""
-    from repro_torch.core.fleet import fleet_init, train_fleet_reference
+    """Where the time of the CLI default run goes (in ``backend``) under
+    each driver: after eight episodes that warm up (the reference driver)
+    or run eagerly and capture the three graphs (the graph driver; the
+    first pod merge follows the eighth), ``n_episodes`` timed alone, then
+    ``n_episodes`` under ``torch.profiler``. Every window holds five FL
+    rounds and one pod merge."""
+    from repro_torch.core.fleet import (FleetScan, fleet_init,
+                                        train_fleet_reference)
     from repro_torch.data.workload import fleet_traces
-    fleet = fleet_init(cfg, 8, 0, n_pods=2, device=DEV, env_backend=backend)
+    warm, n = 8, cfg.n_steps
     gen = torch.Generator()
     gen.manual_seed(1)
-    traces = fleet_traces(gen, 8, (n_episodes + 2) * cfg.n_steps, device=DEV)
-    fleet, _ = train_fleet_reference(cfg, fleet,
-                                     traces[:, :2 * cfg.n_steps],
+    traces = fleet_traces(gen, 8, (warm + 2 * n_episodes) * n, device=DEV)
+    window = lambda i: traces[:, (warm + i * n_episodes) * n:
+                              (warm + (i + 1) * n_episodes) * n]
+    fleet = fleet_init(cfg, 8, 0, n_pods=2, device=DEV, env_backend=backend)
+    fleet, _ = train_fleet_reference(cfg, fleet, traces[:, :warm * n],
                                      env_backend=backend)
+    wall = timed(torch, lambda: train_fleet_reference(
+        cfg, fleet, window(0), env_backend=backend))
+    log(f"  {backend} --driver reference: {n_episodes} episodes alone: "
+        f"wall {wall / n_episodes * 1e3:.2f} ms/episode")
     profiled(torch, lambda: train_fleet_reference(
-        cfg, fleet, traces[:, 2 * cfg.n_steps:], env_backend=backend),
-        n_episodes, f"{backend}: {n_episodes} episodes", "episode")
+        cfg, fleet, window(1), env_backend=backend),
+        n_episodes, f"{backend} --driver reference: {n_episodes} episodes",
+        "episode", alone=wall)
+    fleet = fleet_init(cfg, 8, 0, n_pods=2, device=DEV, env_backend=backend)
+    driver = FleetScan(cfg, fleet, traces, env_backend=backend)
+    for _ in range(warm):
+        driver.step()
+
+    def steps():
+        for _ in range(n_episodes):
+            driver.step()
+
+    replays = driver.graph_launches
+    wall = timed(torch, steps)
+    log(f"  {backend} --driver scan: {n_episodes} replayed episodes alone: "
+        f"wall {wall / n_episodes * 1e3:.2f} ms/episode, "
+        f"{(driver.graph_launches - replays) / n_episodes:.2f} graph "
+        f"launches/episode; capture {driver.capture_s:.3f} s for "
+        f"{sum(g.graph is not None for g in driver.graphs)} graphs")
+    profiled(torch, steps, n_episodes,
+             f"{backend} --driver scan: {n_episodes} episodes", "episode",
+             alone=wall)
 
 
-def profiled(torch, fn, n, label, unit):
+def profile_simulate(torch, cfg, n_int=60):
+    """``simulate_fleet`` (8 agents, the ``dynamic`` scenario) graphed, and
+    the same interval loop run eagerly, with one seed for the noise: ms
+    per interval alone (graphed: a one-interval call, which runs eagerly
+    and captures, taken from a (1 + n_int)-interval call, capture out),
+    then ``n_int`` intervals under ``torch.profiler``; the final twin
+    states must be equal."""
+    from repro_torch.core.agent import sample_actions
+    from repro_torch.core.fleet import fleet_init
+    from repro_torch.sim import harness
+    from repro_torch.sim.state import (SimParams, action_caps, sim_init,
+                                       spread_arrivals)
+    from repro_torch.sim.step import sim_interval
+    from repro_torch.sim.scenarios import make_scenario
+    sp = SimParams()
+    fleet = fleet_init(cfg, 8, 0, device=DEV)
+    params, ep = fleet.astate.policy.params(), fleet.env_params
+    gen = torch.Generator()
+    gen.manual_seed(2)
+    traces = make_scenario("dynamic", gen, 8, n_int + 1, device=DEV)
+    noise = lambda: torch.Generator(device=DEV).manual_seed(3)
+    out = {}
+
+    def graphed(t=n_int):
+        out["graphed"] = harness.simulate_fleet(
+            cfg, sp, params, fleet.masks, ep, traces[:, :t],
+            generator=noise())[0]
+
+    def eager():
+        g = noise()
+        st = sim_init(sp, 8, DEV)
+        drops = torch.zeros(8, dtype=torch.int32, device=DEV)
+        act = torch.zeros(8, 3, dtype=torch.long, device=DEV)
+        phase = torch.zeros(8, device=DEV)
+        with torch.no_grad():
+            for t in range(n_int):
+                rate = traces[:, t]
+                obs = harness.sim_observe(cfg, sp, ep, st, drops, act, rate)
+                act, _, _ = sample_actions(cfg, params, obs, fleet.masks,
+                                           generator=g)
+                arrivals, phase = spread_arrivals(sp, rate, phase)
+                st2 = sim_interval(st, arrivals,
+                                   action_caps(cfg, sp, ep, act))
+                drops = st2.dropped - st.dropped
+                st = st2
+        out["eager"] = st
+
+    alone = {}
+    for t in (1, n_int + 1):
+        with graph_spy(harness) as graphs:
+            alone[t] = timed(torch, lambda: graphed(t)) - graphs[0].capture_s
+    wall = (alone[n_int + 1] - alone[1]) / n_int
+    log(f"  simulate graphed: {wall * 1e3:.3f} ms per replayed interval "
+        f"alone; the first interval (eager) {alone[1] * 1e3:.2f} ms")
+    with graph_spy(harness) as graphs:
+        profiled(torch, graphed, n_int, "simulate graphed: 60 intervals",
+                 "interval", capture=lambda: graphs[0].capture_s)
+        log(f"    capture {graphs[0].capture_s:.4f} s")
+    wall = timed(torch, eager)
+    log(f"  simulate eager loop: {wall / n_int * 1e3:.3f} ms/interval alone")
+    profiled(torch, eager, n_int, "simulate eager loop: 60 intervals",
+             "interval", alone=wall)
+    for a, b in zip(out["graphed"].tensors(), out["eager"].tensors()):
+        if not torch.equal(a, b):
+            raise AssertionError("simulate: graphed and eager final twin "
+                                 "states differ")
+    log("  simulate graphed == eager loop: final twin state identical")
+
+
+KERNEL_NAMES = (("diversity_insert", 0), ("delta_codec", 1),
+                ("queue_advance", 2))
+
+
+def profiled(torch, fn, n, label, unit, capture=None, alone=None):
     """Run ``fn`` (``n`` units of work) under ``torch.profiler``; print the
-    host wall per unit, the device's busy share and the kernels taking the
-    most device time."""
+    host wall per unit (less ``capture()`` seconds of graph capture where
+    given), the device's busy share (also against ``alone``, the wall of
+    the same work timed without the profiler, which slows graph replays),
+    the kernels taking the most device time, and K1-K3's launch counters
+    against the profiler's count of each kernel."""
     from torch.profiler import ProfilerActivity, profile
     torch.cuda.synchronize()
+    reset_launches()
     with profile(activities=[ProfilerActivity.CPU,
                              ProfilerActivity.CUDA]) as prof:
         t0 = time.time()
         fn()
         torch.cuda.synchronize()
         wall = time.time() - t0
+    counted = read_launches()
+    cap = capture() if capture else 0.0
+    wall -= cap
     kernels = [e for e in prof.key_averages()
                if str(e.device_type).endswith("CUDA")]
     dev_us = lambda e: getattr(e, "self_device_time_total", None) \
@@ -882,14 +1053,96 @@ def profiled(torch, fn, n, label, unit):
     if not total:
         log("  device time: not measured (the profiler recorded no kernel)")
         return
-    log(f"  {label} under the profiler: wall {wall / n * 1e3:.2f} ms/{unit}, "
-        f"device busy {total / 1e3 / n:.3f} ms/{unit} "
+    graph_launches = sum(e.count for e in prof.key_averages()
+                         if e.key == "cudaGraphLaunch")
+    log(f"  {label} under the profiler: wall {wall / n * 1e3:.2f} ms/{unit}"
+        + (f" (capture {cap:.3f} s out)" if capture else "")
+        + f", device busy {total / 1e3 / n:.3f} ms/{unit} "
         f"({100 * total / 1e6 / wall:.2f}% busy, "
         f"{100 - 100 * total / 1e6 / wall:.2f}% idle), "
-        f"{n_launch / n:.0f} kernels/{unit}")
+        f"{n_launch / n:.0f} kernels/{unit}, "
+        f"{graph_launches / n:.2f} cudaGraphLaunch/{unit}"
+        + (f"; against the wall alone {100 * total / 1e6 / alone:.2f}% busy"
+           if alone else ""))
     for e in sorted(kernels, key=dev_us, reverse=True)[:6]:
         log(f"    {dev_us(e) / 1e3 / n:8.4f} ms/{unit} "
             f"{e.count / n:6.1f} launches/{unit}  {e.key[:70]}")
+    seen = [sum(e.count for e in kernels if name + "_kernel" in e.key)
+            for name, _ in KERNEL_NAMES]
+    log("    launch counters vs the profiler's kernels: " + ", ".join(
+        f"{name} {counted[i]} / {seen[j]}"
+        for j, (name, i) in enumerate(KERNEL_NAMES)))
+    if any(counted[i] != seen[j] for j, (_, i) in enumerate(KERNEL_NAMES)):
+        log("    (they differ: the profiler does not show every kernel "
+            "inside a graph replay)")
+
+
+def graph_parity(torch, backend):
+    """The graph driver against the reference driver on the card: A=8,
+    P=2, ``fl_every=1``, eight episodes (two pod merges), int8, Bernoulli
+    stragglers, noise from each fleet's generator (one seed): identical
+    actions (recorded into a device buffer, which capture keeps),
+    histories and final state bit for bit, equal launch counts."""
+    import numpy as np
+    from repro_torch.configs.fcpo import FCPOConfig
+    from repro_torch.core import crl
+    from repro_torch.core.agent import sample_actions
+    from repro_torch.core.fleet import (fleet_init, fleet_to_numpy,
+                                        train_fleet_reference,
+                                        train_fleet_scan)
+    from repro_torch.fl.transport import TransportConfig
+    cfg, a, n_eps = FCPOConfig(fl_every=1), 8, 8
+    n = n_eps * cfg.n_steps
+    traces = torch.as_tensor(np.random.default_rng(5).uniform(
+        5.0, 160.0, (a, n)).astype(np.float32), device=DEV)
+    runs = []
+    for drive_fn in (train_fleet_reference, train_fleet_scan):
+        rec = torch.full((n, a, 3), -1, dtype=torch.long, device=DEV)
+        pos = torch.zeros((), dtype=torch.long, device=DEV)
+
+        def recording(*args, **kw):
+            out = sample_actions(*args, **kw)
+            rec.index_copy_(0, pos.view(1), out[0][None])
+            pos.add_(1)
+            return out
+
+        crl.sample_actions = recording
+        try:
+            fleet = fleet_init(cfg, a, 11, n_pods=2, device=DEV,
+                               env_backend=backend)
+            reset_launches()
+            fleet, hist = drive_fn(cfg, fleet, traces, straggler_prob=0.25,
+                                   seed=3, env_backend=backend,
+                                   transport=TransportConfig(codec="int8"))
+            counts = read_launches()[:3]
+        finally:
+            crl.sample_actions = sample_actions
+        runs.append((rec.cpu(), hist, fleet_to_numpy(fleet), counts))
+    (act_r, hist_r, st_r, n_r), (act_s, hist_s, st_s, n_s) = runs
+    if (act_r < 0).any() or not torch.equal(act_r, act_s):
+        raise AssertionError(f"graph parity ({backend}): the drivers took "
+                             f"different actions")
+    if n_r != n_s:
+        raise AssertionError(f"graph parity ({backend}): launches {n_s} "
+                             f"against the reference's {n_r}")
+
+    def leaves(tree, prefix=""):
+        for k, v in tree.items():
+            if isinstance(v, dict):
+                yield from leaves(v, f"{prefix}{k}.")
+            else:
+                yield f"{prefix}{k}", np.asarray(v)
+
+    got = dict(leaves(st_s))
+    for name, want in [*leaves(st_r), *((f"history.{k}", v)
+                                        for k, v in hist_r.items())]:
+        have = got[name] if name in got else hist_s[name[8:]]
+        if not np.array_equal(have, want):
+            raise AssertionError(f"graph parity ({backend}): {name} differs "
+                                 f"from the reference driver's")
+    log(f"  {backend}: {n} control steps of identical actions; "
+        f"{len(hist_r)} history metrics and {len(got)} state leaves bit "
+        f"for bit; launches K1, K2, K3 {n_s} under both drivers")
 
 
 # ---------------------------------------------------------------------------
@@ -1419,6 +1672,10 @@ def main():
     del k3_loads
 
     n = cfg.n_steps
+    from repro_torch.launch import train_fleet
+    log("[warm-up] one short train_fleet run (first-use set-up of the "
+        "libraries, outside every timed run)")
+    train_fleet.main(["--episodes", "2", "--device", DEV])
     log("[main path] repro_torch.launch.train_fleet")
     k1_n, _, _ = drive(torch, ["--episodes", "20"], 20, cfg.fl_every, n)
     _, k2_int8, _ = drive(torch, ["--episodes", "20", "--fl-codec", "int8"],
@@ -1432,9 +1689,13 @@ def main():
     drive_simulate([], 60)
     drive_simulate(["--train-episodes", "4", "--train-backend", "twin",
                     "--compare-fluid"], 4 * n + 60)
-    log("[profile] default runs, torch.profiler")
+    log("[profile] default runs under both drivers, torch.profiler")
     profile_episodes(torch, cfg)
     profile_episodes(torch, cfg, "twin")
+    profile_simulate(torch, cfg)
+    log("[graph parity] graph driver vs reference driver on the card")
+    graph_parity(torch, "fluid")
+    graph_parity(torch, "twin")
     log("[reference] small run, card vs CPU")
     run_pair(torch, FCPOConfig(fl_every=1), "fluid")
     log("[twin reference] small twin run, card vs CPU")

@@ -26,6 +26,9 @@ from repro_torch.core.ppo import Rollout, agent_update
 
 INFO_METRICS = ("throughput", "effective_throughput", "latency", "drops",
                 "accuracy_proxy")
+# the (A,) metrics ``crl_episode`` returns, learning or not
+EPISODE_METRICS = ("reward", *INFO_METRICS, "loss", "l_p", "l_v", "l_pen",
+                   "gated", "update_rejected")
 
 
 @dataclass

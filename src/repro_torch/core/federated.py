@@ -67,8 +67,10 @@ def select_clients(cfg: FCPOConfig, stats: ClientStats) -> torch.Tensor:
     k = max(1, int(round(cfg.clients_per_round * a)))
     utils = torch.where(stats.available, total_utility(stats), -torch.inf)
     order = torch.argsort(-utils, stable=True)
-    sel = torch.zeros(a, dtype=torch.bool, device=utils.device)
-    sel[order[:k]] = True
+    # index_fill_ keeps the value on the host side of the launch (an
+    # indexed assignment would copy it to the device: no CUDA graph capture)
+    sel = torch.zeros(a, dtype=torch.bool, device=utils.device).index_fill_(
+        0, order[:k], True)
     return sel & stats.available
 
 

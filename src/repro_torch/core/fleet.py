@@ -8,9 +8,19 @@ runs the CRL inner loop for all agents; every ``fl_every`` episodes
 head fine-tuning -> buffer resync; every ``hierarchical_period`` rounds
 ``pod_merge`` averages the pods' base networks.
 
-``train_fleet_reference`` is the Python-loop driver (one device->host
-transfer per episode for its metrics). The scanned driver's counterpart,
-CUDA-graph capture of the episode/FL body, is a later slice.
+Two drivers. ``train_fleet_reference`` is the Python-loop driver (one
+device->host transfer per episode for its metrics). ``train_fleet_scan``
+(and ``train_fleet``, which delegates to it) is the counterpart of the JAX
+package's one jitted, donated ``lax.scan``: on the GPU the episode body,
+the FL round and the pod merge are each captured once as a CUDA graph
+(``core/graphs.py``) and replayed by the host in the order of the
+host-known FL schedule — at most three graph launches per episode, one
+transfer at the end of the run. Its carry is static: the fleet's own
+tensors are the graphs' inputs and outputs, updated in place (what JAX's
+donation does), and the per-episode inputs (rates, availability bits,
+optional noise) are staged on the device once and picked by a device-side
+episode counter. On the CPU the same bodies run eagerly in the same order;
+the two drivers give the same numbers bit for bit.
 
 Randomness: the fleet carries a ``torch.Generator`` (parameter init and
 action noise). The drivers also take pre-drawn Gumbel action noise, the
@@ -34,8 +44,9 @@ from repro_torch.core.agent import (ActionMask, AgentPolicy, agent_init,
 from repro_torch.core.backends import FLUID, TwinEnvState, get_backend
 from repro_torch.core.buffer import (DiversityBuffer, buffer_diversity_mean,
                                      buffer_init, buffer_resync)
-from repro_torch.core.crl import AgentState, crl_episode
-from repro_torch.core.ppo import agent_opt_init, finetune_heads
+from repro_torch.core.crl import EPISODE_METRICS, AgentState, crl_episode
+from repro_torch.core.graphs import GraphedBody, copy_into, full_float32
+from repro_torch.core.ppo import Rollout, agent_opt_init, finetune_heads
 from repro_torch.fl import transport as fl_transport
 from repro_torch.fl.codec import codec_roundtrip, residuals_init
 from repro_torch.fl.transport import DEFAULT_TRANSPORT, TransportConfig
@@ -351,3 +362,157 @@ def train_fleet_reference(cfg: FCPOConfig, fleet: Fleet, traces, *,
         for k, v in zip(names, vals.tolist()):   # one transfer per episode
             history.setdefault(k, []).append(v)
     return fleet, {k: np.asarray(v) for k, v in history.items()}
+
+
+class FleetScan:
+    """The graph driver of one run (``train_fleet_scan``): the arguments
+    are ``train_fleet_scan``'s. ``run()`` trains ``fleet`` in place and
+    returns (fleet, history); ``step()`` runs the next episode alone and
+    ``history()`` fetches the history so far. ``capture_s`` is the wall
+    time of the graphs' captures and ``graph_launches`` the host's graph
+    launches (0 on the CPU)."""
+
+    def __init__(self, cfg: FCPOConfig, fleet: Fleet, traces, *,
+                 learn: bool = True, federated: bool = True,
+                 straggler_prob: float = 0.0, seed: int = 0,
+                 env_backend=None,
+                 transport: Optional[TransportConfig] = None, gumbel=None):
+        self.cfg, self.fleet, self.learn = cfg, fleet, learn
+        self.backend = get_backend(env_backend)
+        self.transport = DEFAULT_TRANSPORT if transport is None else transport
+        dev = self.dev = fleet.pod_ids.device
+        a, total = traces.shape
+        n = cfg.n_steps
+        self.n_eps = total // n
+        self.schedule = fed.fl_schedule(cfg, self.n_eps, federated=federated,
+                                        learn=learn)
+        avail = fed.draw_availability(self.schedule, a, straggler_prob, seed)
+        # the run's inputs, staged on the device once, episode-major
+        self.rates = traces[:, :self.n_eps * n].to(dev, torch.float32) \
+            .reshape(a, self.n_eps, n).transpose(0, 1).contiguous()
+        self.avail = torch.as_tensor(avail, device=dev)
+        self.gumbel = None if gumbel is None else \
+            gumbel.to(dev, torch.float32).contiguous()
+        self.counter = torch.zeros((), dtype=torch.long, device=dev)
+        self.episodes = self.rounds = 0        # the host's copies
+        f32 = lambda *s: torch.zeros(s, dtype=torch.float32, device=dev)
+        self.ep_hist = f32(self.n_eps, len(EPISODE_METRICS))
+        self.fl_hist = f32(self.n_eps, len(fl_transport.FL_METRIC_KEYS))
+        # the FL round reads the last episode's rollout from here
+        self.rollout = Rollout(
+            states=f32(a, n, cfg.state_dim),
+            actions=torch.zeros(a, n, 3, dtype=torch.long, device=dev),
+            logp_old=f32(a, n), rewards=f32(a, n), values_old=f32(a, n))
+        noise = (fleet.generator,) if gumbel is None else ()
+        self.graphs = (GraphedBody(self._episode, dev, noise),
+                       GraphedBody(self._round, dev),
+                       GraphedBody(self._merge, dev))
+
+    def _episode(self):
+        e = self.counter.view(1)
+        out, rollout, metrics = fleet_episode(
+            self.cfg, self.fleet, self.rates.index_select(0, e)[0],
+            learn=self.learn, backend=self.backend,
+            gumbel=(None if self.gumbel is None
+                    else self.gumbel.index_select(0, e)[0]))
+        if set(metrics) != set(EPISODE_METRICS):
+            raise KeyError(f"episode metrics {sorted(metrics)} are not "
+                           f"{sorted(EPISODE_METRICS)}")
+        copy_into(self.fleet.astate, out.astate)
+        copy_into(self.rollout, rollout)
+        self.ep_hist.index_copy_(0, e, torch.stack(
+            [metrics[k].mean() for k in EPISODE_METRICS])[None])
+        self.fl_hist.index_copy_(0, e, torch.stack(
+            list(fl_transport.fl_zero_metrics(self.dev).values()))[None])
+        self.counter.add_(1)
+
+    def _round(self):
+        e = (self.counter - 1).view(1)
+        out, _, flm = fl_round(self.cfg, self.fleet, self.rollout,
+                               self.avail.index_select(0, e)[0],
+                               transport=self.transport)
+        copy_into(self.fleet.astate, out.astate)
+        copy_into(self.fleet.residuals, out.residuals)
+        self.fl_hist.index_copy_(0, e, torch.stack(
+            [flm[k] for k in fl_transport.FL_METRIC_KEYS])[None])
+
+    def _merge(self):
+        pod_merge(self.cfg, self.fleet)
+
+    @property
+    def capture_s(self) -> float:
+        return sum(g.capture_s for g in self.graphs)
+
+    @property
+    def graph_launches(self) -> int:
+        return sum(g.replays for g in self.graphs)
+
+    def step(self) -> None:
+        """The next episode, then its FL round and pod merge where the
+        schedule (known on the host) has them."""
+        episode, fl, merge = self.graphs
+        e = self.episodes
+        episode()
+        self.episodes += 1
+        self.fleet.episode += 1
+        if self.schedule[e]:
+            fl()
+            self.rounds += 1
+            if (self.rounds % self.cfg.hierarchical_period == 0
+                    and self.fleet.n_pods > 1):
+                merge()
+
+    def history(self) -> Dict[str, np.ndarray]:
+        """The per-episode history of the episodes run so far, in one
+        device->host transfer."""
+        names = (*EPISODE_METRICS, *fl_transport.FL_METRIC_KEYS)
+        hist = torch.cat([self.ep_hist, self.fl_hist], 1)[:self.episodes]
+        hist = hist.cpu().numpy()
+        return {k: hist[:, i] for i, k in enumerate(names)}
+
+    def run(self):
+        with full_float32():
+            while self.episodes < self.n_eps:
+                self.step()
+        return self.fleet, self.history()
+
+
+def train_fleet_scan(cfg: FCPOConfig, fleet: Fleet, traces, *,
+                     learn: bool = True, federated: bool = True,
+                     straggler_prob: float = 0.0, seed: int = 0,
+                     env_backend=None,
+                     transport: Optional[TransportConfig] = None,
+                     gumbel=None):
+    """The graph driver: episodes over ``traces`` (A, total_steps), an FL
+    round every ``fl_every`` episodes (stragglers from
+    ``draw_availability(seed)``), a pod merge every ``hierarchical_period``
+    rounds — the JAX package's ``train_fleet_scan`` cadence. On the GPU the
+    episode, the FL round and the pod merge are CUDA graphs, each captured
+    right after its first (eager) step and replayed after that; a capture
+    error raises. On the CPU the same bodies run eagerly. ``fleet`` is
+    trained in place (its tensors are the graphs' static state) and
+    returned, ``fleet.episode`` advanced by the run's episodes. ``gumbel``:
+    optional pre-drawn action noise (n_episodes, A, n_steps,
+    n_res+n_bs+n_mt); without it the noise comes from ``fleet.generator``
+    in the reference driver's order. ``env_backend``: the backend the fleet
+    was built with. Float32 products run without TF32 for the run. Returns
+    (fleet, history) with one fleet-mean float32 value per episode and
+    metric (FL metrics 0 on episodes without a round), fetched in one
+    transfer."""
+    return FleetScan(cfg, fleet, traces, learn=learn, federated=federated,
+                     straggler_prob=straggler_prob, seed=seed,
+                     env_backend=env_backend, transport=transport,
+                     gumbel=gumbel).run()
+
+
+def train_fleet(cfg: FCPOConfig, fleet: Fleet, traces, *, learn: bool = True,
+                federated: bool = True, straggler_prob: float = 0.0,
+                seed: int = 0, env_backend=None,
+                transport: Optional[TransportConfig] = None, gumbel=None):
+    """The default entry point: delegates to ``train_fleet_scan``, as the
+    JAX package's ``train_fleet`` does."""
+    return train_fleet_scan(cfg, fleet, traces, learn=learn,
+                            federated=federated,
+                            straggler_prob=straggler_prob, seed=seed,
+                            env_backend=env_backend, transport=transport,
+                            gumbel=gumbel)

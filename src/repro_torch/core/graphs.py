@@ -1,0 +1,116 @@
+"""Captured bodies: the port's counterpart of a jitted ``lax.scan`` body.
+
+A ``GraphedBody`` wraps a function of no arguments that reads and writes
+only tensors which outlive it (static inputs, state copied back in place,
+history rows written at a device-side counter). On a CUDA device its first
+call runs the body eagerly on a side stream — a real step of the run, and
+the warm-up capture asks for — and captures it as a CUDA graph right
+after; every later call replays the graph, one host launch. On the CPU
+every call runs the body eagerly.
+
+Capture runs nothing, so the kernel wrappers' launch counters, which count
+in Python, would count the capture and not the replays: the counts a
+capture adds are taken back and added once per replay instead. Generators
+the body draws from are registered with the graph, so each replay advances
+their Philox offsets exactly as an eager call does. A capture error (a
+host sync, an allocation the stream cannot record) raises: there is no
+fallback to eager execution.
+"""
+from __future__ import annotations
+
+import time
+from contextlib import contextmanager
+from dataclasses import fields, is_dataclass
+from typing import Callable, Dict, Sequence
+
+import torch
+
+from repro_torch.kernels.delta_codec import delta_codec
+from repro_torch.kernels.diversity import diversity_insert
+from repro_torch.kernels.queue_advance import queue_advance
+
+# the kernel wrappers a captured body of this package may launch
+COUNTED = (diversity_insert, delta_codec, queue_advance)
+
+
+class GraphedBody:
+    """``body`` run eagerly once, then captured and replayed (CUDA), or run
+    eagerly every time (CPU). ``generators``: the CUDA generators the body
+    draws from. ``capture_s`` is the wall time of the capture (the eager
+    first call excluded); ``replays`` counts host graph launches."""
+
+    def __init__(self, body: Callable[[], None], device: torch.device,
+                 generators: Sequence[torch.Generator] = ()):
+        self.body, self.device = body, torch.device(device)
+        self.generators = tuple(generators)
+        self.graph = None
+        self.launches: Dict[object, int] = {}   # kernel launches per replay
+        self.capture_s = 0.0
+        self.replays = 0
+
+    def __call__(self) -> None:
+        if self.device.type != "cuda":
+            self.body()
+        elif self.graph is None:
+            self._warm_up_and_capture()
+        else:
+            self.graph.replay()
+            self.replays += 1
+            for fn, n in self.launches.items():
+                fn.launches += n
+
+    def _warm_up_and_capture(self) -> None:
+        main = torch.cuda.current_stream(self.device)
+        side = torch.cuda.Stream(self.device)
+        side.wait_stream(main)
+        with torch.cuda.stream(side):
+            self.body()
+        main.wait_stream(side)
+        t0 = time.perf_counter()
+        graph = torch.cuda.CUDAGraph()
+        for gen in self.generators:
+            graph.register_generator_state(gen)
+        before = {fn: fn.launches for fn in COUNTED}
+        try:
+            with torch.cuda.graph(graph, capture_error_mode="global"):
+                self.body()
+            self.launches = {fn: fn.launches - n for fn, n in before.items()
+                             if fn.launches != n}
+        finally:
+            for fn, n in before.items():      # the capture launched nothing
+                fn.launches = n
+        self.capture_s = time.perf_counter() - t0
+        self.graph = graph
+
+
+@contextmanager
+def full_float32():
+    """float32 matrix products in full precision (no TF32) on the card, as
+    on the CPU; the previous settings are restored on exit."""
+    saved = (torch.backends.cuda.matmul.allow_tf32,
+             torch.backends.cudnn.allow_tf32)
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.backends.cudnn.allow_tf32 = False
+    try:
+        yield
+    finally:
+        (torch.backends.cuda.matmul.allow_tf32,
+         torch.backends.cudnn.allow_tf32) = saved
+
+
+def copy_into(dst, src) -> None:
+    """Copy ``src`` into the tensors of ``dst`` in place, walking
+    dataclasses, dicts and tensors of the same layout (the static carry:
+    what a new-state return would rebind). Shared objects are skipped."""
+    if dst is src:
+        return
+    if torch.is_tensor(dst):
+        dst.copy_(src)
+    elif isinstance(dst, dict):
+        for k, v in dst.items():
+            copy_into(v, src[k])
+    elif is_dataclass(dst):
+        for f in fields(dst):
+            copy_into(getattr(dst, f.name), getattr(src, f.name))
+    else:
+        raise TypeError(f"copy_into: cannot copy into {type(dst).__name__}")

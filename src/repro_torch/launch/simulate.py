@@ -7,7 +7,9 @@ scenario, and prints request-grade metrics: throughput, effective
 throughput, p50/p99 end-to-end latency and drops. ``--compare-fluid``
 also evaluates the same policies on the fluid MDP over the same traces and
 prints the fidelity gap. On the GPU (the default) each control interval is
-one K3 ``queue_advance`` launch for the fleet.
+one K3 ``queue_advance`` launch for the fleet, inside the interval body's
+CUDA graph (captured once, replayed per interval); the warm-up training and
+the fluid comparison run through ``train_fleet``, the graph driver.
 
 Examples:
   PYTHONPATH=src python -m repro_torch.launch.simulate
@@ -28,7 +30,7 @@ from repro_torch import resolve_device
 from repro_torch.configs.fcpo import FCPOConfig
 from repro_torch.core.backends import BACKENDS, FLUID, get_backend
 from repro_torch.core.crl import AgentState
-from repro_torch.core.fleet import fleet_init, train_fleet_reference
+from repro_torch.core.fleet import fleet_init, train_fleet
 from repro_torch.data.workload import fleet_traces
 from repro_torch.kernels import build
 from repro_torch.sim import SCENARIOS, SimParams, eval_fleet, make_scenario
@@ -97,8 +99,7 @@ def main(argv=None):
     if args.train_episodes > 0:
         warmup = fleet_traces(_generator(args.seed + 1), args.agents,
                               args.train_episodes * cfg.n_steps, device=dev)
-        fleet, _ = train_fleet_reference(cfg, fleet, warmup,
-                                         env_backend=train_be)
+        fleet, _ = train_fleet(cfg, fleet, warmup, env_backend=train_be)
     traces = make_scenario(args.scenario, _generator(args.seed + 2),
                            args.agents, args.intervals, device=dev)
 
@@ -147,9 +148,8 @@ def _fluid_eval(cfg, fleet, traces):
         astate.policy, astate.opt, astate.buffer,
         FLUID.init(cfg, a, traces.device)))
     n_eps = max(traces.shape[1] // cfg.n_steps, 1)
-    _, hist = train_fleet_reference(cfg, fleet,
-                                    traces[:, :n_eps * cfg.n_steps],
-                                    learn=False, federated=False)
+    _, hist = train_fleet(cfg, fleet, traces[:, :n_eps * cfg.n_steps],
+                          learn=False, federated=False)
     return hist
 
 

@@ -1,9 +1,14 @@
 """Fleet training launcher — the FCPO loop of the PyTorch/CUDA port.
 
 Runs the federated-continual cadence (CRL episodes -> Eq. 7 selection ->
-Alg. 1 aggregation -> Alg. 2 fine-tune -> hierarchical pod merge) through
-``repro_torch.core.fleet.train_fleet_reference`` on the GPU (``--device
-cuda``, the default) or the CPU. The device picks the implementation of
+Alg. 1 aggregation -> Alg. 2 fine-tune -> hierarchical pod merge) on the
+GPU (``--device cuda``, the default) or the CPU, through one of two
+drivers (``--driver``): ``scan``, the default as in the JAX package, is
+``repro_torch.core.fleet.train_fleet_scan`` (on the GPU the episode, the FL
+round and the pod merge are CUDA graphs, captured once and replayed; on
+the CPU the same bodies run eagerly), and ``reference`` is the Python-loop
+``train_fleet_reference``. The two give the same numbers. The device
+picks the implementation of
 each kernel: CUDA tensors launch the hand-written kernels
 (``repro_torch.kernels``), CPU tensors run their plain PyTorch versions.
 ``--env-backend twin`` trains in the request-level digital twin (K
@@ -17,7 +22,7 @@ Examples:
   PYTHONPATH=src python -m repro_torch.launch.train_fleet --env-backend twin \\
       --scenario switching --episodes 20
   PYTHONPATH=src python -m repro_torch.launch.train_fleet --device cpu \\
-      --agents 4 --episodes 4 --fl-every 1
+      --agents 4 --episodes 4 --fl-every 1 --driver reference
 """
 from __future__ import annotations
 
@@ -30,7 +35,8 @@ import torch
 from repro_torch import resolve_device
 from repro_torch.configs.fcpo import FCPOConfig
 from repro_torch.core.backends import BACKENDS, get_backend
-from repro_torch.core.fleet import fleet_init, train_fleet_reference
+from repro_torch.core.fleet import (FleetScan, fleet_init,
+                                    train_fleet_reference)
 from repro_torch.fl.transport import CODECS, TransportConfig
 from repro_torch.kernels import build
 from repro_torch.sim import SCENARIOS, SimParams, make_scenario
@@ -68,6 +74,11 @@ def main(argv=None):
                     help="twin microticks per control interval")
     ap.add_argument("--ring", type=int, default=512,
                     help="twin ring capacity (power of two)")
+    ap.add_argument("--driver", choices=("scan", "reference"),
+                    default="scan",
+                    help="scan: the episode, FL round and pod merge as "
+                         "CUDA graphs replayed by the host (eager on the "
+                         "CPU); reference: the Python-loop driver")
     ap.add_argument("--no-federated", action="store_true")
     ap.add_argument("--no-learn", action="store_true")
     ap.add_argument("--seed", type=int, default=0)
@@ -113,18 +124,29 @@ def main(argv=None):
     name = torch.cuda.get_device_name(dev) if dev.type == "cuda" else "cpu"
     print(f"fleet: {args.agents} iAgents, {args.pods} pods, "
           f"{args.episodes} episodes, env={backend.name}, "
-          f"scenario={args.scenario}, device={dev.type} ({name})")
+          f"scenario={args.scenario}, driver={args.driver}, "
+          f"device={dev.type} ({name})")
 
+    kw = dict(learn=not args.no_learn, federated=not args.no_federated,
+              straggler_prob=args.straggler_prob, seed=args.seed,
+              env_backend=backend, transport=transport)
     t0 = time.time()
-    fleet, hist = train_fleet_reference(
-        cfg, fleet, traces, learn=not args.no_learn,
-        federated=not args.no_federated, straggler_prob=args.straggler_prob,
-        seed=args.seed, env_backend=backend, transport=transport)
+    if args.driver == "scan":
+        driver = FleetScan(cfg, fleet, traces, **kw)
+        fleet, hist = driver.run()
+        capture = driver.capture_s
+    else:
+        fleet, hist = train_fleet_reference(cfg, fleet, traces, **kw)
+        capture = 0.0
     wall = time.time() - t0
 
     n_run = len(hist["reward"])
     k = max(n_run // 10, 1)
-    print(f"\nwall {wall:.2f}s  ({wall / n_run * 1e3:.1f} ms/episode)")
+    print(f"\nwall {wall:.2f}s  ({(wall - capture) / n_run * 1e3:.1f} "
+          f"ms/episode)")
+    if args.driver == "scan" and dev.type == "cuda":
+        print(f"graph capture {capture:.3f} s apart from the episodes; "
+              f"{driver.graph_launches / n_run:.2f} graph launches/episode")
     print(f"{'':24s}{'first ' + str(k) + ' eps':>16s}"
           f"{'last ' + str(k) + ' eps':>16s}")
     for key, scale, unit in (("reward", 1, ""), ("throughput", 1, "/s"),

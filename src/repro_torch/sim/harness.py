@@ -1,14 +1,18 @@
 """Closed-loop twin harness: trained FCPO policies driving the request-level
 data plane.
 
-Port of ``repro.sim.harness``. ``simulate_fleet`` is a Python loop over
-control intervals (the reference's ``lax.scan``); each interval observes
-the twin, samples every agent's action (the policy acts once per k_ticks
-microticks, the paper's 1 s control cadence), decodes the actions to
-service caps, spreads the interval's arrivals over its ticks and advances
-the whole fleet with one ``sim_interval`` (one K3 launch on the GPU). The
-per-interval history stays on the device and moves to the host once, at
-the end.
+Port of ``repro.sim.harness``. ``simulate_fleet`` is the counterpart of the
+reference's jitted ``lax.scan`` over control intervals: one interval body
+observes the twin, samples every agent's action (the policy acts once per
+k_ticks microticks, the paper's 1 s control cadence), decodes the actions
+to service caps, spreads the interval's arrivals over its ticks, advances
+the whole fleet with one ``sim_interval`` (one K3 launch on the GPU) and
+writes its history row. On the GPU the body is captured once as a CUDA
+graph (``core/graphs.py``) and replayed for every later interval, its
+carry (the twin state, last drops and actions, the arrival phase) updated
+in place and the interval's rate and noise picked by a device-side
+counter; on the CPU the same body runs eagerly. The per-interval history
+stays on the device and moves to the host once, at the end.
 """
 from __future__ import annotations
 
@@ -20,6 +24,7 @@ import torch
 from repro_torch.configs.fcpo import FCPOConfig
 from repro_torch.core.agent import ActionMask, sample_actions
 from repro_torch.core.env import EnvParams, observe_vector
+from repro_torch.core.graphs import GraphedBody, copy_into, full_float32
 from repro_torch.sim import metrics as sim_metrics
 from repro_torch.sim.state import (SimParams, SimState, action_caps,
                                    effective_queue_cap, sim_init,
@@ -52,43 +57,60 @@ def simulate_fleet(cfg: FCPOConfig, sp: SimParams, params,
     action masks and device profiles (a ``Fleet``'s); traces: (A, T)
     control-interval arrival rates (requests/s), on the fleet's device.
     ``gumbel``: optional pre-drawn (T, A, n_res+n_bs+n_mt) action noise;
-    without it the noise comes from ``generator``. Returns (final state,
-    per-interval history of (T, A) numpy arrays, per-agent request-grade
-    summary of (A,) tensors incl. p50/p99 latency)."""
+    without it the noise comes from ``generator``. On the GPU the interval
+    body is captured once and replayed for every later interval (a capture
+    error raises). Returns (final state, per-interval history of (T, A)
+    numpy arrays, per-agent request-grade summary of (A,) tensors incl.
+    p50/p99 latency)."""
     warn_if_ring_clamps(sp, env_params.queue_cap, stacklevel=2)
     dev = traces.device
     a, n_int = traces.shape
     f32 = torch.float32
+    # the run's inputs, staged interval-major once
+    rates = traces.t().to(f32).contiguous()
+    noise = None if gumbel is None else gumbel.to(dev, f32).contiguous()
+    t_dev = torch.zeros((), dtype=torch.long, device=dev)
+    hist = torch.zeros((n_int, len(HISTORY_KEYS), a), device=dev)
     state = sim_init(sp, a, dev)
     drops_prev = torch.zeros(a, dtype=torch.int32, device=dev)
     cur_action = torch.zeros(a, 3, dtype=torch.long, device=dev)
     phase = torch.zeros(a, device=dev)
-    rows = []
-    with torch.no_grad():
-        for t in range(n_int):
-            rate = traces[:, t]
-            obs = sim_observe(cfg, sp, env_params, state, drops_prev,
-                              cur_action, rate)
-            actions, _, _ = sample_actions(
-                cfg, params, obs, masks,
-                gumbel=None if gumbel is None else gumbel[t],
-                generator=generator)
-            caps = action_caps(cfg, sp, env_params, actions)
-            arrivals, phase = spread_arrivals(sp, rate, phase)
-            state2 = sim_interval(state, arrivals, caps)
 
-            d_comp = (state2.completed - state.completed).to(f32)
-            d_drop = state2.dropped - state.dropped
-            rows.append(torch.stack([
-                d_comp / sp.interval_s,
-                (state2.effective - state.effective).to(f32) / sp.interval_s,
-                d_drop.to(f32),
-                (state2.lat_sum - state.lat_sum)
-                / torch.clamp_min(d_comp, 1.0) * sp.dt,
-                state2.pre_q.to(f32),
-                state2.post_q.to(f32)]))
-            state, drops_prev, cur_action = state2, d_drop, actions
-    stacked = torch.stack(rows, dim=1).cpu().numpy()   # one transfer
+    def interval():
+        t = t_dev.view(1)
+        rate = rates.index_select(0, t)[0]
+        obs = sim_observe(cfg, sp, env_params, state, drops_prev, cur_action,
+                          rate)
+        actions, _, _ = sample_actions(
+            cfg, params, obs, masks,
+            gumbel=None if noise is None else noise.index_select(0, t)[0],
+            generator=generator)
+        caps = action_caps(cfg, sp, env_params, actions)
+        arrivals, phase2 = spread_arrivals(sp, rate, phase)
+        state2 = sim_interval(state, arrivals, caps)
+
+        d_comp = (state2.completed - state.completed).to(f32)
+        d_drop = state2.dropped - state.dropped
+        hist.index_copy_(0, t, torch.stack([
+            d_comp / sp.interval_s,
+            (state2.effective - state.effective).to(f32) / sp.interval_s,
+            d_drop.to(f32),
+            (state2.lat_sum - state.lat_sum)
+            / torch.clamp_min(d_comp, 1.0) * sp.dt,
+            state2.pre_q.to(f32),
+            state2.post_q.to(f32)])[None])
+        copy_into(state, state2)
+        drops_prev.copy_(d_drop)
+        cur_action.copy_(actions)
+        phase.copy_(phase2)
+        t_dev.add_(1)
+
+    body = GraphedBody(interval, dev,
+                       (generator,) if noise is None else ())
+    with torch.no_grad(), full_float32():
+        for _ in range(n_int):
+            body()
+    stacked = hist.transpose(0, 1).cpu().numpy()   # one transfer
     history = dict(zip(HISTORY_KEYS, stacked))
     summary = sim_metrics.summarize(state, sp)
     sim_metrics.warn_if_censored(summary, sp, stacklevel=3)

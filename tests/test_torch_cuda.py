@@ -7,8 +7,15 @@ PyTorch is installed:
 (``--noconftest``: tests/conftest.py imports JAX). K1 is held against its
 plain version within rtol 1e-4 / atol 1e-5 with identical decision traces,
 a first divergence accepted only at a near-tie (score gap below 1e-5
-relative); K2 and K3 bit for bit; the trainer must launch the kernels.
+relative); K2 and K3 bit for bit; the trainer must launch the kernels. The
+graph driver (CUDA graphs of the episode, FL round and pod merge) and the
+graphed twin harness are held bit for bit against the eager runs.
 """
+import os
+import subprocess
+import sys
+from pathlib import Path
+
 import numpy as np
 import pytest
 import torch
@@ -519,3 +526,155 @@ def test_engine_decode_launches_k5_in_every_layer(cuda_device):
     assert flash_attention.launches == 0           # prefill into the cache
     assert torch.equal(out, engines[1].generate(tok, steps=5))
     assert decode_attention.launches == 4 * 3
+
+
+# ---------------------------------------------------------------------------
+# The graph driver and the graphed twin harness
+# ---------------------------------------------------------------------------
+SRC = Path(__file__).resolve().parents[1] / "src"
+
+
+def recorded_actions(monkeypatch, n, a, device):
+    """Record every control step's (A, 3) actions into a device buffer (a
+    recording that CUDA-graph capture keeps): returns the (n, A, 3)
+    buffer."""
+    from repro_torch.core import crl
+    from repro_torch.core.agent import sample_actions as sample
+    rec = torch.full((n, a, 3), -1, dtype=torch.long, device=device)
+    pos = torch.zeros((), dtype=torch.long, device=device)
+
+    def recording(*args, **kw):
+        out = sample(*args, **kw)
+        rec.index_copy_(0, pos.view(1), out[0][None])
+        pos.add_(1)
+        return out
+
+    monkeypatch.setattr(crl, "sample_actions", recording)
+    return rec
+
+
+def assert_trees_equal(got, want, prefix=""):
+    """Nested numpy dicts (``fleet_to_numpy``) equal bit for bit."""
+    for k, v in want.items():
+        if isinstance(v, dict):
+            assert_trees_equal(got[k], v, f"{prefix}{k}.")
+        else:
+            np.testing.assert_array_equal(np.asarray(got[k]), np.asarray(v),
+                                          err_msg=f"{prefix}{k}")
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("backend", ["fluid", "twin"])
+@pytest.mark.parametrize("codec", ["float32", "int8", "topk"])
+def test_graph_driver_matches_reference_on_the_card(cuda_device, monkeypatch,
+                                                    backend, codec):
+    """A=8, P=2, ``fl_every=1``, eight episodes (two pod merges), Bernoulli
+    stragglers, action noise from the fleet's generator: the graph driver
+    takes the reference driver's actions, and its histories, final state
+    and kernel launch counts are the reference's bit for bit."""
+    from repro_torch.core import fleet as tfleet
+    from repro_torch.fl.transport import TransportConfig
+    cfg = FCPOConfig(fl_every=1)
+    a, n_eps = 8, 8
+    traces = torch.tensor(np.random.default_rng(5).uniform(
+        5.0, 160.0, (a, n_eps * cfg.n_steps)).astype(np.float32),
+        device=cuda_device)
+    runs = []
+    for drive in (tfleet.train_fleet_reference, tfleet.train_fleet_scan):
+        rec = recorded_actions(monkeypatch, n_eps * cfg.n_steps, a,
+                               cuda_device)
+        fleet = tfleet.fleet_init(cfg, a, 11, n_pods=2, device=cuda_device,
+                                  env_backend=backend)
+        diversity_insert.launches = delta_codec.launches = 0
+        queue_advance.launches = 0
+        fleet, hist = drive(cfg, fleet, traces, straggler_prob=0.25, seed=3,
+                            env_backend=backend,
+                            transport=TransportConfig(codec=codec))
+        runs.append((rec.cpu(), hist, tfleet.fleet_to_numpy(fleet),
+                     (diversity_insert.launches, delta_codec.launches,
+                      queue_advance.launches)))
+    (act_r, hist_r, state_r, n_r), (act_s, hist_s, state_s, n_s) = runs
+    assert (act_r >= 0).all() and torch.equal(act_s, act_r)
+    assert set(hist_s) == set(hist_r)
+    for k, v in hist_r.items():
+        np.testing.assert_array_equal(hist_s[k], v, err_msg=k)
+    assert_trees_equal(state_s, state_r)
+    want_k2 = n_eps if codec != "float32" else 0
+    want_k3 = n_eps * cfg.n_steps if backend == "twin" else 0
+    assert n_s == n_r == (n_eps, want_k2, want_k3)
+
+
+@pytest.mark.cuda
+def test_graph_capture_error_raises_on_the_card(cuda_device):
+    """A body that syncs with the host (``.item()``) cannot be captured:
+    ``GraphedBody`` raises after its eager first step, and does not fall
+    back. Run in its own process, since a failed capture may leave the CUDA
+    context unusable."""
+    script = (
+        "import torch\n"
+        "from repro_torch.core.graphs import GraphedBody\n"
+        "x = torch.ones(4, device='cuda')\n"
+        "seen = []\n"
+        "body = GraphedBody(lambda: seen.append(float(x.sum().item())),\n"
+        "                   torch.device('cuda'))\n"
+        "try:\n"
+        "    body()\n"
+        "except RuntimeError:\n"
+        "    raise SystemExit(0 if seen == [4.0] and body.graph is None "
+        "else 3)\n"
+        "raise SystemExit(2)\n")
+    env = dict(os.environ, PYTHONPATH=str(SRC))
+    proc = subprocess.run([sys.executable, "-c", script], env=env,
+                          capture_output=True, text=True, timeout=300)
+    assert proc.returncode == 0, proc.stdout + proc.stderr
+
+
+@pytest.mark.cuda
+def test_graphed_simulate_matches_eager_on_the_card(cuda_device):
+    """``simulate_fleet`` (one graph for the interval body, replayed) against
+    the same interval loop run eagerly on the card, noise from generators
+    of one seed: the final twin state, the history and K3's launch count
+    are equal."""
+    from repro_torch.core.agent import sample_actions
+    from repro_torch.core.fleet import fleet_init
+    from repro_torch.sim.harness import (HISTORY_KEYS, sim_observe,
+                                         simulate_fleet)
+    from repro_torch.sim.state import (SimParams, action_caps, sim_init,
+                                       spread_arrivals)
+    from repro_torch.sim.step import sim_interval
+    cfg, sp, a, n_int = FCPOConfig(), SimParams(), 8, 30
+    fleet = fleet_init(cfg, a, 2, device=cuda_device)
+    params = fleet.astate.policy.params()
+    traces = torch.tensor(np.random.default_rng(6).uniform(
+        5.0, 200.0, (a, n_int)).astype(np.float32), device=cuda_device)
+    gen = lambda: torch.Generator(device=cuda_device).manual_seed(9)
+
+    queue_advance.launches = 0
+    state, hist, _ = simulate_fleet(cfg, sp, params, fleet.masks,
+                                    fleet.env_params, traces,
+                                    generator=gen())
+    assert queue_advance.launches == n_int
+
+    g = gen()
+    st = sim_init(sp, a, cuda_device)
+    drops = torch.zeros(a, dtype=torch.int32, device=cuda_device)
+    act = torch.zeros(a, 3, dtype=torch.long, device=cuda_device)
+    phase = torch.zeros(a, device=cuda_device)
+    rows = []
+    with torch.no_grad():
+        for t in range(n_int):
+            rate = traces[:, t]
+            obs = sim_observe(cfg, sp, fleet.env_params, st, drops, act, rate)
+            act, _, _ = sample_actions(cfg, params, obs, fleet.masks,
+                                       generator=g)
+            arrivals, phase = spread_arrivals(sp, rate, phase)
+            st2 = sim_interval(st, arrivals,
+                               action_caps(cfg, sp, fleet.env_params, act))
+            rows.append((st2.completed - st.completed).float())
+            drops = st2.dropped - st.dropped
+            st = st2
+    for got, want in zip(state.tensors(), st.tensors()):
+        assert torch.equal(got, want)
+    np.testing.assert_array_equal(
+        hist["throughput"], (torch.stack(rows) / sp.interval_s).cpu().numpy())
+    assert set(hist) == set(HISTORY_KEYS)

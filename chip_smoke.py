@@ -63,6 +63,17 @@ In order, it:
      trainer, and the twin trainer with its final twin state exactly equal
      (a first action divergence is accepted only at a near-tie of the
      Gumbel-max scores, and reported);
+ 11b. ``[chaos]``, the slice of the FL round's transport and chaos layers:
+     ``train_fleet`` with ``--fl-codec int8 --fl-deadline-s 0.002
+     --fl-async --robust-agg trimmed --clip-factor 3`` and crash (0.1),
+     byzantine (0.25, sign_flip) and partition (0.3) faults, fluid and
+     twin, under both drivers (K1 once per episode, K2 once per round, K3
+     once per twin interval, equal histories); the graph driver against
+     the reference driver bit for bit (A=8, eight episodes); the card
+     against the CPU (A=4, eight episodes: histories within rtol 1e-3 /
+     atol 1e-4, actions, timers and parked-upload masks identical); ten
+     profiled episodes of each driver (ms per episode, busy share,
+     capture time, at most three graph launches per replayed episode);
  12. holds K5 ``decode_attention`` and K4 ``flash_attention`` against their
      plain versions (the JAX tests' sweeps, K4's bf16 tensor-core path on
      every shape of the sweep, K5 with several splits and the combine, the
@@ -109,6 +120,26 @@ LEAF_SIZES = (512, 64, 3072, 48, 48, 1, 192, 4, 364, 7, 208, 4)
 RTOL, ATOL = 1e-4, 1e-5
 NEAR_TIE = 1e-5
 DEV = "cuda"
+# the slice of the FL round's transport and chaos layers (its CLI flags);
+# the deadline drops the four slowest links of the int8 uploads at A=8
+CHAOS_ARGV = ["--fl-codec", "int8", "--fl-deadline-s", "0.002", "--fl-async",
+              "--robust-agg", "trimmed", "--clip-factor", "3",
+              "--fault-crash-prob", "0.1", "--fault-byzantine-frac", "0.25",
+              "--fault-byzantine-mode", "sign_flip",
+              "--fault-partition-prob", "0.3"]
+
+
+def chaos_kwargs():
+    """``CHAOS_ARGV`` as the drivers' keyword arguments."""
+    from repro_torch.fl.transport import TransportConfig
+    from repro_torch.resilience.faults import FaultConfig
+    from repro_torch.resilience.guards import GuardConfig
+    return dict(
+        transport=TransportConfig(codec="int8", deadline_s=0.002,
+                                  async_rounds=True),
+        guards=GuardConfig(agg="trimmed", clip_factor=3.0),
+        faults=FaultConfig(crash_prob=0.1, byzantine_frac=0.25,
+                           byzantine_mode="sign_flip", partition_prob=0.3))
 
 
 def log(msg):
@@ -808,20 +839,23 @@ def drive_simulate(argv, want_k3):
     return k3
 
 
-def run_pair(torch, cfg, backend):
-    """A=4, P=2, int8 codec, 3 episodes: the card run (kernels) and the CPU
-    run (plain versions) of ``train_fleet_reference`` from one numpy fleet
-    state, one set of traces and one set of Gumbel noise.
-    Histories within rtol 1e-3 / atol 1e-4. In the twin the actions and
-    the final twin state must be equal; a first action divergence is
-    accepted only at a near-tie of the Gumbel-max scores (gap below 1e-5
-    relative), and reported."""
+def run_pair(torch, cfg, backend, chaos=False):
+    """A=4, P=2, int8 codec, 3 episodes (``chaos``: the chaos kwargs, eight
+    episodes): the card run (kernels) and the CPU run (plain versions) of
+    ``train_fleet_reference`` from one numpy fleet state, one set of traces
+    and one set of Gumbel noise. Histories within rtol 1e-3 / atol 1e-4.
+    In the twin the actions and the final twin state must be equal, under
+    chaos the timers and the parked uploads' masks too; a first action
+    divergence is accepted only at a near-tie of the Gumbel-max scores (gap
+    below 1e-5 relative), and reported."""
     import numpy as np
     from repro_torch.core import crl
     from repro_torch.core.fleet import (fleet_from_numpy, fleet_init,
                                         fleet_to_numpy, train_fleet_reference)
     from repro_torch.fl.transport import TransportConfig
-    a, n_eps = 4, 3
+    a, n_eps = 4, 8 if chaos else 3
+    kw = chaos_kwargs() if chaos else dict(
+        transport=TransportConfig(codec="int8"))
     tree = fleet_to_numpy(fleet_init(cfg, a, 7, n_pods=2, device="cpu",
                                      env_backend=backend))
     rng = np.random.default_rng(7)
@@ -847,8 +881,9 @@ def run_pair(torch, cfg, backend):
             fleet = fleet_from_numpy(cfg, tree, device=dev)
             fleet, h = train_fleet_reference(
                 cfg, fleet, torch.as_tensor(traces, device=dev),
-                env_backend=backend, transport=TransportConfig(codec="int8"),
-                gumbel=torch.as_tensor(gumbel, device=dev))
+                env_backend=backend, gumbel=torch.as_tensor(gumbel,
+                                                            device=dev),
+                **kw)
         finally:
             crl.sample_actions = sample
         hists.append(h)
@@ -858,16 +893,26 @@ def run_pair(torch, cfg, backend):
         np.testing.assert_allclose(hists[0][key], hists[1][key], rtol=1e-3,
                                    atol=1e-4, err_msg=f"card vs cpu: {key}")
     diverged = first_action_divergence(torch, cfg, *records)
+    exact = []
     if backend == "twin" and not diverged:
-        for key, v in trees[1]["env_state"]["sim"].items():
-            np.testing.assert_array_equal(
-                trees[0]["env_state"]["sim"][key], v,
-                err_msg=f"card vs cpu: twin state {key}")
-    log(f"  card run == CPU run ({backend}, A={a}, {n_eps} episodes, int8): "
-        f"{len(hists[1])} metrics within rtol 1e-3 / atol 1e-4, actions "
+        exact += [(f"twin state {k}", trees[0]["env_state"]["sim"][k], v)
+                  for k, v in trees[1]["env_state"]["sim"].items()]
+    if chaos and not diverged:
+        exact += [(k, trees[0][k], trees[1][k])
+                  for k in ("crash_timer", "partition_timer")]
+        exact += [(f"pending.{k}", trees[0]["pending"][k],
+                   trees[1]["pending"][k]) for k in ("has", "staleness")]
+    for name, got, want in exact:
+        np.testing.assert_array_equal(got, want,
+                                      err_msg=f"card vs cpu: {name}")
+    log(f"  card run == CPU run ({backend}, A={a}, {n_eps} episodes, int8"
+        f"{', chaos' if chaos else ''}): {len(hists[1])} metrics within "
+        f"rtol 1e-3 / atol 1e-4, actions "
         f"{'identical' if not diverged else 'identical up to a near-tie'}"
         + (", final twin state identical" if backend == "twin"
-           and not diverged else ""))
+           and not diverged else "")
+        + (", crash / partition timers and parked uploads identical"
+           if chaos and not diverged else ""))
 
 
 def first_action_divergence(torch, cfg, card, cpu):
@@ -904,13 +949,14 @@ def timed(torch, fn):
     return time.time() - t0
 
 
-def profile_episodes(torch, cfg, backend="fluid", n_episodes=10):
-    """Where the time of the CLI default run goes (in ``backend``) under
-    each driver: after eight episodes that warm up (the reference driver)
-    or run eagerly and capture the three graphs (the graph driver; the
-    first pod merge follows the eighth), ``n_episodes`` timed alone, then
-    ``n_episodes`` under ``torch.profiler``. Every window holds five FL
-    rounds and one pod merge."""
+def profile_episodes(torch, cfg, backend="fluid", n_episodes=10, **kw):
+    """Where the time of the CLI default run goes (in ``backend``; ``kw``:
+    the drivers' transport / guards / faults) under each driver: after
+    eight episodes that warm up (the reference driver) or run eagerly and
+    capture the three graphs (the graph driver; the first pod merge
+    follows the eighth), ``n_episodes`` timed alone, then ``n_episodes``
+    under ``torch.profiler``. Every window holds five FL rounds and one
+    pod merge. A replayed episode takes at most three graph launches."""
     from repro_torch.core.fleet import (FleetScan, fleet_init,
                                         train_fleet_reference)
     from repro_torch.data.workload import fleet_traces
@@ -922,23 +968,26 @@ def profile_episodes(torch, cfg, backend="fluid", n_episodes=10):
                               (warm + (i + 1) * n_episodes) * n]
     fleet = fleet_init(cfg, 8, 0, n_pods=2, device=DEV, env_backend=backend)
     fleet, _ = train_fleet_reference(cfg, fleet, traces[:, :warm * n],
-                                     env_backend=backend)
+                                     env_backend=backend, **kw)
     wall = timed(torch, lambda: train_fleet_reference(
-        cfg, fleet, window(0), env_backend=backend))
+        cfg, fleet, window(0), env_backend=backend, **kw))
     log(f"  {backend} --driver reference: {n_episodes} episodes alone: "
         f"wall {wall / n_episodes * 1e3:.2f} ms/episode")
     profiled(torch, lambda: train_fleet_reference(
-        cfg, fleet, window(1), env_backend=backend),
+        cfg, fleet, window(1), env_backend=backend, **kw),
         n_episodes, f"{backend} --driver reference: {n_episodes} episodes",
         "episode", alone=wall)
     fleet = fleet_init(cfg, 8, 0, n_pods=2, device=DEV, env_backend=backend)
-    driver = FleetScan(cfg, fleet, traces, env_backend=backend)
+    driver = FleetScan(cfg, fleet, traces, env_backend=backend, **kw)
     for _ in range(warm):
         driver.step()
+    per_step = []
 
     def steps():
         for _ in range(n_episodes):
+            before = driver.graph_launches
             driver.step()
+            per_step.append(driver.graph_launches - before)
 
     replays = driver.graph_launches
     wall = timed(torch, steps)
@@ -950,6 +999,11 @@ def profile_episodes(torch, cfg, backend="fluid", n_episodes=10):
     profiled(torch, steps, n_episodes,
              f"{backend} --driver scan: {n_episodes} episodes", "episode",
              alone=wall)
+    if max(per_step) > 3:
+        raise AssertionError(f"{backend}: a replayed episode took "
+                             f"{max(per_step)} graph launches (at most 3)")
+    log(f"    graph launches per replayed episode: at most "
+        f"{max(per_step)}")
 
 
 def profile_simulate(torch, cfg, n_int=60):
@@ -1077,12 +1131,13 @@ def profiled(torch, fn, n, label, unit, capture=None, alone=None):
             "inside a graph replay)")
 
 
-def graph_parity(torch, backend):
+def graph_parity(torch, backend, chaos=False):
     """The graph driver against the reference driver on the card: A=8,
     P=2, ``fl_every=1``, eight episodes (two pod merges), int8, Bernoulli
-    stragglers, noise from each fleet's generator (one seed): identical
-    actions (recorded into a device buffer, which capture keeps),
-    histories and final state bit for bit, equal launch counts."""
+    stragglers (``chaos``: the chaos kwargs on top), noise from each
+    fleet's generator (one seed): identical actions (recorded into a
+    device buffer, which capture keeps), histories and final state bit for
+    bit, equal launch counts."""
     import numpy as np
     from repro_torch.configs.fcpo import FCPOConfig
     from repro_torch.core import crl
@@ -1093,6 +1148,8 @@ def graph_parity(torch, backend):
     from repro_torch.fl.transport import TransportConfig
     cfg, a, n_eps = FCPOConfig(fl_every=1), 8, 8
     n = n_eps * cfg.n_steps
+    kw = chaos_kwargs() if chaos else dict(
+        transport=TransportConfig(codec="int8"))
     traces = torch.as_tensor(np.random.default_rng(5).uniform(
         5.0, 160.0, (a, n)).astype(np.float32), device=DEV)
     runs = []
@@ -1112,8 +1169,7 @@ def graph_parity(torch, backend):
                                env_backend=backend)
             reset_launches()
             fleet, hist = drive_fn(cfg, fleet, traces, straggler_prob=0.25,
-                                   seed=3, env_backend=backend,
-                                   transport=TransportConfig(codec="int8"))
+                                   seed=3, env_backend=backend, **kw)
             counts = read_launches()[:3]
         finally:
             crl.sample_actions = sample_actions
@@ -1140,7 +1196,8 @@ def graph_parity(torch, backend):
         if not np.array_equal(have, want):
             raise AssertionError(f"graph parity ({backend}): {name} differs "
                                  f"from the reference driver's")
-    log(f"  {backend}: {n} control steps of identical actions; "
+    log(f"  {backend}{' (chaos)' if chaos else ''}: {n} control steps of "
+        f"identical actions; "
         f"{len(hist_r)} history metrics and {len(got)} state leaves bit "
         f"for bit; launches K1, K2, K3 {n_s} under both drivers")
 
@@ -1700,6 +1757,20 @@ def main():
     run_pair(torch, FCPOConfig(fl_every=1), "fluid")
     log("[twin reference] small twin run, card vs CPU")
     run_pair(torch, FCPOConfig(fl_every=1), "twin")
+    log("[chaos] train_fleet " + " ".join(CHAOS_ARGV))
+    k_chaos = {"fluid": drive(torch, ["--episodes", "20", *CHAOS_ARGV], 20,
+                              cfg.fl_every, n),
+               "twin": drive(torch, ["--env-backend", "twin", "--episodes",
+                                     "20", *CHAOS_ARGV], 20, cfg.fl_every,
+                             n)}
+    log("  launches of K1, K2, K3 on the slice's path: "
+        + json.dumps(k_chaos))
+    graph_parity(torch, "fluid", chaos=True)
+    graph_parity(torch, "twin", chaos=True)
+    run_pair(torch, FCPOConfig(fl_every=1), "fluid", chaos=True)
+    run_pair(torch, FCPOConfig(fl_every=1), "twin", chaos=True)
+    profile_episodes(torch, cfg, **chaos_kwargs())
+    profile_episodes(torch, cfg, "twin", **chaos_kwargs())
 
     log("[K5] decode_attention vs plain")
     k5_err, k5_t = check_k5(torch, gen)

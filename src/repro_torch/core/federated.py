@@ -1,17 +1,23 @@
 """Agent-specific Federated RL (§IV-D): Algorithm 1, Eq. 7 selection,
 hierarchical rounds — over the stacked fleet's parameters.
 
-Port of the mean-aggregation path of ``repro.core.federated``:
+Port of ``repro.core.federated``:
   * backbone + value head: equal aggregation over the selected clients AND
     the pod's base network, divided by |M|+1;
   * action heads: aggregated within (pod × action-space group) segments,
     weighted by ``exp(−(loss_i − mean loss))`` renormalised to the group
     count; a group with no contributor keeps each agent's own head;
+  * the robust statistics (``method="trimmed"`` / ``"median"``) replace
+    every segment mean by a coordinate-wise statistic over {selected
+    clients} ∪ {base network}, the heads without the loss weighting;
   * Eq. 7: ``TotalUtil = Util · sqrt(Bandwidth/10)``, top-⌈frac·A⌉ among
-    the available clients (stable order: ties go to the lower index).
+    the available clients (stable order: ties go to the lower index);
+  * the pod merge, optionally over the pods a partition leaves active.
 
 The segment sums are ``index_add_`` (they sum in another order than
-``jax.ops.segment_sum``, so results agree to float32 roundoff). An agent
+``jax.ops.segment_sum``, so results agree to float32 roundoff; so does the
+trimmed mean's sum, while the median is bit for bit). The robust ranks
+are read with ``gather`` at device indices (no host sync). An agent
 outside the selection enters every sum through a ``where``, not a multiply
 by zero, so a rejected non-finite contribution cannot reach any pod member
 (``NaN * 0`` is NaN). The host-side schedule helpers are numpy copies of
@@ -94,6 +100,65 @@ def _masked_mean_with_base(stacked, base, sel, pod_ids, n_pods):
     return agg[pod_ids], agg
 
 
+AGG_METHODS = ("mean", "trimmed", "median")
+
+
+def _gather_rank(srt, rank):
+    """srt: (S, M, ...) sorted along dim 1; rank: (S,) long. The rank-th
+    entry of each segment row, (S, ...)."""
+    idx = rank.reshape((rank.shape[0], 1) + (1,) * (srt.dim() - 2))
+    idx = idx.expand((rank.shape[0], 1) + tuple(srt.shape[2:]))
+    return srt.gather(1, idx)[:, 0]
+
+
+def _robust_stat(vals, valid, method: str, trim_frac: float):
+    """Coordinate-wise robust statistic over each segment row. vals:
+    (S, M, ...) candidates; valid: (S, M) bool, at least one per row.
+    Invalid entries sort to +inf, so ranks [0, n) are the valid ones.
+    ``median`` averages the middle pair; ``trimmed`` is the mean of ranks
+    [t, n − t) with t = floor(trim_frac · n)."""
+    vb = valid.reshape(valid.shape + (1,) * (vals.dim() - 2))
+    srt = torch.sort(torch.where(vb, vals, torch.inf), dim=1,
+                     stable=True).values
+    n = valid.sum(1)
+    if method == "median":
+        lo = _gather_rank(srt, torch.clamp_min(
+            torch.div(n - 1, 2, rounding_mode="floor"), 0))
+        hi = _gather_rank(srt, torch.div(n, 2, rounding_mode="floor"))
+        return 0.5 * (lo + hi)
+    if method == "trimmed":
+        t = torch.floor(n.to(torch.float32) * trim_frac).long()
+        ranks = torch.arange(vals.shape[1], device=vals.device)
+        inc = (ranks[None, :] >= t[:, None]) & \
+            (ranks[None, :] < (n - t)[:, None])
+        incb = inc.reshape(inc.shape + (1,) * (vals.dim() - 2))
+        kept = torch.clamp_min(n - 2 * t, 1).to(vals.dtype)
+        denom = kept.reshape((n.shape[0],) + (1,) * (vals.dim() - 2))
+        return torch.where(incb, srt, 0.0).sum(1) / denom
+    raise ValueError(f"unknown robust method {method!r}")
+
+
+def _with_base(stacked, b_seg, valid):
+    """The candidates of ``_robust_stat``: every agent's entry for each of
+    the S segments, then the segment's base; ``valid`` (S, A) gains the
+    base's always-valid column."""
+    s = b_seg.shape[0]
+    vals = torch.cat([stacked[None].expand((s,) + tuple(stacked.shape)),
+                      b_seg[:, None]], dim=1)
+    ones = torch.ones((s, 1), dtype=torch.bool, device=valid.device)
+    return vals, torch.cat([valid, ones], dim=1)
+
+
+def _robust_masked_with_base(stacked, base, sel, pod_ids, n_pods,
+                             method: str, trim_frac: float):
+    """The robust counterpart of ``_masked_mean_with_base``: the per-pod
+    statistic over {selected clients of the pod} ∪ {the pod's base}."""
+    pods = torch.arange(n_pods, device=sel.device)
+    valid = sel[None, :] & (pod_ids[None, :] == pods[:, None])
+    agg = _robust_stat(*_with_base(stacked, base, valid), method, trim_frac)
+    return agg[pod_ids], agg
+
+
 def _head_weights(sel, losses_h, group_ids, n_groups):
     """Loss-centered exponential weights, renormalized within a segment."""
     cnt = _segment_sum(sel.to(torch.float32), group_ids, n_groups)
@@ -108,29 +173,47 @@ def aggregate(cfg: FCPOConfig, fleet_params: Dict[str, torch.Tensor],
               base_params: Dict[str, torch.Tensor], sel: torch.Tensor,
               head_losses: torch.Tensor, head_groups: Dict[str, torch.Tensor],
               group_counts: Dict[str, int], pod_ids: torch.Tensor,
-              n_pods: int) -> Tuple[Dict, Dict]:
-    """Algorithm 1 (mean). fleet_params {name: (A, ...)}, base_params
+              n_pods: int, method: str = "mean", trim_frac: float = 0.2
+              ) -> Tuple[Dict, Dict]:
+    """Algorithm 1. fleet_params {name: (A, ...)}, base_params
     {name: (P, ...)}, sel (A,) bool, head_losses (A, 3), head_groups
     {head: (A,) group ids} with ``group_counts`` {head: n groups}.
+    ``method``: ``"mean"`` (the paper's), or ``"trimmed"`` / ``"median"``,
+    the robust statistics, which also drop the heads' loss weighting.
     Returns (new_fleet_params, new_base_params)."""
+    if method not in AGG_METHODS:
+        raise ValueError(f"unknown aggregation method {method!r}; expected "
+                         f"one of {AGG_METHODS}")
+    robust = method != "mean"
     new_fleet, new_base = {}, {}
     for name, st in fleet_params.items():
         top = name.split(".")[0]
         b = base_params[name]
         if top in BACKBONE_KEYS:
-            new_fleet[name], new_base[name] = _masked_mean_with_base(
-                st, b, sel, pod_ids, n_pods)
+            if robust:
+                new_fleet[name], new_base[name] = _robust_masked_with_base(
+                    st, b, sel, pod_ids, n_pods, method, trim_frac)
+            else:
+                new_fleet[name], new_base[name] = _masked_mean_with_base(
+                    st, b, sel, pod_ids, n_pods)
             continue
         h_idx = HEAD_KEYS.index(top)
         n_g = group_counts[top]
         seg = pod_ids * n_g + head_groups[top]     # pod×group segments
         n_seg = n_pods * n_g
-        wts = _head_weights(sel, head_losses[:, h_idx], seg, n_seg)
         cnt = _segment_sum(sel.to(torch.float32), seg, n_seg)
         b_seg = torch.repeat_interleave(b, n_g, dim=0)
-        ssum = _segment_sum(torch.where(_rows(sel, st), st * _rows(wts, st),
-                                        0.0), seg, n_seg)
-        agg = (b_seg + ssum) / _rows(cnt + 1.0, b_seg)   # (n_seg, ...)
+        if robust:
+            segs = torch.arange(n_seg, device=seg.device)
+            valid = sel[None, :] & (seg[None, :] == segs[:, None])
+            agg = _robust_stat(*_with_base(st, b_seg, valid), method,
+                               trim_frac)
+        else:
+            wts = _head_weights(sel, head_losses[:, h_idx], seg, n_seg)
+            ssum = _segment_sum(torch.where(_rows(sel, st),
+                                            st * _rows(wts, st), 0.0),
+                                seg, n_seg)
+            agg = (b_seg + ssum) / _rows(cnt + 1.0, b_seg)   # (n_seg, ...)
         # groups with no contributor keep the agent's own head
         has = _rows(cnt[seg] > 0, st)
         new_fleet[name] = torch.where(has, agg[seg], st)
@@ -139,11 +222,21 @@ def aggregate(cfg: FCPOConfig, fleet_params: Dict[str, torch.Tensor],
     return new_fleet, new_base
 
 
-def merge_pods(base_params: Dict[str, torch.Tensor]):
+def merge_pods(base_params: Dict[str, torch.Tensor], active=None):
     """Hierarchical FL (§IV-D Large-Scale): the pods' base networks are
-    averaged and redistributed."""
-    return {k: b.mean(0, keepdim=True).expand_as(b).clone()
-            for k, b in base_params.items()}
+    averaged and redistributed. ``active`` ((P,) bool) models a network
+    partition: only active pods contribute to and receive the average; a
+    partitioned pod keeps its own base network."""
+    if active is None:
+        return {k: b.mean(0, keepdim=True).expand_as(b).clone()
+                for k, b in base_params.items()}
+    n_act = torch.clamp_min(active.sum(), 1).to(torch.float32)
+    out = {}
+    for k, b in base_params.items():
+        w = _rows(active, b)
+        m = torch.where(w, b, 0.0).sum(0, keepdim=True) / n_act
+        out[k] = torch.where(w, m.expand_as(b), b)
+    return out
 
 
 # ---------------------------------------------------------------------------

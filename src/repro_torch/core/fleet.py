@@ -6,7 +6,13 @@ axis) and the per-pod base networks (P). Per episode ``fleet_episode``
 runs the CRL inner loop for all agents; every ``fl_every`` episodes
 ``fl_round`` runs Eq. 7 selection -> Algorithm 1 aggregation -> Algorithm 2
 head fine-tuning -> buffer resync; every ``hierarchical_period`` rounds
-``pod_merge`` averages the pods' base networks.
+``pod_merge`` averages the pods' base networks. The transport and chaos
+layers ride on top, as in the JAX package: asynchronous rounds park
+deadline-missed uploads (``fleet.pending``), ``GuardConfig`` picks the
+Algorithm 1 statistic, the delta clip and the non-finite rejection, and
+``FaultConfig`` injects crashes (``fleet.crash_timer``), byzantine uploads
+and pod partitions (``fleet.partition_timer``) from a fault plan drawn on
+the host. The defaults run the plain round.
 
 Two drivers. ``train_fleet_reference`` is the Python-loop driver (one
 device->host transfer per episode for its metrics). ``train_fleet_scan``
@@ -18,13 +24,15 @@ host-known FL schedule — at most three graph launches per episode, one
 transfer at the end of the run. Its carry is static: the fleet's own
 tensors are the graphs' inputs and outputs, updated in place (what JAX's
 donation does), and the per-episode inputs (rates, availability bits,
-optional noise) are staged on the device once and picked by a device-side
-episode counter. On the CPU the same bodies run eagerly in the same order;
+optional noise, the fault plan's bits) are staged on the device once and
+picked by a device-side episode counter. On the CPU the same bodies run eagerly in the same order;
 the two drivers give the same numbers bit for bit.
 
 Randomness: the fleet carries a ``torch.Generator`` (parameter init and
-action noise). The drivers also take pre-drawn Gumbel action noise, the
-seam the parity tests use to replay the JAX package's draws.
+action noise), and the byzantine ``noise`` mode draws from a generator
+seeded by ``faults.seed``. The drivers also take both as pre-drawn inputs
+(``gumbel``, ``byz_noise``), the seam the parity tests use to replay the
+JAX package's draws.
 """
 from __future__ import annotations
 
@@ -47,10 +55,14 @@ from repro_torch.core.buffer import (DiversityBuffer, buffer_diversity_mean,
 from repro_torch.core.crl import EPISODE_METRICS, AgentState, crl_episode
 from repro_torch.core.graphs import GraphedBody, copy_into, full_float32
 from repro_torch.core.ppo import Rollout, agent_opt_init, finetune_heads
+from repro_torch.fl import staleness as fl_stale
 from repro_torch.fl import transport as fl_transport
 from repro_torch.fl.codec import codec_roundtrip, residuals_init
 from repro_torch.fl.transport import DEFAULT_TRANSPORT, TransportConfig
-from repro_torch.resilience.guards import finite_mask
+from repro_torch.resilience import faults as rfaults
+from repro_torch.resilience.faults import FaultConfig
+from repro_torch.resilience.guards import (DEFAULT_GUARDS, GuardConfig,
+                                           clip_deltas, finite_mask)
 from repro_torch.sim.state import SimState
 
 
@@ -68,6 +80,9 @@ class Fleet:
     bandwidth: torch.Tensor           # (A,) Mbit/s
     speeds: torch.Tensor              # (A,)
     residuals: Dict[str, torch.Tensor]   # codec error feedback, (A, ...)
+    pending: fl_stale.PendingDeltas      # parked async uploads
+    crash_timer: torch.Tensor         # (A,) int32 episodes left down
+    partition_timer: torch.Tensor     # (P,) int32 merges left partitioned
     generator: torch.Generator
     n_pods: int
     episode: int = 0
@@ -77,16 +92,24 @@ class Fleet:
 
 
 def _assemble(cfg, policy, opt, buffer, env_state, base, env_params, masks,
-              speeds, bandwidth, residuals, generator, episode=0) -> Fleet:
+              speeds, bandwidth, residuals, generator, episode=0,
+              pending=None, crash_timer=None, partition_timer=None
+              ) -> Fleet:
     n_agents, n_pods = speeds.shape[0], next(base.parameters()).shape[0]
     dev = speeds.device
     group_ids, group_counts = fed.head_group_ids(masks, dev)
+    zeros = lambda n: torch.zeros(n, dtype=torch.int32, device=dev)
     return Fleet(
         astate=AgentState(policy, opt, buffer, env_state), base=base,
         env_params=env_params, masks=masks, group_ids=group_ids,
         group_counts=group_counts,
         pod_ids=torch.arange(n_agents, device=dev) % n_pods,
         bandwidth=bandwidth, speeds=speeds, residuals=residuals,
+        pending=(fl_stale.pending_init(policy.params()) if pending is None
+                 else pending),
+        crash_timer=zeros(n_agents) if crash_timer is None else crash_timer,
+        partition_timer=(zeros(n_pods) if partition_timer is None
+                         else partition_timer),
         generator=generator, n_pods=n_pods, episode=episode)
 
 
@@ -161,8 +184,10 @@ def fleet_from_numpy(cfg: FCPOConfig, tree, device="cuda", seed: int = 0
     ``env_state`` (the fluid or, with a nested ``sim``, the twin state),
     ``env_params`` (field dicts), ``base_params``,
     ``masks`` (``res``/``bs``/``mt``), ``speeds``, ``bandwidth``, and
-    optionally ``residuals`` and ``episode``. ``seed`` seeds the fleet's
-    generator. ``fleet_to_numpy`` is the reverse."""
+    optionally ``residuals``, ``pending`` (``delta`` tree, ``staleness``,
+    ``has``), ``crash_timer``, ``partition_timer`` and ``episode``.
+    ``seed`` seeds the fleet's generator. ``fleet_to_numpy`` is the
+    reverse."""
     dev = resolve_device(device)
     policy = params_from_numpy(cfg, tree["params"], dev)
     base = params_from_numpy(cfg, tree["base_params"], dev)
@@ -177,16 +202,28 @@ def fleet_from_numpy(cfg: FCPOConfig, tree, device="cuda", seed: int = 0
     gen.manual_seed(seed)
     f32 = lambda x: torch.tensor(np.asarray(x), dtype=torch.float32,
                                  device=dev)
+    i32 = lambda x: torch.tensor(np.asarray(x), dtype=torch.int32,
+                                 device=dev)
     masks = ActionMask(*(torch.tensor(np.asarray(tree["masks"][k]),
                                       dtype=torch.bool, device=dev)
                          for k in ("res", "bs", "mt")))
+    pending = tree.get("pending")
+    if pending is not None:
+        pending = fl_stale.PendingDeltas(
+            delta=tensors_from_numpy(pending["delta"], dev),
+            staleness=i32(pending["staleness"]),
+            has=torch.tensor(np.asarray(pending["has"]), dtype=torch.bool,
+                             device=dev))
+    timer = lambda k: i32(tree[k]) if k in tree else None
     return _assemble(
         cfg, policy, opt,
         _from_fields(DiversityBuffer, tree["buffer"], dev, longs=("actions",)),
         _env_state_from_numpy(tree["env_state"], dev),
         base, _from_fields(env_mod.EnvParams, tree["env_params"], dev),
         masks, f32(tree["speeds"]), f32(tree["bandwidth"]), residuals, gen,
-        episode=int(tree.get("episode", 0)))
+        episode=int(tree.get("episode", 0)), pending=pending,
+        crash_timer=timer("crash_timer"),
+        partition_timer=timer("partition_timer"))
 
 
 def fleet_to_numpy(fleet: Fleet):
@@ -206,6 +243,11 @@ def fleet_to_numpy(fleet: Fleet):
         "speeds": fleet.speeds.cpu().numpy(),
         "bandwidth": fleet.bandwidth.cpu().numpy(),
         "residuals": params_to_numpy(fleet.residuals),
+        "pending": {"delta": params_to_numpy(fleet.pending.delta),
+                    "staleness": fleet.pending.staleness.cpu().numpy(),
+                    "has": fleet.pending.has.cpu().numpy()},
+        "crash_timer": fleet.crash_timer.cpu().numpy(),
+        "partition_timer": fleet.partition_timer.cpu().numpy(),
         "episode": fleet.episode,
     }
 
@@ -224,26 +266,46 @@ def fleet_episode(cfg: FCPOConfig, fleet: Fleet, rates: torch.Tensor,
 
 
 def fl_round(cfg: FCPOConfig, fleet: Fleet, rollouts, available=None,
-             transport: Optional[TransportConfig] = None):
-    """One synchronous federated round: uplink model -> Eq. 7 selection ->
-    (lossy codec) -> Alg. 1 aggregation -> Alg. 2 head fine-tuning ->
-    buffer moment resync.
+             transport: Optional[TransportConfig] = None,
+             guards: Optional[GuardConfig] = None,
+             faults: Optional[FaultConfig] = None, byzantine=None,
+             byz_noise=None, generator=None):
+    """One federated round: uplink model -> Eq. 7 selection -> (lossy codec)
+    -> Alg. 1 aggregation -> Alg. 2 head fine-tuning -> buffer moment
+    resync.
 
     ``available`` ((A,) bool) masks out stragglers. With the float32 codec
-    the server's reconstruction is the client params themselves and the
-    codec is skipped; int8/topk encode ``params - base`` per leaf with error
-    feedback (the K2 kernel on the GPU), and only selected contributors are
-    seen through the wire. A contribution holding a NaN or Inf is dropped
-    from aggregation (``fl_rejected``). Returns (fleet, sel (A,) bool,
-    fl_metrics of 0-dim tensors)."""
+    in synchronous rounds the server's reconstruction is the client params
+    themselves and the codec is skipped; otherwise clients encode ``params
+    - base`` per leaf with error feedback (the K2 kernel on the GPU), and
+    only selected contributors are seen through the wire. ``transport``
+    with ``async_rounds``: a selected client that misses the deadline parks
+    its decoded delta in ``fleet.pending``, and parked deltas join later
+    rounds discounted. ``guards`` picks the Algorithm 1 statistic, the
+    per-leaf delta clip and the non-finite rejection (``fl_rejected``).
+    ``faults`` with ``byzantine`` ((A,) bool) corrupts those agents'
+    decoded deltas after the codec; the ``noise`` mode reads ``byz_noise``
+    ({name: leaf-shaped noise}) or draws from ``generator``. Returns
+    (fleet, sel (A,) bool aggregation mask, fl_metrics of 0-dim tensors,
+    ``FL_METRIC_KEYS``)."""
     transport = DEFAULT_TRANSPORT if transport is None else transport
+    guards = DEFAULT_GUARDS if guards is None else guards
+    byz_on = faults is not None and faults.byzantine_active
     policy, astate = fleet.astate.policy, fleet.astate
     params = {k: v.detach() for k, v in policy.params().items()}
     base = {k: v.detach() for k, v in fleet.base.params().items()}
     dev = fleet.pod_ids.device
     a = fleet.pod_ids.shape[0]
+    zero = lambda: torch.zeros((), device=dev)
     if available is None:
         available = torch.ones(a, dtype=torch.bool, device=dev)
+    if byz_on and byzantine is None:
+        byzantine = torch.zeros(a, dtype=torch.bool, device=dev)
+    pending, rejected = fleet.pending, None
+    # parked uploads are validated before anything reads them (selection
+    # included): a poisoned parked delta must not make its owner selectable
+    if guards.reject_nonfinite and transport.async_rounds:
+        pending, rejected = fl_stale.validate_pending(pending)
 
     # --- communication model: static payload sizes, per-agent links
     up_bytes = fl_transport.agent_payload_bytes(params.values(), transport)
@@ -254,43 +316,81 @@ def fl_round(cfg: FCPOConfig, fleet: Fleet, rollouts, available=None,
     on_time = fl_transport.on_time_mask(uplink_s, transport.deadline_s)
     fresh_ok = available & on_time
 
-    # --- Eq. 7 selection: a slow link drops out of selection
+    # --- Eq. 7 selection. Sync rounds: a slow link drops out. Async rounds:
+    # slow but available clients stay selectable (they park), and so do
+    # parked deltas whose owner is offline now.
     stats = fed.ClientStats(
         mem_avail=torch.clamp(1.0 - astate.env_state.pre_q
                               / fleet.env_params.queue_cap, 0, 1),
         compute_avail=torch.clamp(fleet.speeds / 2.0, 0, 1),
         diversity=buffer_diversity_mean(astate.buffer),
-        bandwidth=fleet.bandwidth, available=fresh_ok)
+        bandwidth=fleet.bandwidth,
+        available=(available | pending.has if transport.async_rounds
+                   else fresh_ok))
     sel = fed.select_clients(cfg, stats)
     with torch.no_grad():
         head_losses = fed.per_head_losses(cfg, params, rollouts, fleet.masks)
 
     # --- the server-side view of each client's parameters
-    residuals = fleet.residuals
-    if transport.plain:
-        # a client NaN'd by its own training drops out of aggregation
-        ok = finite_mask(params)
-        recon, sel_agg = params, sel & ok
+    residuals, transmitted, stale_used, clipped = fleet.residuals, sel, \
+        None, None
+    # lossless, nothing parked, corrupted or clipped: base + delta == params
+    plain = transport.plain and not byz_on and guards.clip_factor <= 0
+    if plain:
+        recon = contrib = params
+        sel_agg = sel
     else:
         base_g = {k: b[fleet.pod_ids] for k, b in base.items()}
         delta = {k: params[k] - base_g[k] for k in params}
         decoded, res_next = codec_roundtrip(delta, fleet.residuals, transport)
-        # selection already required on-time; garbage on the wire is dropped
-        ok = finite_mask(decoded)
-        sel_agg = sel & ok
+        if byz_on:
+            # corrupted in transit, after the client committed its error
+            # feedback: the server sees garbage, the client stays consistent
+            decoded = rfaults.corrupt_deltas(faults, decoded, byzantine,
+                                             noise=byz_noise,
+                                             generator=generator)
+        if transport.async_rounds:
+            w_stale = fl_stale.stale_weights(pending,
+                                             transport.staleness_decay)
+            contrib = fl_stale.merge_contributions(decoded, pending,
+                                                   fresh_ok, w_stale)
+            sel_agg = sel & (fresh_ok | pending.has)
+            parked = sel & available & ~on_time
+            consumed = sel & pending.has & ~fresh_ok
+            fresh_sent = sel & fresh_ok
+            transmitted = fresh_sent | parked
+            pending = fl_stale.update_pending(pending, decoded, parked,
+                                              consumed, fresh_sent)
+            stale_used = consumed.sum().to(torch.float32)
+        else:
+            contrib, sel_agg = decoded, sel  # selection required on-time
+    if guards.reject_nonfinite:
+        # a client NaN'd by its own training, or garbage on the wire, is
+        # dropped from aggregation
+        ok = finite_mask(contrib)
+        n_bad = (sel_agg & ~ok).sum().to(torch.float32)
+        rejected = n_bad if rejected is None else rejected + n_bad
+        sel_agg = sel_agg & ok
+    if not plain:
+        if guards.clip_factor > 0:
+            contrib, clipped = clip_deltas(contrib, sel_agg,
+                                           guards.clip_factor)
         # only selected contributors are seen through the wire; everyone
         # else enters aggregation with their TRUE params
         rows = lambda m, x: m.reshape((-1,) + (1,) * (x.dim() - 1))
         recon = {k: torch.where(rows(sel_agg, params[k]),
-                                base_g[k] + decoded[k], params[k])
+                                base_g[k] + contrib[k], params[k])
                  for k in params}
-        # error feedback commits only for deltas that went over the wire
-        residuals = {k: torch.where(rows(sel, res_next[k]), res_next[k],
-                                    fleet.residuals[k]) for k in res_next}
+        # error feedback commits only for deltas that went (or, parked,
+        # will go) over the wire
+        residuals = {k: torch.where(rows(transmitted, res_next[k]),
+                                    res_next[k], fleet.residuals[k])
+                     for k in res_next}
 
     new_params, new_base = fed.aggregate(
         cfg, recon, base, sel_agg, head_losses, fleet.group_ids,
-        fleet.group_counts, fleet.pod_ids, fleet.n_pods)
+        fleet.group_counts, fleet.pod_ids, fleet.n_pods, method=guards.agg,
+        trim_frac=guards.trim_frac)
     # Algorithm 2: local action-head fine-tuning on local experiences
     new_params, opt = finetune_heads(cfg, new_params, astate.opt, rollouts,
                                      fleet.masks)
@@ -300,24 +400,64 @@ def fl_round(cfg: FCPOConfig, fleet: Fleet, rollouts, available=None,
     astate = AgentState(policy, opt, buffer_resync(astate.buffer),
                         astate.env_state)
 
-    n_up = sel.sum().to(torch.float32)
+    n_up = transmitted.sum().to(torch.float32)
     fl_metrics = {
         "fl_payload_bytes": n_up * up_bytes + down_bytes,
-        "fl_uplink_s": torch.where(sel, uplink_s, 0.0).sum()
+        "fl_uplink_s": torch.where(transmitted, uplink_s, 0.0).sum()
         / torch.clamp_min(n_up, 1.0),
         "fl_missed": (available & ~on_time).sum().to(torch.float32),
-        "fl_rejected": (sel & ~ok).sum().to(torch.float32),
+        "fl_stale_used": zero() if stale_used is None else stale_used,
+        "fl_rejected": zero() if rejected is None else rejected,
+        "fl_clipped": zero() if clipped is None else clipped,
     }
-    return fleet.replace(astate=astate, residuals=residuals), sel_agg, \
-        fl_metrics
+    return fleet.replace(astate=astate, residuals=residuals,
+                         pending=pending), sel_agg, fl_metrics
 
 
-def pod_merge(cfg: FCPOConfig, fleet: Fleet) -> Fleet:
+def pod_merge(cfg: FCPOConfig, fleet: Fleet, partition=None,
+              faults: Optional[FaultConfig] = None) -> Fleet:
     """Hierarchical cross-pod exchange (cloud tier): the pods' base
-    networks are averaged and redistributed (in place)."""
+    networks are averaged and redistributed (in place). With partition
+    faults, ``partition`` ((P,) bool) holds this merge's fresh draws: a
+    newly partitioned pod stays off the cloud tier for
+    ``faults.partition_merges`` merges, then rejoins."""
     base = {k: v.detach() for k, v in fleet.base.params().items()}
-    fleet.base.assign(fed.merge_pods(base))
-    return fleet
+    if faults is None or not faults.partition_active or partition is None:
+        fleet.base.assign(fed.merge_pods(base))
+        return fleet
+    timer = torch.clamp_min(fleet.partition_timer - 1, 0)
+    timer = torch.where(partition, faults.partition_merges, timer)
+    fleet.base.assign(fed.merge_pods(base, timer == 0))
+    return fleet.replace(partition_timer=timer)
+
+
+def _normalize_chaos(faults, guards):
+    """An inactive fault config is None; a None guard config the
+    default."""
+    if faults is not None and not faults.active:
+        faults = None
+    return faults, DEFAULT_GUARDS if guards is None else guards
+
+
+def _episode_means(metrics, ran):
+    """Per-episode fleet values: the mean, or, with crashes, the mean over
+    the agents that ran (a frozen agent's episode did not happen)."""
+    if ran is None:
+        return [v.mean() for v in metrics.values()]
+    w = ran.to(torch.float32)
+    d = torch.clamp_min(w.sum(), 1.0)
+    return [(v * w).sum() / d for v in metrics.values()]
+
+
+def _fault_generator(faults, byz_noise, dev):
+    """The generator of the byzantine ``noise`` mode when no noise is
+    given, seeded by ``faults.seed``; else None."""
+    if (faults is None or not faults.byzantine_active
+            or faults.byzantine_mode != "noise" or byz_noise is not None):
+        return None
+    gen = torch.Generator(device=dev)
+    gen.manual_seed(faults.seed)
+    return gen
 
 
 def train_fleet_reference(cfg: FCPOConfig, fleet: Fleet, traces, *,
@@ -325,39 +465,71 @@ def train_fleet_reference(cfg: FCPOConfig, fleet: Fleet, traces, *,
                           straggler_prob: float = 0.0, seed: int = 0,
                           env_backend=None,
                           transport: Optional[TransportConfig] = None,
-                          gumbel=None):
+                          guards: Optional[GuardConfig] = None,
+                          faults: Optional[FaultConfig] = None,
+                          gumbel=None, byz_noise=None):
     """The Python-loop driver: episodes over ``traces`` (A, total_steps),
     an FL round every ``fl_every`` episodes (stragglers from
     ``draw_availability(seed)``, the reference's stream), a pod merge every
-    ``hierarchical_period`` rounds. ``gumbel``: optional pre-drawn action
-    noise (n_episodes, A, n_steps, n_res+n_bs+n_mt). ``env_backend``:
+    ``hierarchical_period`` rounds. ``guards`` / ``faults``: the chaos
+    layer (``draw_fault_plan`` from ``faults.seed``, the reference's plan):
+    a crashed agent's episode and round are undone and it sits out the
+    round, partitioned pods skip merges. ``gumbel``: optional pre-drawn
+    action noise (n_episodes, A, n_steps, n_res+n_bs+n_mt); ``byz_noise``:
+    optional byzantine noise, {name: (n_episodes, A, ...)}. ``env_backend``:
     ``"fluid"`` (default) / ``"twin"`` / a backend, the one the fleet was
     built with. Returns (fleet, history) with one fleet-mean value per
-    episode and metric."""
+    episode and metric (with crashes, the mean over the agents that
+    ran)."""
     backend = get_backend(env_backend)
+    faults, guards = _normalize_chaos(faults, guards)
     dev = fleet.pod_ids.device
     traces = traces.to(dev)
     a, total = traces.shape
     n_eps = total // cfg.n_steps
     schedule = fed.fl_schedule(cfg, n_eps, federated=federated, learn=learn)
     avail = fed.draw_availability(schedule, a, straggler_prob, seed)
+    plan = rfaults.draw_fault_plan(schedule, a, fleet.n_pods, faults)
+    crash_on = faults is not None and faults.crash_active
+    byz_on = faults is not None and faults.byzantine_active
+    fault_gen = _fault_generator(faults, byz_noise, dev)
+    bits = lambda x: torch.as_tensor(x, device=dev)
     history: Dict[str, list] = {}
     rounds = 0
     for e in range(n_eps):
         rates = traces[:, e * cfg.n_steps:(e + 1) * cfg.n_steps]
+        prev = rfaults.snapshot_astate(fleet.astate) if crash_on else None
         fleet, rollouts, metrics = fleet_episode(
             cfg, fleet, rates, learn=learn,
             gumbel=None if gumbel is None else gumbel[e], backend=backend)
+        ran = None
+        if crash_on:
+            fleet, ran, down = rfaults.apply_crashes(faults, prev, fleet,
+                                                     bits(plan.crash[e]))
         fl_metrics = fl_transport.fl_zero_metrics(dev)
         if schedule[e]:
+            av = bits(avail[e])
+            if crash_on:
+                av = av & ~down
+                pre_round = rfaults.snapshot_astate(fleet.astate)
             fleet, _, fl_metrics = fl_round(
-                cfg, fleet, rollouts,
-                torch.as_tensor(avail[e], device=dev), transport=transport)
+                cfg, fleet, rollouts, av, transport=transport,
+                guards=guards, faults=faults,
+                byzantine=bits(plan.byzantine[e]) if byz_on else None,
+                byz_noise=(None if byz_noise is None
+                           else {k: v[e] for k, v in byz_noise.items()}),
+                generator=fault_gen)
+            if crash_on:
+                # a down agent is offline: it does not receive the round's
+                # model (it rejoins later by the step-① warm start)
+                fleet = fleet.replace(astate=rfaults.freeze_astate(
+                    down, pre_round, fleet.astate))
             rounds += 1
             if rounds % cfg.hierarchical_period == 0 and fleet.n_pods > 1:
-                fleet = pod_merge(cfg, fleet)
+                fleet = pod_merge(cfg, fleet, bits(plan.partition[e]),
+                                  faults)
         names = [*metrics, *fl_metrics]
-        vals = torch.stack([*(v.mean() for v in metrics.values()),
+        vals = torch.stack([*_episode_means(metrics, ran),
                             *fl_metrics.values()])
         for k, v in zip(names, vals.tolist()):   # one transfer per episode
             history.setdefault(k, []).append(v)
@@ -376,10 +548,15 @@ class FleetScan:
                  learn: bool = True, federated: bool = True,
                  straggler_prob: float = 0.0, seed: int = 0,
                  env_backend=None,
-                 transport: Optional[TransportConfig] = None, gumbel=None):
+                 transport: Optional[TransportConfig] = None,
+                 guards: Optional[GuardConfig] = None,
+                 faults: Optional[FaultConfig] = None, gumbel=None,
+                 byz_noise=None):
         self.cfg, self.fleet, self.learn = cfg, fleet, learn
         self.backend = get_backend(env_backend)
         self.transport = DEFAULT_TRANSPORT if transport is None else transport
+        self.faults, self.guards = _normalize_chaos(faults, guards)
+        faults = self.faults
         dev = self.dev = fleet.pod_ids.device
         a, total = traces.shape
         n = cfg.n_steps
@@ -387,12 +564,22 @@ class FleetScan:
         self.schedule = fed.fl_schedule(cfg, self.n_eps, federated=federated,
                                         learn=learn)
         avail = fed.draw_availability(self.schedule, a, straggler_prob, seed)
+        plan = rfaults.draw_fault_plan(self.schedule, a, fleet.n_pods, faults)
         # the run's inputs, staged on the device once, episode-major
         self.rates = traces[:, :self.n_eps * n].to(dev, torch.float32) \
             .reshape(a, self.n_eps, n).transpose(0, 1).contiguous()
         self.avail = torch.as_tensor(avail, device=dev)
         self.gumbel = None if gumbel is None else \
             gumbel.to(dev, torch.float32).contiguous()
+        self.crash_on = faults is not None and faults.crash_active
+        self.byz_on = faults is not None and faults.byzantine_active
+        self.part_on = faults is not None and faults.partition_active
+        self.plan = rfaults.FaultPlan(*(torch.as_tensor(x, device=dev)
+                                        for x in plan))
+        self.byz_noise = None if byz_noise is None else \
+            {k: v.to(dev, torch.float32).contiguous()
+             for k, v in byz_noise.items()}
+        self.fault_gen = _fault_generator(faults, byz_noise, dev)
         self.counter = torch.zeros((), dtype=torch.long, device=dev)
         self.episodes = self.rounds = 0        # the host's copies
         f32 = lambda *s: torch.zeros(s, dtype=torch.float32, device=dev)
@@ -403,13 +590,23 @@ class FleetScan:
             states=f32(a, n, cfg.state_dim),
             actions=torch.zeros(a, n, 3, dtype=torch.long, device=dev),
             logp_old=f32(a, n), rewards=f32(a, n), values_old=f32(a, n))
+        if self.crash_on:
+            # static copies of the agent state before the episode and the
+            # round, and the agents down for the round
+            self.prev = rfaults.snapshot_astate(fleet.astate)
+            self.pre_round = rfaults.snapshot_astate(fleet.astate)
+            self.down = torch.zeros(a, dtype=torch.bool, device=dev)
         noise = (fleet.generator,) if gumbel is None else ()
         self.graphs = (GraphedBody(self._episode, dev, noise),
-                       GraphedBody(self._round, dev),
+                       GraphedBody(self._round, dev,
+                                   () if self.fault_gen is None
+                                   else (self.fault_gen,)),
                        GraphedBody(self._merge, dev))
 
     def _episode(self):
         e = self.counter.view(1)
+        if self.crash_on:
+            rfaults.snapshot_astate(self.fleet.astate, into=self.prev)
         out, rollout, metrics = fleet_episode(
             self.cfg, self.fleet, self.rates.index_select(0, e)[0],
             learn=self.learn, backend=self.backend,
@@ -418,26 +615,53 @@ class FleetScan:
         if set(metrics) != set(EPISODE_METRICS):
             raise KeyError(f"episode metrics {sorted(metrics)} are not "
                            f"{sorted(EPISODE_METRICS)}")
+        ran = None
+        if self.crash_on:
+            out, ran, down = rfaults.apply_crashes(
+                self.faults, self.prev, out,
+                self.plan.crash.index_select(0, e)[0])
+            self.fleet.crash_timer.copy_(out.crash_timer)
+            self.down.copy_(down)
         copy_into(self.fleet.astate, out.astate)
         copy_into(self.rollout, rollout)
-        self.ep_hist.index_copy_(0, e, torch.stack(
-            [metrics[k].mean() for k in EPISODE_METRICS])[None])
+        self.ep_hist.index_copy_(0, e, torch.stack(_episode_means(
+            {k: metrics[k] for k in EPISODE_METRICS}, ran))[None])
         self.fl_hist.index_copy_(0, e, torch.stack(
             list(fl_transport.fl_zero_metrics(self.dev).values()))[None])
         self.counter.add_(1)
 
     def _round(self):
         e = (self.counter - 1).view(1)
-        out, _, flm = fl_round(self.cfg, self.fleet, self.rollout,
-                               self.avail.index_select(0, e)[0],
-                               transport=self.transport)
+        pick = lambda x: x.index_select(0, e)[0]
+        av = pick(self.avail)
+        if self.crash_on:
+            av = av & ~self.down
+            rfaults.snapshot_astate(self.fleet.astate, into=self.pre_round)
+        out, _, flm = fl_round(
+            self.cfg, self.fleet, self.rollout, av, transport=self.transport,
+            guards=self.guards, faults=self.faults,
+            byzantine=pick(self.plan.byzantine) if self.byz_on else None,
+            byz_noise=(None if self.byz_noise is None else
+                       {k: pick(v) for k, v in self.byz_noise.items()}),
+            generator=self.fault_gen)
+        if self.crash_on:
+            out = out.replace(astate=rfaults.freeze_astate(
+                self.down, self.pre_round, out.astate))
         copy_into(self.fleet.astate, out.astate)
         copy_into(self.fleet.residuals, out.residuals)
+        copy_into(self.fleet.pending, out.pending)
         self.fl_hist.index_copy_(0, e, torch.stack(
             [flm[k] for k in fl_transport.FL_METRIC_KEYS])[None])
 
     def _merge(self):
-        pod_merge(self.cfg, self.fleet)
+        if not self.part_on:
+            pod_merge(self.cfg, self.fleet)
+            return
+        e = (self.counter - 1).view(1)
+        out = pod_merge(self.cfg, self.fleet,
+                        self.plan.partition.index_select(0, e)[0],
+                        self.faults)
+        self.fleet.partition_timer.copy_(out.partition_timer)
 
     @property
     def capture_s(self) -> float:
@@ -482,7 +706,9 @@ def train_fleet_scan(cfg: FCPOConfig, fleet: Fleet, traces, *,
                      straggler_prob: float = 0.0, seed: int = 0,
                      env_backend=None,
                      transport: Optional[TransportConfig] = None,
-                     gumbel=None):
+                     guards: Optional[GuardConfig] = None,
+                     faults: Optional[FaultConfig] = None,
+                     gumbel=None, byz_noise=None):
     """The graph driver: episodes over ``traces`` (A, total_steps), an FL
     round every ``fl_every`` episodes (stragglers from
     ``draw_availability(seed)``), a pod merge every ``hierarchical_period``
@@ -491,28 +717,37 @@ def train_fleet_scan(cfg: FCPOConfig, fleet: Fleet, traces, *,
     right after its first (eager) step and replayed after that; a capture
     error raises. On the CPU the same bodies run eagerly. ``fleet`` is
     trained in place (its tensors are the graphs' static state) and
-    returned, ``fleet.episode`` advanced by the run's episodes. ``gumbel``:
-    optional pre-drawn action noise (n_episodes, A, n_steps,
-    n_res+n_bs+n_mt); without it the noise comes from ``fleet.generator``
-    in the reference driver's order. ``env_backend``: the backend the fleet
-    was built with. Float32 products run without TF32 for the run. Returns
-    (fleet, history) with one fleet-mean float32 value per episode and
-    metric (FL metrics 0 on episodes without a round), fetched in one
-    transfer."""
+    returned, ``fleet.episode`` advanced by the run's episodes. ``guards``
+    / ``faults``: the chaos layer, as in ``train_fleet_reference``; the
+    fault plan's bits are staged on the device with the other inputs, and
+    the agent state before an episode and a round is copied into static
+    tensors only when crashes are on. ``gumbel``: optional pre-drawn action
+    noise (n_episodes, A, n_steps, n_res+n_bs+n_mt); without it the noise
+    comes from ``fleet.generator`` in the reference driver's order.
+    ``byz_noise``: optional byzantine noise, {name: (n_episodes, A, ...)}.
+    ``env_backend``: the backend the fleet was built with. Float32 products
+    run without TF32 for the run. Returns (fleet, history) with one
+    fleet-mean float32 value per episode and metric (FL metrics 0 on
+    episodes without a round), fetched in one transfer."""
     return FleetScan(cfg, fleet, traces, learn=learn, federated=federated,
                      straggler_prob=straggler_prob, seed=seed,
                      env_backend=env_backend, transport=transport,
-                     gumbel=gumbel).run()
+                     guards=guards, faults=faults, gumbel=gumbel,
+                     byz_noise=byz_noise).run()
 
 
 def train_fleet(cfg: FCPOConfig, fleet: Fleet, traces, *, learn: bool = True,
                 federated: bool = True, straggler_prob: float = 0.0,
                 seed: int = 0, env_backend=None,
-                transport: Optional[TransportConfig] = None, gumbel=None):
+                transport: Optional[TransportConfig] = None,
+                guards: Optional[GuardConfig] = None,
+                faults: Optional[FaultConfig] = None, gumbel=None,
+                byz_noise=None):
     """The default entry point: delegates to ``train_fleet_scan``, as the
     JAX package's ``train_fleet`` does."""
     return train_fleet_scan(cfg, fleet, traces, learn=learn,
                             federated=federated,
                             straggler_prob=straggler_prob, seed=seed,
                             env_backend=env_backend, transport=transport,
-                            gumbel=gumbel)
+                            guards=guards, faults=faults, gumbel=gumbel,
+                            byz_noise=byz_noise)

@@ -12,12 +12,16 @@ Capture runs nothing, so the kernel wrappers' launch counters, which count
 in Python, would count the capture and not the replays: the counts a
 capture adds are taken back and added once per replay instead. Generators
 the body draws from are registered with the graph, so each replay advances
-their Philox offsets exactly as an eager call does. A capture error (a
-host sync, an allocation the stream cannot record) raises: there is no
-fallback to eager execution.
+their Philox offsets exactly as an eager call does. Python's cyclic
+garbage collector is off during a capture: a graph left in a reference
+cycle (a body bound to its driver) that the collector freed mid-capture
+would destroy its executable graph and memory pool, calls that invalidate
+the capture. A capture error (a host sync, an allocation the stream
+cannot record) raises: there is no fallback to eager execution.
 """
 from __future__ import annotations
 
+import gc
 import time
 from contextlib import contextmanager
 from dataclasses import fields, is_dataclass
@@ -71,12 +75,16 @@ class GraphedBody:
         for gen in self.generators:
             graph.register_generator_state(gen)
         before = {fn: fn.launches for fn in COUNTED}
+        collecting = gc.isenabled()
+        gc.disable()
         try:
             with torch.cuda.graph(graph, capture_error_mode="global"):
                 self.body()
             self.launches = {fn: fn.launches - n for fn, n in before.items()
                              if fn.launches != n}
         finally:
+            if collecting:
+                gc.enable()
             for fn, n in before.items():      # the capture launched nothing
                 fn.launches = n
         self.capture_s = time.perf_counter() - t0

@@ -1,12 +1,13 @@
 """FL communication model: payload accounting, uplink times, round deadlines.
 
-Port of ``repro.fl.transport`` for synchronous rounds. Per-leaf encoded
-sizes for the three codecs — float32 (4 B/param), int8 (1 B/param + one
-float32 scale per tensor), top-k (8 B per kept coordinate) — set a client's
-upload time ``payload_bits / bandwidth``; with a round deadline a slow link
-misses the round. The float32 downlink is a per-agent unicast of full
-parameters; the compressed codecs broadcast one encoded base delta per pod.
-Asynchronous (staleness-tolerant) rounds are a later slice.
+Port of ``repro.fl.transport``. Per-leaf encoded sizes for the three
+codecs — float32 (4 B/param), int8 (1 B/param + one float32 scale per
+tensor), top-k (8 B per kept coordinate) — set a client's upload time
+``payload_bits / bandwidth``; with a round deadline a slow link misses the
+round, or, in asynchronous rounds, parks its delta for a later round
+(``repro_torch.fl.staleness``). The float32 downlink is a per-agent unicast
+of full parameters; the compressed codecs broadcast one encoded base delta
+per pod.
 """
 from __future__ import annotations
 
@@ -25,10 +26,14 @@ CODECS = DELTA_CODECS
 class TransportConfig:
     """codec: on-wire delta encoding (``float32`` is lossless). topk_frac:
     fraction of coordinates the top-k codec keeps per tensor. deadline_s:
-    round deadline in seconds; <= 0 disables it."""
+    round deadline in seconds; <= 0 disables it. async_rounds: a selected
+    client that misses the deadline parks its decoded delta and joins a
+    later round discounted by ``staleness_decay ** staleness``."""
     codec: str = "float32"
     topk_frac: float = 0.05
     deadline_s: float = 0.0
+    async_rounds: bool = False
+    staleness_decay: float = 0.5
 
     def __post_init__(self):
         if self.codec not in CODECS:
@@ -39,9 +44,10 @@ class TransportConfig:
 
     @property
     def plain(self) -> bool:
-        """Lossless codec: the server's ``base + decode(encode(params -
-        base))`` is identically ``params``, so the codec is skipped."""
-        return self.codec == "float32"
+        """Lossless codec and nothing parked: the server's ``base +
+        decode(encode(params - base))`` is identically ``params``, so the
+        codec is skipped."""
+        return self.codec == "float32" and not self.async_rounds
 
 
 DEFAULT_TRANSPORT = TransportConfig()
@@ -101,10 +107,8 @@ def on_time_mask(uplink_s, deadline_s: float) -> torch.Tensor:
     return uplink_s <= deadline_s
 
 
-# Per-round metrics of this slice's synchronous rounds (the JAX package
-# adds fl_stale_used and fl_clipped for async rounds and delta clipping).
 FL_METRIC_KEYS = ("fl_payload_bytes", "fl_uplink_s", "fl_missed",
-                  "fl_rejected")
+                  "fl_stale_used", "fl_rejected", "fl_clipped")
 
 
 def fl_zero_metrics(device) -> Dict[str, torch.Tensor]:

@@ -13,7 +13,13 @@ each kernel: CUDA tensors launch the hand-written kernels
 (``repro_torch.kernels``), CPU tensors run their plain PyTorch versions.
 ``--env-backend twin`` trains in the request-level digital twin (K
 microticks per control interval, one K3 launch per interval on the GPU);
-``--scenario`` picks the workload from the scenario library.
+``--scenario`` picks the workload from the scenario library. The
+transport and chaos layers take the JAX CLI's flags: ``--fl-async``
+(deadline-missed uploads park and join later rounds), ``--robust-agg``,
+``--trim-frac``, ``--clip-factor``, ``--no-reject-nonfinite`` and the
+``--fault-*`` family (crashes, byzantine uploads, pod partitions).
+``--susp-threshold`` waits for the health observatory (ROADMAP queue 1,
+item 5).
 
 Examples:
   PYTHONPATH=src python -m repro_torch.launch.train_fleet
@@ -23,6 +29,10 @@ Examples:
       --scenario switching --episodes 20
   PYTHONPATH=src python -m repro_torch.launch.train_fleet --device cpu \\
       --agents 4 --episodes 4 --fl-every 1 --driver reference
+  PYTHONPATH=src python -m repro_torch.launch.train_fleet --fl-codec int8 \\
+      --fl-deadline-s 0.002 --fl-async --robust-agg trimmed \\
+      --clip-factor 3 --fault-crash-prob 0.1 --fault-byzantine-frac 0.25 \\
+      --fault-partition-prob 0.3
 """
 from __future__ import annotations
 
@@ -39,6 +49,8 @@ from repro_torch.core.fleet import (FleetScan, fleet_init,
                                     train_fleet_reference)
 from repro_torch.fl.transport import CODECS, TransportConfig
 from repro_torch.kernels import build
+from repro_torch.resilience.faults import BYZANTINE_MODES, FaultConfig
+from repro_torch.resilience.guards import AGG_METHODS, GuardConfig
 from repro_torch.sim import SCENARIOS, SimParams, make_scenario
 
 
@@ -63,6 +75,50 @@ def main(argv=None):
     ap.add_argument("--fl-deadline-s", type=float, default=0.0,
                     help="FL round deadline (s); uplink time = encoded "
                          "payload bits / per-agent bandwidth. <= 0 disables")
+    ap.add_argument("--fl-async", action="store_true",
+                    help="staleness-tolerant rounds: a selected client that "
+                         "misses the deadline parks its decoded delta and "
+                         "joins a later round staleness-discounted")
+    # --- chaos layer: fault injection (FaultConfig) ---
+    ap.add_argument("--fault-crash-prob", type=float, default=0.0,
+                    help="per-agent per-episode crash probability: the "
+                         "agent's state freezes (params zeroed), it leaves "
+                         "episodes and Eq. 7 selection for "
+                         "--fault-crash-recovery episodes, then rejoins "
+                         "warm-started from its pod base network")
+    ap.add_argument("--fault-crash-recovery", type=int, default=2,
+                    help="episodes a crashed agent stays down")
+    ap.add_argument("--fault-byzantine-frac", type=float, default=0.0,
+                    help="per-agent per-round probability of shipping a "
+                         "corrupted delta (after the codec)")
+    ap.add_argument("--fault-byzantine-mode", choices=BYZANTINE_MODES,
+                    default="sign_flip",
+                    help="corruption: sign_flip (scaled negation), noise "
+                         "(additive gaussian), nan (poisoned upload)")
+    ap.add_argument("--fault-byzantine-scale", type=float, default=10.0,
+                    help="magnitude of sign_flip/noise corruption")
+    ap.add_argument("--fault-partition-prob", type=float, default=0.0,
+                    help="per-pod probability, at each hierarchical merge, "
+                         "of dropping off the cloud tier for "
+                         "--fault-partition-merges merge events")
+    ap.add_argument("--fault-partition-merges", type=int, default=1,
+                    help="merge events a partitioned pod skips")
+    ap.add_argument("--fault-seed", type=int, default=0,
+                    help="seed of the fault plan (independent of --seed)")
+    # --- chaos layer: defenses (GuardConfig) ---
+    ap.add_argument("--robust-agg", choices=AGG_METHODS, default="mean",
+                    help="Algorithm 1 statistic: mean is the paper's; "
+                         "trimmed/median are coordinate-wise robust "
+                         "statistics that bound byzantine influence")
+    ap.add_argument("--trim-frac", type=float, default=0.2,
+                    help="per-side trim fraction of the trimmed-mean "
+                         "aggregator (in [0, 0.5))")
+    ap.add_argument("--clip-factor", type=float, default=0.0,
+                    help="clip each client delta leaf to this multiple of "
+                         "the selected-client median leaf norm; 0 disables")
+    ap.add_argument("--no-reject-nonfinite", action="store_true",
+                    help="disable the NaN/Inf contribution rejection (on "
+                         "by default)")
     ap.add_argument("--env-backend", choices=BACKENDS, default="fluid",
                     help="environment the CRL episodes run in: the fluid "
                          "MDP or the request-level digital twin")
@@ -100,6 +156,9 @@ def main(argv=None):
         ap.error("--dt/--k-ticks/--ring configure the twin data plane and "
                  "are silent no-ops on the fluid backend; add "
                  "--env-backend twin")
+    if args.fl_async and args.fl_deadline_s <= 0:
+        ap.error("--fl-async parks deadline-missed uploads and needs "
+                 "--fl-deadline-s > 0 to ever have one")
 
     dev = resolve_device(args.device)
     # full float32 on the card, as on the CPU (no TF32 rounding)
@@ -112,7 +171,20 @@ def main(argv=None):
         FCPOConfig(fl_every=args.fl_every)
     transport = TransportConfig(codec=args.fl_codec,
                                 topk_frac=args.fl_topk_frac,
-                                deadline_s=args.fl_deadline_s)
+                                deadline_s=args.fl_deadline_s,
+                                async_rounds=args.fl_async)
+    faults = FaultConfig(
+        crash_prob=args.fault_crash_prob,
+        crash_recovery=args.fault_crash_recovery,
+        byzantine_frac=args.fault_byzantine_frac,
+        byzantine_mode=args.fault_byzantine_mode,
+        byzantine_scale=args.fault_byzantine_scale,
+        partition_prob=args.fault_partition_prob,
+        partition_merges=args.fault_partition_merges,
+        seed=args.fault_seed)
+    guards = GuardConfig(agg=args.robust_agg, trim_frac=args.trim_frac,
+                         clip_factor=args.clip_factor,
+                         reject_nonfinite=not args.no_reject_nonfinite)
     backend = get_backend(args.env_backend, sim_params=SimParams(
         dt=args.dt, k_ticks=args.k_ticks, ring=args.ring))
     fleet = fleet_init(cfg, args.agents, args.seed, n_pods=args.pods,
@@ -129,7 +201,8 @@ def main(argv=None):
 
     kw = dict(learn=not args.no_learn, federated=not args.no_federated,
               straggler_prob=args.straggler_prob, seed=args.seed,
-              env_backend=backend, transport=transport)
+              env_backend=backend, transport=transport,
+              faults=faults if faults.active else None, guards=guards)
     t0 = time.time()
     if args.driver == "scan":
         driver = FleetScan(cfg, fleet, traces, **kw)
@@ -158,12 +231,22 @@ def main(argv=None):
     fl_eps = np.flatnonzero(hist["fl_payload_bytes"])
     if fl_eps.size:
         print(f"\nFL transport (codec={args.fl_codec}, "
-              f"deadline={args.fl_deadline_s}s): "
+              f"deadline={args.fl_deadline_s}s, async={args.fl_async}): "
               f"{fl_eps.size} rounds, "
               f"{hist['fl_payload_bytes'][fl_eps].mean() / 1024:.1f} KB/round, "
               f"uplink {hist['fl_uplink_s'][fl_eps].mean() * 1e3:.1f} ms, "
               f"missed {hist['fl_missed'][fl_eps].mean():.2f}/round, "
-              f"rejected {hist['fl_rejected'].sum():.0f}")
+              f"stale joins {hist['fl_stale_used'][fl_eps].mean():.2f}/round, "
+              f"rejected {hist['fl_rejected'].sum():.0f}, "
+              f"clipped {hist['fl_clipped'].sum():.0f}")
+    if faults.active:
+        print(f"\nchaos: crash_prob={faults.crash_prob}, "
+              f"byzantine={faults.byzantine_frac} "
+              f"({faults.byzantine_mode} x{faults.byzantine_scale}), "
+              f"partition={faults.partition_prob}; defenses: "
+              f"agg={guards.agg}, clip={guards.clip_factor}, "
+              f"reject_nonfinite={guards.reject_nonfinite}; "
+              f"update_rejected {hist['update_rejected'].sum():.0f}")
     return fleet, hist
 
 

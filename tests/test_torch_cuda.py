@@ -630,6 +630,24 @@ def test_graph_capture_error_raises_on_the_card(cuda_device):
 
 
 @pytest.mark.cuda
+def test_graph_capture_runs_without_the_cyclic_gc(cuda_device):
+    """The cyclic collector is off while a body is captured (a graph freed
+    from a reference cycle mid-capture would invalidate it) and back on
+    after; the eager first step runs with it on."""
+    import gc
+    from repro_torch.core.graphs import GraphedBody
+    x = torch.zeros(4, device=cuda_device)
+    seen = []
+    body = GraphedBody(lambda: (seen.append(gc.isenabled()), x.add_(1)),
+                       cuda_device)
+    body()
+    body()
+    torch.cuda.synchronize()
+    assert seen == [True, False] and gc.isenabled()
+    assert body.replays == 1 and torch.equal(x, torch.full_like(x, 2.0))
+
+
+@pytest.mark.cuda
 def test_graphed_simulate_matches_eager_on_the_card(cuda_device):
     """``simulate_fleet`` (one graph for the interval body, replayed) against
     the same interval loop run eagerly on the card, noise from generators
@@ -678,3 +696,90 @@ def test_graphed_simulate_matches_eager_on_the_card(cuda_device):
     np.testing.assert_array_equal(
         hist["throughput"], (torch.stack(rows) / sp.interval_s).cpu().numpy())
     assert set(hist) == set(HISTORY_KEYS)
+
+
+def chaos_kwargs(codec="int8"):
+    """The chaos slice: async rounds with a deadline some links miss, the
+    trimmed mean, the delta clip, crash / byzantine / partition faults."""
+    from repro_torch.fl.transport import TransportConfig
+    from repro_torch.resilience.faults import FaultConfig
+    from repro_torch.resilience.guards import GuardConfig
+    return dict(
+        transport=TransportConfig(codec=codec, deadline_s=0.002,
+                                  async_rounds=True),
+        guards=GuardConfig(agg="trimmed", clip_factor=3.0),
+        faults=FaultConfig(crash_prob=0.1, byzantine_frac=0.25,
+                           partition_prob=0.3))
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("backend", ["fluid", "twin"])
+def test_graph_driver_matches_reference_under_chaos_on_the_card(
+        cuda_device, monkeypatch, backend):
+    """The chaos slice (A=8, P=2, ``fl_every=1``, eight episodes, two
+    merges): the graph driver takes the reference driver's actions, and
+    its histories, final state (timers and parked uploads included) and
+    launch counts are the reference's bit for bit; K2 once per round."""
+    from repro_torch.core import fleet as tfleet
+    cfg = FCPOConfig(fl_every=1)
+    a, n_eps = 8, 8
+    traces = torch.tensor(np.random.default_rng(5).uniform(
+        5.0, 160.0, (a, n_eps * cfg.n_steps)).astype(np.float32),
+        device=cuda_device)
+    runs = []
+    for drive in (tfleet.train_fleet_reference, tfleet.train_fleet_scan):
+        rec = recorded_actions(monkeypatch, n_eps * cfg.n_steps, a,
+                               cuda_device)
+        fleet = tfleet.fleet_init(cfg, a, 11, n_pods=2, device=cuda_device,
+                                  env_backend=backend)
+        diversity_insert.launches = delta_codec.launches = 0
+        queue_advance.launches = 0
+        fleet, hist = drive(cfg, fleet, traces, straggler_prob=0.25, seed=3,
+                            env_backend=backend, **chaos_kwargs())
+        runs.append((rec.cpu(), hist, tfleet.fleet_to_numpy(fleet),
+                     (diversity_insert.launches, delta_codec.launches,
+                      queue_advance.launches)))
+    (act_r, hist_r, state_r, n_r), (act_s, hist_s, state_s, n_s) = runs
+    assert (act_r >= 0).all() and torch.equal(act_s, act_r)
+    for k, v in hist_r.items():
+        np.testing.assert_array_equal(hist_s[k], v, err_msg=k)
+    assert_trees_equal(state_s, state_r)
+    assert n_s == n_r == (n_eps, n_eps,
+                          n_eps * cfg.n_steps if backend == "twin" else 0)
+    assert hist_s["fl_stale_used"].sum() > 0
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("codec", ["int8", "topk"])
+def test_chaos_card_run_matches_cpu_run(cuda_device, codec):
+    """The chaos slice from one numpy fleet state with one set of action
+    noise, on the card (kernels) and on the CPU (plain versions):
+    histories within rtol 1e-3 / atol 1e-4; timers and the parked
+    uploads' masks identical."""
+    from repro_torch.core import fleet as tfleet
+    cfg = FCPOConfig(fl_every=1)
+    a, n_eps = 4, 8
+    tree = tfleet.fleet_to_numpy(tfleet.fleet_init(cfg, a, 7, n_pods=2,
+                                                   device="cpu"))
+    rng = np.random.default_rng(7)
+    traces = rng.uniform(5.0, 120.0, (a, n_eps * cfg.n_steps)).astype(
+        np.float32)
+    gumbel = (-np.log(-np.log(rng.uniform(
+        1e-6, 1.0, (n_eps, a, cfg.n_steps, 15))))).astype(np.float32)
+    out = []
+    for dev in (cuda_device, "cpu"):
+        fleet = tfleet.fleet_from_numpy(cfg, tree, device=dev)
+        fleet, hist = tfleet.train_fleet_scan(
+            cfg, fleet, torch.as_tensor(traces, device=dev),
+            gumbel=torch.as_tensor(gumbel, device=dev),
+            **chaos_kwargs(codec))
+        out.append((hist, tfleet.fleet_to_numpy(fleet)))
+    (hist_k, st_k), (hist_c, st_c) = out
+    for k, v in hist_c.items():
+        np.testing.assert_allclose(hist_k[k], v, rtol=1e-3, atol=1e-4,
+                                   err_msg=k)
+    for k in ("crash_timer", "partition_timer"):
+        np.testing.assert_array_equal(st_k[k], st_c[k], err_msg=k)
+    for k in ("has", "staleness"):
+        np.testing.assert_array_equal(st_k["pending"][k], st_c["pending"][k],
+                                      err_msg=k)

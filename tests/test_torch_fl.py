@@ -314,3 +314,25 @@ def test_per_head_losses_value_and_detach_gradient():
     for (name, _), g in zip(pt.items(), grads):
         close(torch.zeros_like(pt[name]) if g is None else g, gj[name],
               f"grad {name}")
+
+
+def test_transport_config_and_metric_keys_match_jax():
+    """``async_rounds`` / ``staleness_decay`` with the JAX defaults; a
+    round is ``plain`` (the codec skipped) only for the float32 codec in
+    synchronous rounds; the round metrics carry the JAX package's six
+    keys, zero on an episode without a round."""
+    assert ttr.TransportConfig() == ttr.DEFAULT_TRANSPORT
+    for f in ("codec", "topk_frac", "deadline_s", "async_rounds",
+              "staleness_decay"):
+        assert getattr(ttr.DEFAULT_TRANSPORT, f) == \
+            getattr(jtr.DEFAULT_TRANSPORT, f), f
+    for codec in ttr.CODECS:
+        for async_rounds in (False, True):
+            kw = dict(codec=codec, deadline_s=0.01,
+                      async_rounds=async_rounds)
+            assert ttr.TransportConfig(**kw).plain == \
+                jtr.TransportConfig(**kw).plain
+    assert ttr.FL_METRIC_KEYS == jtr.FL_METRIC_KEYS
+    zeros = ttr.fl_zero_metrics("cpu")
+    assert tuple(zeros) == jtr.FL_METRIC_KEYS
+    assert all(float(v) == 0.0 for v in zeros.values())

@@ -56,8 +56,10 @@ def test_fleet_numpy_round_trip(jax_fleet):
     back = tfleet.fleet_to_numpy(
         tfleet.fleet_from_numpy(CFG_T, tree, device="cpu"))
     for key in ("params", "opt", "buffer", "env_state", "env_params",
-                "base_params", "masks", "residuals"):
+                "base_params", "masks", "residuals", "pending"):
         close_tree(back[key], tree[key], key + ".")
+    for key in ("crash_timer", "partition_timer"):
+        exact(back[key], tree[key], key)
     exact(back["speeds"], tree["speeds"])
     exact(back["bandwidth"], tree["bandwidth"])
 

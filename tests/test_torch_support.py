@@ -61,6 +61,11 @@ def jax_fleet_tree(jf):
         "speeds": np.asarray(jf.speeds),
         "bandwidth": np.asarray(jf.bandwidth),
         "residuals": np_tree(jf.residuals),
+        "pending": {"delta": np_tree(jf.pending.delta),
+                    "staleness": np.asarray(jf.pending.staleness),
+                    "has": np.asarray(jf.pending.has)},
+        "crash_timer": np.asarray(jf.crash_timer),
+        "partition_timer": np.asarray(jf.partition_timer),
     }
 
 
@@ -116,6 +121,24 @@ def close_state(got, want, keys, codec):
         close_tree(got[key], want[key], key + ".")
 
 
+def close_decoded(got: dict, want: dict, codec, prefix=""):
+    """Decoded deltas ({name: (A, ...)}, e.g. parked uploads) within the
+    band. int8: a rounding tie upstream may move a coordinate by one
+    quantization step (``max|row| / 127``) — accepted for at most two
+    coordinates per leaf, as ``close_state`` accepts for residuals."""
+    if codec != "int8":
+        close_tree(got, want, prefix)
+        return
+    for name, w in _flat(want).items():
+        g = _flat(got)[name]
+        bad = ~np.isclose(g, w, rtol=1e-4, atol=1e-5)
+        step = np.abs(w).reshape(len(w), -1).max(1) / 127
+        step = step.reshape((-1,) + (1,) * (w.ndim - 1))
+        within = np.abs(g - w) <= 1.01 * np.broadcast_to(step, w.shape)
+        assert bad.sum() <= 2 and within[bad].all(), \
+            f"{prefix}{name}: {bad.sum()} coordinates off"
+
+
 def close_tree(port: dict, ref: dict, prefix=""):
     """Nested numpy dicts (``fleet_to_numpy`` / ``jax_fleet_tree``):
     floats within the band, integers and booleans exact."""
@@ -145,6 +168,17 @@ def jax_episode_noise(rngs, n_steps, sizes):
         rng, gs = jax.lax.scan(step, rng, None, length=n_steps)
         return gs, rng
     return jax.vmap(one)(rngs)
+
+
+def jax_leaf_noise(key, like):
+    """JAX's ``corrupt_deltas`` noise for ``key``: ``split(key, n_leaves)``
+    in the tree's leaf order, one standard normal draw per leaf; as
+    {dotted name: numpy}."""
+    paths, _ = jax.tree_util.tree_flatten_with_path(like)
+    keys = jax.random.split(key, len(paths))
+    return {".".join(p.key for p in path): np.asarray(
+        jax.random.normal(k, leaf.shape, leaf.dtype))
+        for k, (path, leaf) in zip(keys, paths)}
 
 
 def head_sizes(cfg):

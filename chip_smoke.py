@@ -74,6 +74,25 @@ In order, it:
      atol 1e-4, actions, timers and parked-upload masks identical); ten
      profiled episodes of each driver (ms per episode, busy share,
      capture time, at most three graph launches per replayed episode);
+ 11c. ``[state dtype]``: ``train_fleet --state-dtype bf16`` and ``lean``
+     with ``--fl-codec int8``, fluid and twin, 20 episodes under both
+     drivers (K1 once per episode, K2 once per round, K3 once per twin
+     interval, as without a policy; histories bit for bit between the
+     drivers); the graph driver against the reference driver bit for bit
+     per policy, plain and under the chaos slice with byzantine noise
+     (every leaf at its stored dtype, both generators' states equal); a
+     float32-policy fleet against the default fleet bit for bit; the card
+     against the CPU per policy (A=4, histories within rtol 1e-2 / atol
+     1e-3); ten profiled episodes per policy;
+ 11d. ``[resume]``: ``train_fleet --state-dtype lean`` with the chaos
+     slice and byzantine noise, 20 episodes, straight through and killed by
+     ``--stop-after 7`` at ``--ckpt-every 5`` and rerun: histories and the
+     final checkpoint bit for bit, generator states included; that
+     checkpoint restores on the CPU;
+ 11e. ``[state bytes]``: ``fleet_state_bytes`` by family, the allocated
+     memory of a built fleet and a checkpoint's save / restore time and
+     size per policy at A=8 and A=2048 (lean at least 2x smaller per agent
+     than float32 at A=2048);
  12. holds K5 ``decode_attention`` and K4 ``flash_attention`` against their
      plain versions (the JAX tests' sweeps, K4's bf16 tensor-core path on
      every shape of the sweep, K5 with several splits and the combine, the
@@ -129,8 +148,14 @@ CHAOS_ARGV = ["--fl-codec", "int8", "--fl-deadline-s", "0.002", "--fl-async",
               "--fault-partition-prob", "0.3"]
 
 
-def chaos_kwargs():
-    """``CHAOS_ARGV`` as the drivers' keyword arguments."""
+# the same with byzantine noise (drawn from the fleet's fault generator)
+NOISE_ARGV = [*CHAOS_ARGV[:-3], "noise", *CHAOS_ARGV[-2:]]
+POLICIES = ("bf16", "lean")
+
+
+def chaos_kwargs(mode="sign_flip"):
+    """``CHAOS_ARGV`` (``mode="noise"``: ``NOISE_ARGV``) as the drivers'
+    keyword arguments."""
     from repro_torch.fl.transport import TransportConfig
     from repro_torch.resilience.faults import FaultConfig
     from repro_torch.resilience.guards import GuardConfig
@@ -139,7 +164,24 @@ def chaos_kwargs():
                                   async_rounds=True),
         guards=GuardConfig(agg="trimmed", clip_factor=3.0),
         faults=FaultConfig(crash_prob=0.1, byzantine_frac=0.25,
-                           byzantine_mode="sign_flip", partition_prob=0.3))
+                           byzantine_mode=mode, partition_prob=0.3))
+
+
+def raw(x):
+    """A numpy leaf's bits (bf16 ``|V2`` leaves as uint16)."""
+    import numpy as np
+    x = np.ascontiguousarray(np.asarray(x))
+    return x.view(np.uint16) if x.dtype.kind == "V" else x
+
+
+def leaves(tree, prefix=""):
+    """(dotted name, numpy leaf) of a nested dict (``fleet_to_numpy``)."""
+    import numpy as np
+    for k, v in tree.items():
+        if isinstance(v, dict):
+            yield from leaves(v, f"{prefix}{k}.")
+        else:
+            yield f"{prefix}{k}", np.asarray(v)
 
 
 def log(msg):
@@ -757,12 +799,13 @@ def graph_spy(module):
         module.GraphedBody = cls
 
 
-def drive(torch, argv, n_episodes, fl_every, n_steps):
+def drive(torch, argv, n_episodes, fl_every, n_steps, strict=False):
     """One ``train_fleet`` run under each driver (``scan``, the default,
     then ``--driver reference``), the launch counts set to 0 just before
     each and read just after: K1 once per episode, K2 once per FL round
     under int8/topk, K3 once per twin control interval, finite histories,
-    equal between the drivers. Returns the scan run's (K1, K2, K3)."""
+    equal between the drivers (``strict``: bit for bit). Returns the scan
+    run's (K1, K2, K3)."""
     import numpy as np
     from repro_torch.core import fleet as fleet_mod
     from repro_torch.launch import train_fleet
@@ -799,6 +842,8 @@ def drive(torch, argv, n_episodes, fl_every, n_steps):
                if driver == "scan" else ""))
     same = all(np.array_equal(hists["scan"][k], v)
                for k, v in hists["reference"].items())
+    if strict and not same:
+        raise AssertionError(f"{argv}: the drivers' histories differ")
     for k, v in hists["reference"].items():
         np.testing.assert_allclose(hists["scan"][k], v, rtol=RTOL, atol=ATOL,
                                    err_msg=f"{argv}: scan vs reference {k}")
@@ -839,7 +884,7 @@ def drive_simulate(argv, want_k3):
     return k3
 
 
-def run_pair(torch, cfg, backend, chaos=False):
+def run_pair(torch, cfg, backend, chaos=False, policy=None):
     """A=4, P=2, int8 codec, 3 episodes (``chaos``: the chaos kwargs, eight
     episodes): the card run (kernels) and the CPU run (plain versions) of
     ``train_fleet_reference`` from one numpy fleet state, one set of traces
@@ -847,7 +892,10 @@ def run_pair(torch, cfg, backend, chaos=False):
     In the twin the actions and the final twin state must be equal, under
     chaos the timers and the parked uploads' masks too; a first action
     divergence is accepted only at a near-tie of the Gumbel-max scores (gap
-    below 1e-5 relative), and reported."""
+    below 1e-5 relative), and reported. ``policy``: the fleet stored at a
+    state policy; bf16 storage rounds where float32 roundoff differs, so
+    the histories are held within rtol 1e-2 / atol 1e-3 (about two bf16
+    steps)."""
     import numpy as np
     from repro_torch.core import crl
     from repro_torch.core.fleet import (fleet_from_numpy, fleet_init,
@@ -857,7 +905,9 @@ def run_pair(torch, cfg, backend, chaos=False):
     kw = chaos_kwargs() if chaos else dict(
         transport=TransportConfig(codec="int8"))
     tree = fleet_to_numpy(fleet_init(cfg, a, 7, n_pods=2, device="cpu",
-                                     env_backend=backend))
+                                     env_backend=backend,
+                                     state_policy=policy))
+    rtol, atol = (1e-3, 1e-4) if policy is None else (1e-2, 1e-3)
     rng = np.random.default_rng(7)
     traces = rng.uniform(5.0, 120.0, (a, n_eps * cfg.n_steps)).astype(
         np.float32)
@@ -890,8 +940,8 @@ def run_pair(torch, cfg, backend, chaos=False):
         trees.append(fleet_to_numpy(fleet))
         records.append(record)
     for key in hists[1]:
-        np.testing.assert_allclose(hists[0][key], hists[1][key], rtol=1e-3,
-                                   atol=1e-4, err_msg=f"card vs cpu: {key}")
+        np.testing.assert_allclose(hists[0][key], hists[1][key], rtol=rtol,
+                                   atol=atol, err_msg=f"card vs cpu: {key}")
     diverged = first_action_divergence(torch, cfg, *records)
     exact = []
     if backend == "twin" and not diverged:
@@ -906,8 +956,9 @@ def run_pair(torch, cfg, backend, chaos=False):
         np.testing.assert_array_equal(got, want,
                                       err_msg=f"card vs cpu: {name}")
     log(f"  card run == CPU run ({backend}, A={a}, {n_eps} episodes, int8"
-        f"{', chaos' if chaos else ''}): {len(hists[1])} metrics within "
-        f"rtol 1e-3 / atol 1e-4, actions "
+        f"{', chaos' if chaos else ''}"
+        f"{', ' + policy if policy else ''}): {len(hists[1])} metrics "
+        f"within rtol {rtol:g} / atol {atol:g}, actions "
         f"{'identical' if not diverged else 'identical up to a near-tie'}"
         + (", final twin state identical" if backend == "twin"
            and not diverged else "")
@@ -949,14 +1000,16 @@ def timed(torch, fn):
     return time.time() - t0
 
 
-def profile_episodes(torch, cfg, backend="fluid", n_episodes=10, **kw):
+def profile_episodes(torch, cfg, backend="fluid", n_episodes=10,
+                     policy=None, **kw):
     """Where the time of the CLI default run goes (in ``backend``; ``kw``:
     the drivers' transport / guards / faults) under each driver: after
     eight episodes that warm up (the reference driver) or run eagerly and
     capture the three graphs (the graph driver; the first pod merge
     follows the eighth), ``n_episodes`` timed alone, then ``n_episodes``
     under ``torch.profiler``. Every window holds five FL rounds and one
-    pod merge. A replayed episode takes at most three graph launches."""
+    pod merge. A replayed episode takes at most three graph launches.
+    ``policy``: the fleet stored at that state policy."""
     from repro_torch.core.fleet import (FleetScan, fleet_init,
                                         train_fleet_reference)
     from repro_torch.data.workload import fleet_traces
@@ -966,19 +1019,21 @@ def profile_episodes(torch, cfg, backend="fluid", n_episodes=10, **kw):
     traces = fleet_traces(gen, 8, (warm + 2 * n_episodes) * n, device=DEV)
     window = lambda i: traces[:, (warm + i * n_episodes) * n:
                               (warm + (i + 1) * n_episodes) * n]
-    fleet = fleet_init(cfg, 8, 0, n_pods=2, device=DEV, env_backend=backend)
+    name = backend + (f" --state-dtype {policy}" if policy else "")
+    init = lambda: fleet_init(cfg, 8, 0, n_pods=2, device=DEV,
+                              env_backend=backend, state_policy=policy)
+    fleet = init()
     fleet, _ = train_fleet_reference(cfg, fleet, traces[:, :warm * n],
                                      env_backend=backend, **kw)
     wall = timed(torch, lambda: train_fleet_reference(
         cfg, fleet, window(0), env_backend=backend, **kw))
-    log(f"  {backend} --driver reference: {n_episodes} episodes alone: "
+    log(f"  {name} --driver reference: {n_episodes} episodes alone: "
         f"wall {wall / n_episodes * 1e3:.2f} ms/episode")
     profiled(torch, lambda: train_fleet_reference(
         cfg, fleet, window(1), env_backend=backend, **kw),
-        n_episodes, f"{backend} --driver reference: {n_episodes} episodes",
+        n_episodes, f"{name} --driver reference: {n_episodes} episodes",
         "episode", alone=wall)
-    fleet = fleet_init(cfg, 8, 0, n_pods=2, device=DEV, env_backend=backend)
-    driver = FleetScan(cfg, fleet, traces, env_backend=backend, **kw)
+    driver = FleetScan(cfg, init(), traces, env_backend=backend, **kw)
     for _ in range(warm):
         driver.step()
     per_step = []
@@ -991,16 +1046,16 @@ def profile_episodes(torch, cfg, backend="fluid", n_episodes=10, **kw):
 
     replays = driver.graph_launches
     wall = timed(torch, steps)
-    log(f"  {backend} --driver scan: {n_episodes} replayed episodes alone: "
+    log(f"  {name} --driver scan: {n_episodes} replayed episodes alone: "
         f"wall {wall / n_episodes * 1e3:.2f} ms/episode, "
         f"{(driver.graph_launches - replays) / n_episodes:.2f} graph "
         f"launches/episode; capture {driver.capture_s:.3f} s for "
         f"{sum(g.graph is not None for g in driver.graphs)} graphs")
     profiled(torch, steps, n_episodes,
-             f"{backend} --driver scan: {n_episodes} episodes", "episode",
+             f"{name} --driver scan: {n_episodes} episodes", "episode",
              alone=wall)
     if max(per_step) > 3:
-        raise AssertionError(f"{backend}: a replayed episode took "
+        raise AssertionError(f"{name}: a replayed episode took "
                              f"{max(per_step)} graph launches (at most 3)")
     log(f"    graph launches per replayed episode: at most "
         f"{max(per_step)}")
@@ -1131,13 +1186,19 @@ def profiled(torch, fn, n, label, unit, capture=None, alone=None):
             "inside a graph replay)")
 
 
-def graph_parity(torch, backend, chaos=False):
+def graph_parity(torch, backend, chaos=False, policy=None,
+                 mode="sign_flip"):
     """The graph driver against the reference driver on the card: A=8,
     P=2, ``fl_every=1``, eight episodes (two pod merges), int8, Bernoulli
     stragglers (``chaos``: the chaos kwargs on top), noise from each
     fleet's generator (one seed): identical actions (recorded into a
     device buffer, which capture keeps), histories and final state bit for
-    bit, equal launch counts."""
+    bit, equal launch counts, and equal generator states: the Philox
+    offsets the replays advanced are the ones ``get_state()`` reports.
+    ``policy``: the fleets stored at that state policy (every leaf
+    compared at its stored dtype); ``mode``: the byzantine mode under
+    ``chaos`` (``noise`` draws from the fault generator in the FL-round
+    graph)."""
     import numpy as np
     from repro_torch.configs.fcpo import FCPOConfig
     from repro_torch.core import crl
@@ -1148,7 +1209,7 @@ def graph_parity(torch, backend, chaos=False):
     from repro_torch.fl.transport import TransportConfig
     cfg, a, n_eps = FCPOConfig(fl_every=1), 8, 8
     n = n_eps * cfg.n_steps
-    kw = chaos_kwargs() if chaos else dict(
+    kw = chaos_kwargs(mode) if chaos else dict(
         transport=TransportConfig(codec="int8"))
     traces = torch.as_tensor(np.random.default_rng(5).uniform(
         5.0, 160.0, (a, n)).astype(np.float32), device=DEV)
@@ -1166,15 +1227,21 @@ def graph_parity(torch, backend, chaos=False):
         crl.sample_actions = recording
         try:
             fleet = fleet_init(cfg, a, 11, n_pods=2, device=DEV,
-                               env_backend=backend)
+                               env_backend=backend, state_policy=policy)
             reset_launches()
             fleet, hist = drive_fn(cfg, fleet, traces, straggler_prob=0.25,
                                    seed=3, env_backend=backend, **kw)
             counts = read_launches()[:3]
         finally:
             crl.sample_actions = sample_actions
-        runs.append((rec.cpu(), hist, fleet_to_numpy(fleet), counts))
-    (act_r, hist_r, st_r, n_r), (act_s, hist_s, st_s, n_s) = runs
+        gens = [g.get_state() for g in (fleet.generator,
+                                         fleet.fault_generator)
+                if g is not None]
+        runs.append((rec.cpu(), hist, fleet_to_numpy(fleet), counts, gens))
+    (act_r, hist_r, st_r, n_r, g_r), (act_s, hist_s, st_s, n_s, g_s) = runs
+    if len(g_r) != len(g_s) or not all(map(torch.equal, g_r, g_s)):
+        raise AssertionError(f"graph parity ({backend}): generator states "
+                             f"differ from the reference driver's")
     if (act_r < 0).any() or not torch.equal(act_r, act_s):
         raise AssertionError(f"graph parity ({backend}): the drivers took "
                              f"different actions")
@@ -1182,24 +1249,210 @@ def graph_parity(torch, backend, chaos=False):
         raise AssertionError(f"graph parity ({backend}): launches {n_s} "
                              f"against the reference's {n_r}")
 
-    def leaves(tree, prefix=""):
-        for k, v in tree.items():
-            if isinstance(v, dict):
-                yield from leaves(v, f"{prefix}{k}.")
-            else:
-                yield f"{prefix}{k}", np.asarray(v)
-
     got = dict(leaves(st_s))
     for name, want in [*leaves(st_r), *((f"history.{k}", v)
                                         for k, v in hist_r.items())]:
         have = got[name] if name in got else hist_s[name[8:]]
-        if not np.array_equal(have, want):
+        if (name in got and have.dtype != want.dtype) or \
+                not np.array_equal(raw(have), raw(want)):
             raise AssertionError(f"graph parity ({backend}): {name} differs "
                                  f"from the reference driver's")
-    log(f"  {backend}{' (chaos)' if chaos else ''}: {n} control steps of "
-        f"identical actions; "
+    log(f"  {backend}{' (chaos, ' + mode + ')' if chaos else ''}"
+        f"{' --state-dtype ' + policy if policy else ''}: {n} control steps "
+        f"of identical actions; "
         f"{len(hist_r)} history metrics and {len(got)} state leaves bit "
-        f"for bit; launches K1, K2, K3 {n_s} under both drivers")
+        f"for bit; {len(g_s)} generator states equal; launches K1, K2, K3 "
+        f"{n_s} under both drivers")
+
+
+# ---------------------------------------------------------------------------
+# State dtype policies, checkpoint resume, state bytes
+# ---------------------------------------------------------------------------
+def state_dtype_phase(torch, cfg):
+    """``train_fleet --state-dtype bf16 / lean --fl-codec int8``, fluid and
+    twin, 20 episodes under both drivers: the default run's launch counts
+    (K1 once per episode, K2 once per round, K3 once per twin interval) and
+    histories equal bit for bit between the drivers; the graph driver
+    against the reference driver bit for bit per policy (every leaf at its
+    stored dtype, generator states equal), plain and under the chaos slice
+    with byzantine noise; a float32-policy fleet is the default fleet bit
+    for bit; the card against the CPU per policy; ten profiled episodes per
+    policy. Returns {(policy, backend): (K1, K2, K3)}."""
+    from repro_torch.configs.fcpo import FCPOConfig
+    n = cfg.n_steps
+    counts = {}
+    for policy in POLICIES:
+        for backend in ("fluid", "twin"):
+            argv = ["--episodes", "20", "--state-dtype", policy,
+                    "--fl-codec", "int8"]
+            if backend == "twin":
+                argv += ["--env-backend", "twin"]
+            counts[policy, backend] = drive(torch, argv, 20, cfg.fl_every,
+                                            n, strict=True)
+    log("  launches of K1, K2, K3 per policy: " + json.dumps(
+        {f"{p}/{b}": c for (p, b), c in counts.items()}))
+    for policy in POLICIES:
+        for backend in ("fluid", "twin"):
+            graph_parity(torch, backend, policy=policy)
+            graph_parity(torch, backend, chaos=True, policy=policy,
+                         mode="noise")
+    float32_is_default(torch)
+    for policy in POLICIES:
+        for backend in ("fluid", "twin"):
+            run_pair(torch, FCPOConfig(fl_every=1), backend, policy=policy)
+    for policy in ("float32", *POLICIES):
+        for backend in ("fluid", "twin") if policy != "float32" \
+                else ("fluid",):
+            profile_episodes(torch, cfg, backend, policy=policy)
+    return counts
+
+
+def float32_is_default(torch):
+    """A fleet built with ``state_policy="float32"`` trains as one built
+    without a policy: histories and every state leaf bit for bit."""
+    import numpy as np
+    from repro_torch.configs.fcpo import FCPOConfig
+    from repro_torch.core.fleet import (fleet_init, fleet_to_numpy,
+                                        train_fleet_scan)
+    cfg, a = FCPOConfig(fl_every=1), 8
+    traces = torch.as_tensor(np.random.default_rng(5).uniform(
+        5.0, 160.0, (a, 8 * cfg.n_steps)).astype(np.float32), device=DEV)
+    out = []
+    for policy in (None, "float32"):
+        fleet, hist = train_fleet_scan(
+            cfg, fleet_init(cfg, a, 11, n_pods=2, device=DEV,
+                            state_policy=policy), traces, seed=3,
+            straggler_prob=0.25, **chaos_kwargs())
+        out.append((hist, dict(leaves(fleet_to_numpy(fleet)))))
+    (h0, s0), (h1, s1) = out
+    for k, v in [*h0.items(), *s0.items()]:
+        w = h1[k] if k in h1 else s1[k]
+        if not np.array_equal(v, w):
+            raise AssertionError(f"--state-dtype float32: {k} differs from "
+                                 f"the default run's")
+    log(f"  --state-dtype float32 == the default (chaos, eight episodes): "
+        f"{len(h0)} history metrics and {len(s0)} state leaves bit for bit")
+
+
+def resume_phase(torch, cfg):
+    """``train_fleet --state-dtype lean`` with the chaos slice and
+    byzantine noise, 20 episodes, the graph driver: once straight through
+    (``--ckpt-every 5``), once killed by ``--stop-after 7`` and rerun. The
+    checkpoints land at 5, 7, 12, 17, 20; the two invocations' histories
+    are the straight run's and the final checkpoint is its checkpoint bit
+    for bit, both generators' states included. That checkpoint then
+    restores on the CPU, every leaf equal."""
+    import shutil
+    import tempfile
+    import numpy as np
+    from repro_torch.core.fleet import fleet_init
+    from repro_torch.launch import train_fleet
+    from repro_torch.training import checkpoint as ckpt
+    argv = ["--episodes", "20", "--state-dtype", "lean", *NOISE_ARGV,
+            "--ckpt-every", "5", "--device", DEV]
+    tmp = Path(tempfile.mkdtemp(prefix="chip_smoke_ckpt_"))
+    try:
+        reset_launches()
+        _, h_s = train_fleet.main([*argv, "--ckpt-dir", str(tmp / "a")])
+        k = read_launches()[:3]
+        if k != (20, 20 // cfg.fl_every, 0):
+            raise AssertionError(f"[resume]: K1, K2, K3 launched {k}")
+        killed = [*argv, "--ckpt-dir", str(tmp / "b")]
+        _, h_1 = train_fleet.main([*killed, "--stop-after", "7"])
+        if ckpt.latest_step(str(tmp / "b")) != 7:
+            raise AssertionError("[resume]: --stop-after 7 left no "
+                                 "checkpoint at episode 7")
+        _, h_2 = train_fleet.main(killed)
+        for key, v in h_s.items():
+            if not np.array_equal(np.concatenate([h_1[key], h_2[key]]), v):
+                raise AssertionError(f"[resume]: history {key} differs "
+                                     f"from the straight run's")
+        with np.load(tmp / "a" / "step_00000020.npz") as a, \
+                np.load(tmp / "b" / "step_00000020.npz") as b:
+            want = {key: a[key] for key in a.files}
+            got = {key: b[key] for key in b.files}
+        if set(got) != set(want) or not all(
+                np.array_equal(raw(got[key]), raw(v))
+                for key, v in want.items()):
+            raise AssertionError("[resume]: the resumed run's final "
+                                 "checkpoint differs from the straight "
+                                 "run's")
+        gens = [key for key in want if key.startswith("torch/")]
+        log(f"  stop at 7 and rerun == straight run: 20 episodes of "
+            f"histories and all {len(want)} checkpoint arrays bit for bit "
+            f"({', '.join(gens)} included)")
+        like = fleet_init(cfg, 8, 0, n_pods=2, device="cpu",
+                          state_policy="lean")
+        on_cpu, manifest = ckpt.restore(str(tmp / "b"), 20, like, cfg)
+        flat = ckpt.fleet_flat(on_cpu)
+        for key, v in flat.items():
+            if not key.startswith("torch/") and not np.array_equal(
+                    raw(v), raw(want[key])):
+                raise AssertionError(f"[resume]: {key} restored on the CPU "
+                                     f"differs")
+        log(f"  the card's checkpoint restores on the CPU: {len(flat)} "
+            f"leaves equal (generator states restored: "
+            f"{manifest['restored_generators'] or 'none, another device'})")
+    finally:
+        shutil.rmtree(tmp, ignore_errors=True)
+
+
+def state_bytes_phase(torch, cfg):
+    """Per policy at A=8 / P=2 and A=2048 / P=8: ``fleet_state_bytes`` by
+    family, the ``torch.cuda.memory_allocated`` growth of building the
+    fleet, and a checkpoint's save and restore wall time and file size.
+    Lean must be at least 2x smaller per agent than float32 at A=2048."""
+    import gc
+    import shutil
+    import tempfile
+    from repro_torch.core.fleet import fleet_init, fleet_state_bytes
+    from repro_torch.training import checkpoint as ckpt
+    rows = {}
+    tmp = Path(tempfile.mkdtemp(prefix="chip_smoke_bytes_"))
+    try:
+        for a, p in ((8, 2), (2048, 8)):
+            for policy in ("float32", *POLICIES):
+                pol = None if policy == "float32" else policy
+                gc.collect()
+                torch.cuda.synchronize()
+                m0 = torch.cuda.memory_allocated()
+                fleet = fleet_init(cfg, a, 0, n_pods=p, device=DEV,
+                                   state_policy=pol)
+                gc.collect()
+                torch.cuda.synchronize()
+                alloc = torch.cuda.memory_allocated() - m0
+                b = fleet_state_bytes(fleet)
+                d = tmp / f"{a}-{policy}"
+                save_s = timed(torch, lambda: ckpt.save(str(d), 1, fleet))
+                size = sum(f.stat().st_size for f in d.iterdir())
+                like = fleet_init(cfg, a, 1, n_pods=p, device=DEV,
+                                  state_policy=pol)
+                restore_s = timed(torch, lambda: ckpt.restore(str(d), 1,
+                                                              like, cfg))
+                rows[a, policy] = dict(b, allocated=float(alloc),
+                                       save_s=save_s, restore_s=restore_s,
+                                       file_bytes=float(size))
+                log(f"  A={a} P={p} {policy}: " + ", ".join(
+                    f"{k} {v:.0f}" for k, v in b.items()
+                    if k not in ("per_agent",))
+                    + f" B; per agent {b['per_agent']:.1f} B; allocated "
+                    f"{alloc} B; checkpoint {size} B, save "
+                    f"{save_s * 1e3:.1f} ms, restore "
+                    f"{restore_s * 1e3:.1f} ms")
+                del fleet, like
+            ratio = rows[a, "float32"]["per_agent"] / \
+                rows[a, "lean"]["per_agent"]
+            alloc_ratio = rows[a, "float32"]["allocated"] / \
+                rows[a, "lean"]["allocated"]
+            log(f"  A={a}: float32 / lean per agent {ratio:.3f} (bytes), "
+                f"{alloc_ratio:.3f} (allocated)")
+            if a == 2048 and ratio < 2.0:
+                raise AssertionError(f"lean is {ratio:.3f}x smaller than "
+                                     f"float32 per agent at A=2048 "
+                                     f"(at least 2.0)")
+    finally:
+        shutil.rmtree(tmp, ignore_errors=True)
+    return rows
 
 
 # ---------------------------------------------------------------------------
@@ -1771,6 +2024,13 @@ def main():
     run_pair(torch, FCPOConfig(fl_every=1), "twin", chaos=True)
     profile_episodes(torch, cfg, **chaos_kwargs())
     profile_episodes(torch, cfg, "twin", **chaos_kwargs())
+    log("[state dtype] train_fleet --state-dtype bf16 / lean")
+    state_dtype_phase(torch, cfg)
+    log("[resume] train_fleet --state-dtype lean " + " ".join(NOISE_ARGV)
+        + " --ckpt-every 5, killed by --stop-after 7 and rerun")
+    resume_phase(torch, cfg)
+    log("[state bytes] fleet_state_bytes, allocated memory, checkpoints")
+    state_bytes_phase(torch, cfg)
 
     log("[K5] decode_attention vs plain")
     k5_err, k5_t = check_k5(torch, gen)

@@ -18,6 +18,7 @@ set to -1e30. The single-head ablation (Fig. 12) is not ported yet.
 """
 from __future__ import annotations
 
+import copy
 import math
 from dataclasses import dataclass
 from typing import Dict, Mapping
@@ -27,6 +28,7 @@ from torch import nn
 
 from repro_torch import resolve_device
 from repro_torch.configs.fcpo import FCPOConfig
+from repro_torch.core.dtypes import from_numpy, to_numpy
 
 BACKBONE_KEYS = ("backbone", "value")          # equally-aggregated (Alg. 1)
 HEAD_KEYS = ("head_res", "head_bs", "head_mt")  # loss-weighted layers
@@ -102,33 +104,43 @@ def agent_init(cfg: FCPOConfig, n: int, generator: torch.Generator,
 
 
 def tensors_from_numpy(tree, device="cuda") -> Dict[str, torch.Tensor]:
-    """``{dotted name: float32 tensor}`` from a nested dict of numpy arrays
-    in the JAX layout (``jax.tree.map(np.asarray, params)``)."""
+    """``{dotted name: tensor}`` from a nested dict of numpy arrays in the
+    JAX layout (``jax.tree.map(np.asarray, params)``). Each leaf keeps its
+    dtype: float32, or bf16 from raw 2-byte (``|V2``) or ``uint16`` views
+    (float64 becomes float32)."""
     dev = resolve_device(device)
-    return {k: torch.tensor(v, dtype=torch.float32, device=dev)
-            for k, v in _flatten(tree).items()}
+    return {k: from_numpy(v, dev) for k, v in _flatten(tree).items()}
 
 
 def params_from_numpy(cfg: FCPOConfig, tree, device="cuda") -> AgentPolicy:
     """An ``AgentPolicy`` holding the stacked weights of a nested dict of
-    numpy arrays in the JAX layout."""
+    numpy arrays in the JAX layout, at the leaves' dtype."""
     flat = tensors_from_numpy(tree, device)
-    policy = AgentPolicy(cfg, next(iter(flat.values())).shape[0], device)
+    first = next(iter(flat.values()))
+    policy = AgentPolicy(cfg, first.shape[0], device).to(first.dtype)
     policy.assign(flat)
     return policy
 
 
 def params_to_numpy(params: Mapping[str, torch.Tensor]):
     """The nested-dict numpy form of a ``{dotted name: tensor}`` mapping
-    (the reverse of ``params_from_numpy``)."""
+    (the reverse of ``params_from_numpy``; bf16 leaves as ``|V2``)."""
     out: dict = {}
     for name, t in params.items():
         *path, leaf = name.split(".")
         node = out
         for p in path:
             node = node.setdefault(p, {})
-        node[leaf] = t.detach().cpu().numpy()
+        node[leaf] = to_numpy(t)
     return out
+
+
+def policy_cast(policy: AgentPolicy, dtype) -> AgentPolicy:
+    """``policy`` with its parameters stored at ``dtype``: the module itself
+    when they already are, else a converted copy."""
+    if all(p.dtype == dtype for p in policy.parameters()):
+        return policy
+    return copy.deepcopy(policy).to(dtype)
 
 
 def _flatten(tree, prefix=""):
@@ -142,7 +154,9 @@ def _flatten(tree, prefix=""):
 
 
 def _linear(params, name, x):
-    w, b = params[f"{name}.w"], params[f"{name}.b"]
+    # bf16 parameters compute on float32 copies (the reference promotes
+    # ``x_f32 @ w_bf16`` to float32); the identity on float32 parameters
+    w, b = params[f"{name}.w"].float(), params[f"{name}.b"].float()
     n = w.shape[0]
     y = torch.matmul(x.reshape(n, -1, x.shape[-1]), w)
     y = y.reshape(*x.shape[:-1], w.shape[-1])

@@ -25,6 +25,7 @@ import torch
 from repro_torch import resolve_device
 from repro_torch.configs.fcpo import FCPOConfig
 from repro_torch.core import env as env_mod
+from repro_torch.core.dtypes import tree_f32, weak
 from repro_torch.sim.state import (SimParams, SimState, action_caps,
                                    effective_queue_cap, sim_init,
                                    spread_arrivals, warn_if_ring_clamps)
@@ -101,12 +102,16 @@ class TwinBackend:
             queue_cap=effective_queue_cap(self.sp, ep), slo_s=ep.slo_s)
 
     def step(self, cfg, ep, state: TwinEnvState, action, rate):
-        """One control interval. action: (A, 3) long; rate: (A,) requests/s.
-        Returns (new_state, reward (A,), info dict of (A,) tensors)."""
+        """One control interval. action: (A, 3) long; rate: (A,) requests/s;
+        ``ep`` float32. Returns (new_state, reward (A,), info dict of (A,)
+        tensors); the new state's float leaves come back float32 for the
+        caller to store at the carry's dtypes."""
         sp = self.sp
         caps = action_caps(cfg, sp, ep, action)
         arrivals, phase = spread_arrivals(sp, rate, state.phase)
-        sim2 = sim_interval(state.sim, arrivals, caps)
+        # K3 takes float32 credits and latency sums: a narrower stored
+        # state is read up here and stored back by the caller
+        sim2 = sim_interval(tree_f32(state.sim), arrivals, caps)
 
         # request-grade interval deltas (the counters are cumulative)
         f32 = torch.float32
@@ -117,8 +122,9 @@ class TwinBackend:
                     / torch.clamp_min(d_comp, 1.0) * sp.dt)
         # carry the EMA through empty intervals instead of decaying to zero
         ema_lat = torch.where(d_comp > 0,
-                              0.7 * state.ema_lat + 0.3 * mean_lat,
-                              state.ema_lat)
+                              weak(0.7, state.ema_lat)
+                              * state.ema_lat.float() + 0.3 * mean_lat,
+                              state.ema_lat.float())
 
         throughput = d_comp / sp.interval_s
         effective = d_eff / sp.interval_s

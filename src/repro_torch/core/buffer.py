@@ -1,6 +1,6 @@
 """Diversity-aware fixed-size experience buffer (Eq. 6, §IV-C), stacked.
 
-Port of ``repro.core.buffer`` (float32 storage policy): ``d = α·D_M +
+Port of ``repro.core.buffer``: ``d = α·D_M +
 β·D_KL`` — the Mahalanobis novelty of a new state against the stored
 states plus the KL divergence of its policy from the buffer's mean policy.
 N fixed slots per agent; a new experience replaces the lowest-diversity
@@ -12,6 +12,12 @@ Eq. 6 is O(D²) per candidate. ``buffer_insert_batch`` ingests a whole
 episode through the K1 ``diversity_insert`` kernel for CUDA tensors and
 its plain version for CPU tensors, then scatters the non-scored payload by
 last writer per slot.
+
+Storage dtypes (``core/dtypes.py``, the policy's ``buffer`` family): the
+payload may be stored bf16, or int8 states/probs at fixed scales with bf16
+logp/rewards/values. Every entry point reads the payload up to float32,
+runs the float32 math (K1 takes float32 only) and packs the result back;
+the scores and the streaming moments stay float32 under every policy.
 """
 from __future__ import annotations
 
@@ -21,6 +27,7 @@ import torch
 
 from repro_torch import resolve_device
 from repro_torch.configs.fcpo import FCPOConfig
+from repro_torch.core import dtypes as dtp
 from repro_torch.kernels.diversity import diversity_insert
 
 RIDGE = 0.1  # ε·I covariance regularizer (keeps D_M defined before fill-up)
@@ -65,13 +72,64 @@ def buffer_init(cfg: FCPOConfig, n_agents: int, device="cuda"
         n_filled=z(a, dt=torch.int32))
 
 
+_F32_PAYLOAD = ("logp", "rewards", "values")
+
+
+def _payload_f32(buf: DiversityBuffer) -> DiversityBuffer:
+    """The stored payload read up to float32 (int8 slots dequantized); the
+    identity on a float32 buffer."""
+    if buf.states.dtype == torch.int8:
+        states = dtp.dequant8(buf.states, dtp.STATE_SCALE)
+        probs = dtp.dequant8(buf.probs, dtp.PROB_SCALE)
+    else:
+        states, probs = buf.states.float(), buf.probs.float()
+    return buf.replace(states=states, probs=probs,
+                       **{k: getattr(buf, k).float() for k in _F32_PAYLOAD})
+
+
+def _payload_like(buf: DiversityBuffer, like: DiversityBuffer
+                  ) -> DiversityBuffer:
+    """A float32-payload buffer packed back to ``like``'s storage dtypes."""
+    if like.states.dtype == torch.int8:
+        states = dtp.quant8(buf.states, dtp.STATE_SCALE)
+        probs = dtp.quant8(buf.probs, dtp.PROB_SCALE)
+    else:
+        states = buf.states.to(like.states.dtype)
+        probs = buf.probs.to(like.probs.dtype)
+    return buf.replace(states=states, probs=probs,
+                       **{k: getattr(buf, k).to(getattr(like, k).dtype)
+                          for k in _F32_PAYLOAD})
+
+
+def buffer_cast(buf: DiversityBuffer, dtype: str) -> DiversityBuffer:
+    """The stored payload cast to a policy's ``buffer`` dtype: ``float32``,
+    ``bfloat16`` (all five payload arrays) or ``int8`` (fixed-scale
+    states/probs, bf16 logp/rewards/values)."""
+    f32 = _payload_f32(buf)
+    bf = torch.bfloat16
+    if dtype == "float32":
+        return f32
+    if dtype == "bfloat16":
+        return f32.replace(states=f32.states.to(bf), probs=f32.probs.to(bf),
+                           **{k: getattr(f32, k).to(bf)
+                              for k in _F32_PAYLOAD})
+    if dtype == "int8":
+        return f32.replace(
+            states=dtp.quant8(f32.states, dtp.STATE_SCALE),
+            probs=dtp.quant8(f32.probs, dtp.PROB_SCALE),
+            **{k: getattr(f32, k).to(bf) for k in _F32_PAYLOAD})
+    raise ValueError(f"unknown buffer storage dtype {dtype!r}")
+
+
 def buffer_insert_batch(cfg: FCPOConfig, buf: DiversityBuffer, states,
                         actions, logp, rewards, values, probs
                         ) -> DiversityBuffer:
     """Ingest a whole episode of T candidates per agent (every candidate
     array is (A, T, ...)). The sequential score -> argmin-evict -> scatter
     chain runs in K1 (CUDA) or its plain version (CPU); the non-scored
-    payload is then scattered by last writer per slot."""
+    payload is then scattered by last writer per slot. A narrower stored
+    payload is read up to float32 around the launch and packed back."""
+    stored, buf = buf, _payload_f32(buf)
     t_steps, n = states.shape[1], buf.score.shape[1]
     (new_states, new_probs, new_score, new_filled, s_sum, s_outer, p_sum,
      n_filled, slot, do, _d) = diversity_insert(
@@ -94,24 +152,27 @@ def buffer_insert_batch(cfg: FCPOConfig, buf: DiversityBuffer, states,
         k = keep.reshape(keep.shape + (1,) * (old.dim() - 2))
         return torch.where(k, old, gathered)
 
-    return buf.replace(
+    return _payload_like(buf.replace(
         states=new_states, probs=new_probs, score=new_score,
         filled=new_filled, s_sum=s_sum, s_outer=s_outer, p_sum=p_sum,
         n_filled=n_filled,
         actions=scatter(buf.actions, actions.long()),
         logp=scatter(buf.logp, logp), rewards=scatter(buf.rewards, rewards),
-        values=scatter(buf.values, values), count=buf.count + t_steps)
+        values=scatter(buf.values, values), count=buf.count + t_steps),
+        stored)
 
 
 def buffer_resync(buf: DiversityBuffer) -> DiversityBuffer:
     """Recompute the streaming moments from the stored slots — bounds the
-    float32 rank-1 add/subtract drift; runs on the FL-round cadence."""
+    float32 rank-1 add/subtract drift; runs on the FL-round cadence. The
+    moments are built from the dequantized slots."""
+    f32 = _payload_f32(buf)
     w = buf.filled.to(buf.s_sum.dtype)
-    sw = buf.states * w[..., None]
+    sw = f32.states * w[..., None]
     return buf.replace(
         s_sum=sw.sum(1),
-        s_outer=torch.einsum("and,ane->ade", sw, buf.states),
-        p_sum=(buf.probs * w[..., None]).sum(1),
+        s_outer=torch.einsum("and,ane->ade", sw, f32.states),
+        p_sum=(f32.probs * w[..., None]).sum(1),
         n_filled=buf.filled.sum(-1).to(buf.n_filled.dtype))
 
 

@@ -19,6 +19,7 @@ import torch
 
 from repro_torch.configs.fcpo import FCPOConfig
 from repro_torch.core import env as env_mod
+from repro_torch.core.dtypes import tree_cast_like, tree_f32
 from repro_torch.core.agent import ActionMask, AgentPolicy, sample_actions
 from repro_torch.core.backends import FLUID
 from repro_torch.core.buffer import DiversityBuffer, buffer_insert_batch
@@ -48,6 +49,9 @@ def run_episode(cfg: FCPOConfig, ep: env_mod.EnvParams, astate: AgentState,
     action noise; without it the noise comes from ``generator``."""
     params = astate.policy.params()
     est = astate.env_state
+    # env params are read in float32 once an episode; the stepped env state
+    # is stored back at the carry's dtypes (identities under float32)
+    ep = tree_f32(ep)
     ys = {k: [] for k in ("obs", "actions", "logp", "rewards", "values",
                           "probs", *INFO_METRICS)}
     with torch.no_grad():
@@ -58,7 +62,8 @@ def run_episode(cfg: FCPOConfig, ep: env_mod.EnvParams, astate: AgentState,
                 cfg, params, obs, mask,
                 gumbel=None if gumbel is None else gumbel[:, t],
                 generator=generator)
-            est, reward, info = backend.step(cfg, ep, est, actions, rate)
+            est2, reward, info = backend.step(cfg, ep, est, actions, rate)
+            est = tree_cast_like(est2, est)
             probs = torch.cat([out["res"].exp(), out["bs"].exp(),
                                out["mt"].exp()], dim=-1)
             for k, v in (("obs", obs), ("actions", actions), ("logp", logp),

@@ -18,6 +18,7 @@ import torch
 
 from repro_torch import resolve_device
 from repro_torch.configs.fcpo import FCPOConfig
+from repro_torch.core.dtypes import weak
 
 
 @dataclass
@@ -78,7 +79,7 @@ def observe_vector(cfg: FCPOConfig, *, rate, cur_action, drops, pre_q,
         drops.to(torch.float32) / 50.0,
         pre_q.to(torch.float32) / queue_cap,
         post_q.to(torch.float32) / queue_cap,
-        slo_s / 0.5,
+        slo_s.to(torch.float32) / 0.5,
     ], dim=-1)
 
 
@@ -99,6 +100,8 @@ def action_values(cfg: FCPOConfig, device: torch.device):
 
 def env_step(cfg: FCPOConfig, ep: EnvParams, s: EnvState, action, rate):
     """One control interval. action: (A, 3) long; rate: (A,) arrivals.
+    ``ep`` is float32; the state may be stored narrower (a state policy),
+    and the new state comes back float32 for the caller to store.
 
     Returns (new_state, reward (A,), info dict of (A,) tensors)."""
     res_v, bs_v, mt_v = action_values(cfg, rate.device)
@@ -142,7 +145,9 @@ def env_step(cfg: FCPOConfig, ep: EnvParams, s: EnvState, action, rate):
     wait_fill = 0.5 * bs * pack / torch.clamp_min(rate, 1.0)
     wait_post = post_q / torch.clamp_min(rate_post, 1.0)
     lat = ep.net_lat + wait_pre + wait_fill + t_batch + wait_post
-    ema_lat = 0.7 * s.ema_lat + 0.3 * lat
+    # a bf16 carry meets the literal rounded to bf16, and the product stays
+    # float32 (the reference's compiled arithmetic; the identity on float32)
+    ema_lat = weak(0.7, s.ema_lat) * s.ema_lat.float() + 0.3 * lat
 
     throughput = post_done
     slo_viol = torch.where(lat > ep.slo_s, throughput, 0.0)

@@ -226,16 +226,18 @@ def merge_pods(base_params: Dict[str, torch.Tensor], active=None):
     """Hierarchical FL (§IV-D Large-Scale): the pods' base networks are
     averaged and redistributed. ``active`` ((P,) bool) models a network
     partition: only active pods contribute to and receive the average; a
-    partitioned pod keeps its own base network."""
+    partitioned pod keeps its own base network. The mean runs in float32
+    and is stored at the base networks' dtype."""
     if active is None:
-        return {k: b.mean(0, keepdim=True).expand_as(b).clone()
-                for k, b in base_params.items()}
+        return {k: b.float().mean(0, keepdim=True).expand_as(b)
+                .to(b.dtype).clone() for k, b in base_params.items()}
     n_act = torch.clamp_min(active.sum(), 1).to(torch.float32)
     out = {}
     for k, b in base_params.items():
         w = _rows(active, b)
-        m = torch.where(w, b, 0.0).sum(0, keepdim=True) / n_act
-        out[k] = torch.where(w, m.expand_as(b), b)
+        b32 = b.float()
+        m = torch.where(w, b32, 0.0).sum(0, keepdim=True) / n_act
+        out[k] = torch.where(w, m.expand_as(b), b32).to(b.dtype)
     return out
 
 

@@ -29,10 +29,20 @@ picked by a device-side episode counter. On the CPU the same bodies run eagerly 
 the two drivers give the same numbers bit for bit.
 
 Randomness: the fleet carries a ``torch.Generator`` (parameter init and
-action noise), and the byzantine ``noise`` mode draws from a generator
-seeded by ``faults.seed``. The drivers also take both as pre-drawn inputs
-(``gumbel``, ``byz_noise``), the seam the parity tests use to replay the
-JAX package's draws.
+action noise) and, once a run draws byzantine ``noise``, a second one
+seeded by ``faults.seed`` (``fault_generator``), so that a run split into
+calls draws what the uninterrupted run draws. The drivers also take both
+as pre-drawn inputs (``gumbel``, ``byz_noise``), the seam the parity tests
+use to replay the JAX package's draws. ``rng`` holds the JAX fleet's
+per-agent threefry keys as opaque host data, so that a checkpoint passes
+between the packages whole; the port never draws from them.
+
+State dtypes: ``fleet_init(..., state_policy=...)`` / ``fleet_cast`` store
+the state families at a ``core/dtypes.py`` policy; every path computes in
+float32 and stores back at each leaf's dtype. Both drivers take
+``episode_offset`` / ``total_episodes``, so that a run resumed from a
+checkpoint (``training/checkpoint.py``) draws the uninterrupted run's
+stragglers, faults and merge cadence.
 """
 from __future__ import annotations
 
@@ -44,14 +54,17 @@ import torch
 
 from repro_torch import resolve_device
 from repro_torch.configs.fcpo import FCPOConfig
+from repro_torch.core import dtypes as dtp
 from repro_torch.core import env as env_mod
 from repro_torch.core import federated as fed
 from repro_torch.core.agent import (ActionMask, AgentPolicy, agent_init,
                                     full_mask, params_from_numpy,
-                                    params_to_numpy, tensors_from_numpy)
+                                    params_to_numpy, policy_cast,
+                                    tensors_from_numpy)
 from repro_torch.core.backends import FLUID, TwinEnvState, get_backend
-from repro_torch.core.buffer import (DiversityBuffer, buffer_diversity_mean,
-                                     buffer_init, buffer_resync)
+from repro_torch.core.buffer import (DiversityBuffer, buffer_cast,
+                                     buffer_diversity_mean, buffer_init,
+                                     buffer_resync)
 from repro_torch.core.crl import EPISODE_METRICS, AgentState, crl_episode
 from repro_torch.core.graphs import GraphedBody, copy_into, full_float32
 from repro_torch.core.ppo import Rollout, agent_opt_init, finetune_heads
@@ -85,14 +98,23 @@ class Fleet:
     partition_timer: torch.Tensor     # (P,) int32 merges left partitioned
     generator: torch.Generator
     n_pods: int
+    rng: np.ndarray                   # (A, 2) uint32 JAX keys, host, opaque
     episode: int = 0
+    fault_generator: Optional[torch.Generator] = None   # byzantine noise
 
     def replace(self, **kw) -> "Fleet":
         return replace(self, **kw)
 
 
+def agent_keys(seed: int, n_agents: int) -> np.ndarray:
+    """Distinct (A, 2) uint32 keys from ``seed``: the ``rng`` leaf of a
+    fleet born in the port."""
+    return np.random.SeedSequence(seed).generate_state(
+        2 * n_agents).reshape(n_agents, 2)
+
+
 def _assemble(cfg, policy, opt, buffer, env_state, base, env_params, masks,
-              speeds, bandwidth, residuals, generator, episode=0,
+              speeds, bandwidth, residuals, generator, rng, episode=0,
               pending=None, crash_timer=None, partition_timer=None
               ) -> Fleet:
     n_agents, n_pods = speeds.shape[0], next(base.parameters()).shape[0]
@@ -110,17 +132,19 @@ def _assemble(cfg, policy, opt, buffer, env_state, base, env_params, masks,
         crash_timer=zeros(n_agents) if crash_timer is None else crash_timer,
         partition_timer=(zeros(n_pods) if partition_timer is None
                          else partition_timer),
-        generator=generator, n_pods=n_pods, episode=episode)
+        generator=generator, n_pods=n_pods, rng=rng, episode=episode)
 
 
 def fleet_init(cfg: FCPOConfig, n_agents: int, seed: int = 0, *,
                n_pods: int = 1, device="cuda", env_backend=None,
-               slo_s: Optional[float] = None) -> Fleet:
+               slo_s: Optional[float] = None, state_policy=None) -> Fleet:
     """A fresh fleet: random agents and pod base networks from ``seed``,
     the heterogeneous device mix and link bandwidths drawn from the same
     numpy streams as the reference (``default_rng(0)`` / ``(1)``).
     ``env_backend`` (``"fluid"``, the default, ``"twin"`` or a backend)
-    builds ``astate.env_state``: pass the same backend to the drivers."""
+    builds ``astate.env_state``: pass the same backend to the drivers.
+    ``state_policy``: a ``core/dtypes.py`` policy name or ``StatePolicy``
+    (``fleet_cast``); None keeps every float leaf float32."""
     dev = resolve_device(device)
     backend = get_backend(env_backend)
     gen = torch.Generator(device=dev)
@@ -138,32 +162,83 @@ def fleet_init(cfg: FCPOConfig, n_agents: int, seed: int = 0, *,
     env_params = env_mod.default_env_params(
         speeds, cfg.slo_s if slo_s is None else slo_s, dev)
     backend.check_env_params(env_params)
-    return _assemble(
+    fleet = _assemble(
         cfg, policy, agent_opt_init(policy.params()),
         buffer_init(cfg, n_agents, dev), backend.init(cfg, n_agents, dev),
         pod_base, env_params, full_mask(cfg, n_agents, dev), speeds,
-        bandwidth, residuals_init(policy.params()), gen)
+        bandwidth, residuals_init(policy.params()), gen,
+        agent_keys(seed, n_agents))
+    return fleet if state_policy is None else fleet_cast(fleet, state_policy)
+
+
+def fleet_cast(fleet: Fleet, state_policy) -> Fleet:
+    """The fleet with its state families stored at ``state_policy`` (a
+    name, a ``StatePolicy`` or None for float32): params and base networks
+    (``model``), Adam moments (``opt``), the buffer payload (``buffer``),
+    env state and params (``env``), residuals and parked deltas
+    (``transport``). Leaves already at their dtype are kept as they are;
+    casting a lean fleet to ``"float32"`` widens it (int8 slots
+    dequantized). Build the drivers after casting: their graphs hold the
+    fleet's tensors."""
+    pol = dtp.get_policy(state_policy)
+    a = fleet.astate
+    model = dtp.torch_dtype(pol.model)
+    opt = {"m": dtp.cast_floats(a.opt["m"], pol.opt),
+           "v": dtp.cast_floats(a.opt["v"], pol.opt), "t": a.opt["t"]}
+    astate = AgentState(policy_cast(a.policy, model), opt,
+                        buffer_cast(a.buffer, pol.buffer),
+                        dtp.cast_floats(a.env_state, pol.env))
+    return fleet.replace(
+        astate=astate, base=policy_cast(fleet.base, model),
+        env_params=dtp.cast_floats(fleet.env_params, pol.env),
+        residuals=dtp.cast_floats(fleet.residuals, pol.transport),
+        pending=replace(fleet.pending, delta=dtp.cast_floats(
+            fleet.pending.delta, pol.transport)))
+
+
+def fleet_state_bytes(fleet: Fleet) -> Dict[str, float]:
+    """Storage bytes of the fleet's state by family, plus ``total`` and
+    ``per_agent`` (the JAX package's accounting, from shapes and dtypes).
+    The port keeps four index leaves int64 where the reference has int32:
+    ``buffer.actions`` (buffer), ``env_state.cur_action`` (env),
+    ``pod_ids`` and ``group_ids`` (misc)."""
+    a = fleet.astate
+    fam = {
+        "model": (a.policy.params(), fleet.base.params()),
+        "opt": a.opt,
+        "buffer": a.buffer,
+        "env": (a.env_state, fleet.env_params),
+        "transport": (fleet.residuals, fleet.pending),
+        "health": (),
+        "misc": (fleet.masks, fleet.group_ids, fleet.pod_ids,
+                 fleet.bandwidth, fleet.speeds, fleet.crash_timer,
+                 fleet.partition_timer),
+    }
+    out = {k: float(dtp.tree_bytes(v)) for k, v in fam.items()}
+    out["misc"] += float(fleet.rng.nbytes)
+    out["total"] = float(sum(out.values()))
+    out["per_agent"] = out["total"] / max(int(fleet.pod_ids.shape[0]), 1)
+    return out
 
 
 def _numpy_fields(obj):
     """A state dataclass as a dict of numpy arrays (nested for the twin's
-    ``sim``)."""
-    conv = lambda v: _numpy_fields(v) if is_dataclass(v) else v.cpu().numpy()
+    ``sim``; bf16 leaves as raw ``|V2``)."""
+    conv = lambda v: _numpy_fields(v) if is_dataclass(v) else dtp.to_numpy(v)
     return {f.name: conv(getattr(obj, f.name)) for f in fields(obj)}
 
 
 def _from_fields(cls, tree, dev, longs=(), nested=None):
-    """``cls`` from a dict of numpy arrays; ``longs`` name the fields made
-    ``long``, ``nested`` maps a field holding a dict to its class."""
+    """``cls`` from a dict of numpy arrays, each leaf at its own dtype
+    (``dtp.from_numpy``); ``longs`` name the fields made ``long``,
+    ``nested`` maps a field holding a dict to its class."""
     nested = nested or {}
 
     def conv(name, v):
         if name in nested:
             return _from_fields(nested[name], v, dev)
-        t = torch.tensor(np.asarray(v), device=dev)
-        if name in longs:
-            return t.long()
-        return t.float() if t.is_floating_point() else t
+        t = dtp.from_numpy(v, dev)
+        return t.long() if name in longs else t
     return cls(**{f.name: conv(f.name, tree[f.name]) for f in fields(cls)})
 
 
@@ -185,9 +260,11 @@ def fleet_from_numpy(cfg: FCPOConfig, tree, device="cuda", seed: int = 0
     ``env_params`` (field dicts), ``base_params``,
     ``masks`` (``res``/``bs``/``mt``), ``speeds``, ``bandwidth``, and
     optionally ``residuals``, ``pending`` (``delta`` tree, ``staleness``,
-    ``has``), ``crash_timer``, ``partition_timer`` and ``episode``.
-    ``seed`` seeds the fleet's generator. ``fleet_to_numpy`` is the
-    reverse."""
+    ``has``), ``crash_timer``, ``partition_timer``, ``episode`` and
+    ``rng`` (the (A, 2) uint32 keys, else made from ``seed``). Every leaf
+    keeps its dtype (bf16 from raw ``|V2`` or ``uint16`` arrays, int8 buffer
+    slots); the index leaves become ``long``. ``seed`` seeds the fleet's
+    generator. ``fleet_to_numpy`` is the reverse."""
     dev = resolve_device(device)
     policy = params_from_numpy(cfg, tree["params"], dev)
     base = params_from_numpy(cfg, tree["base_params"], dev)
@@ -215,39 +292,45 @@ def fleet_from_numpy(cfg: FCPOConfig, tree, device="cuda", seed: int = 0
             has=torch.tensor(np.asarray(pending["has"]), dtype=torch.bool,
                              device=dev))
     timer = lambda k: i32(tree[k]) if k in tree else None
+    n_agents = masks.res.shape[0]
+    rng = (np.array(tree["rng"], dtype=np.uint32) if "rng" in tree
+           else agent_keys(seed, n_agents))
     return _assemble(
         cfg, policy, opt,
         _from_fields(DiversityBuffer, tree["buffer"], dev, longs=("actions",)),
         _env_state_from_numpy(tree["env_state"], dev),
         base, _from_fields(env_mod.EnvParams, tree["env_params"], dev),
         masks, f32(tree["speeds"]), f32(tree["bandwidth"]), residuals, gen,
-        episode=int(tree.get("episode", 0)), pending=pending,
+        rng, episode=int(tree.get("episode", 0)), pending=pending,
         crash_timer=timer("crash_timer"),
         partition_timer=timer("partition_timer"))
 
 
 def fleet_to_numpy(fleet: Fleet):
     """The nested-dict numpy form of ``fleet`` (the layout
-    ``fleet_from_numpy`` reads)."""
+    ``fleet_from_numpy`` reads; bf16 leaves as raw ``|V2``). The derived
+    index leaves and the carried keys are ``training/checkpoint.py``'s to
+    add."""
     a = fleet.astate
+    np_ = dtp.to_numpy
     return {
         "params": params_to_numpy(a.policy.params()),
         "opt": {"m": params_to_numpy(a.opt["m"]),
                 "v": params_to_numpy(a.opt["v"]),
-                "t": a.opt["t"].cpu().numpy()},
+                "t": np_(a.opt["t"])},
         "buffer": _numpy_fields(a.buffer),
         "env_state": _numpy_fields(a.env_state),
         "env_params": _numpy_fields(fleet.env_params),
         "base_params": params_to_numpy(fleet.base.params()),
         "masks": _numpy_fields(fleet.masks),
-        "speeds": fleet.speeds.cpu().numpy(),
-        "bandwidth": fleet.bandwidth.cpu().numpy(),
+        "speeds": np_(fleet.speeds),
+        "bandwidth": np_(fleet.bandwidth),
         "residuals": params_to_numpy(fleet.residuals),
         "pending": {"delta": params_to_numpy(fleet.pending.delta),
-                    "staleness": fleet.pending.staleness.cpu().numpy(),
-                    "has": fleet.pending.has.cpu().numpy()},
-        "crash_timer": fleet.crash_timer.cpu().numpy(),
-        "partition_timer": fleet.partition_timer.cpu().numpy(),
+                    "staleness": np_(fleet.pending.staleness),
+                    "has": np_(fleet.pending.has)},
+        "crash_timer": np_(fleet.crash_timer),
+        "partition_timer": np_(fleet.partition_timer),
         "episode": fleet.episode,
     }
 
@@ -320,8 +403,8 @@ def fl_round(cfg: FCPOConfig, fleet: Fleet, rollouts, available=None,
     # slow but available clients stay selectable (they park), and so do
     # parked deltas whose owner is offline now.
     stats = fed.ClientStats(
-        mem_avail=torch.clamp(1.0 - astate.env_state.pre_q
-                              / fleet.env_params.queue_cap, 0, 1),
+        mem_avail=torch.clamp(1.0 - astate.env_state.pre_q.float()
+                              / fleet.env_params.queue_cap.float(), 0, 1),
         compute_avail=torch.clamp(fleet.speeds / 2.0, 0, 1),
         diversity=buffer_diversity_mean(astate.buffer),
         bandwidth=fleet.bandwidth,
@@ -340,8 +423,10 @@ def fl_round(cfg: FCPOConfig, fleet: Fleet, rollouts, available=None,
         recon = contrib = params
         sel_agg = sel
     else:
-        base_g = {k: b[fleet.pod_ids] for k, b in base.items()}
-        delta = {k: params[k] - base_g[k] for k in params}
+        # deltas are formed in float32 against float32 base networks,
+        # whatever the stored dtypes
+        base_g = {k: b[fleet.pod_ids].float() for k, b in base.items()}
+        delta = {k: params[k].float() - base_g[k] for k in params}
         decoded, res_next = codec_roundtrip(delta, fleet.residuals, transport)
         if byz_on:
             # corrupted in transit, after the client committed its error
@@ -382,15 +467,19 @@ def fl_round(cfg: FCPOConfig, fleet: Fleet, rollouts, available=None,
                                 base_g[k] + contrib[k], params[k])
                  for k in params}
         # error feedback commits only for deltas that went (or, parked,
-        # will go) over the wire
-        residuals = {k: torch.where(rows(transmitted, res_next[k]),
-                                    res_next[k], fleet.residuals[k])
-                     for k in res_next}
+        # will go) over the wire; stored at the residuals' dtype
+        residuals = {k: torch.where(rows(transmitted, r),
+                                    res_next[k].to(r.dtype), r)
+                     for k, r in fleet.residuals.items()}
 
+    # Algorithm 1 in float32; the new params and base networks are stored
+    # at their dtypes (identities under float32)
     new_params, new_base = fed.aggregate(
-        cfg, recon, base, sel_agg, head_losses, fleet.group_ids,
-        fleet.group_counts, fleet.pod_ids, fleet.n_pods, method=guards.agg,
-        trim_frac=guards.trim_frac)
+        cfg, dtp.tree_f32(recon), dtp.tree_f32(base), sel_agg, head_losses,
+        fleet.group_ids, fleet.group_counts, fleet.pod_ids, fleet.n_pods,
+        method=guards.agg, trim_frac=guards.trim_frac)
+    new_params = dtp.tree_cast_like(new_params, params)
+    new_base = dtp.tree_cast_like(new_base, base)
     # Algorithm 2: local action-head fine-tuning on local experiences
     new_params, opt = finetune_heads(cfg, new_params, astate.opt, rollouts,
                                      fleet.masks)
@@ -449,15 +538,40 @@ def _episode_means(metrics, ran):
     return [(v * w).sum() / d for v in metrics.values()]
 
 
-def _fault_generator(faults, byz_noise, dev):
+def _fault_generator(fleet: Fleet, faults, byz_noise):
     """The generator of the byzantine ``noise`` mode when no noise is
-    given, seeded by ``faults.seed``; else None."""
+    given, else None. It lives in the fleet (``fleet.fault_generator``,
+    seeded by ``faults.seed`` on first use), so a run split into driver
+    calls continues its draws where the last call stopped."""
     if (faults is None or not faults.byzantine_active
             or faults.byzantine_mode != "noise" or byz_noise is not None):
         return None
-    gen = torch.Generator(device=dev)
-    gen.manual_seed(faults.seed)
-    return gen
+    if fleet.fault_generator is None:
+        gen = torch.Generator(device=fleet.pod_ids.device)
+        gen.manual_seed(faults.seed)
+        fleet.fault_generator = gen
+    return fleet.fault_generator
+
+
+def _run_plan(cfg: FCPOConfig, fleet: Fleet, n_eps: int, learn, federated,
+              straggler_prob, seed, faults, episode_offset, total_episodes):
+    """The host-side plan of a driver call over the absolute episodes
+    ``[episode_offset, episode_offset + n_eps)`` of a run of
+    ``total_episodes``: the FL schedule, availability bits and fault plan
+    drawn over the whole run and sliced to the call, and the FL rounds run
+    before it (the merge cadence's counter)."""
+    total = (episode_offset + n_eps if total_episodes is None
+             else total_episodes)
+    if total < episode_offset + n_eps:
+        raise ValueError(f"total_episodes={total} < episode_offset="
+                         f"{episode_offset} + {n_eps} trace episodes")
+    a = fleet.pod_ids.shape[0]
+    schedule = fed.fl_schedule(cfg, total, federated=federated, learn=learn)
+    avail = fed.draw_availability(schedule, a, straggler_prob, seed)
+    plan = rfaults.draw_fault_plan(schedule, a, fleet.n_pods, faults)
+    sl = slice(episode_offset, episode_offset + n_eps)
+    return (schedule[sl], avail[sl], rfaults.FaultPlan(*(x[sl] for x in plan)),
+            int(schedule[:episode_offset].sum()))
 
 
 def train_fleet_reference(cfg: FCPOConfig, fleet: Fleet, traces, *,
@@ -467,35 +581,39 @@ def train_fleet_reference(cfg: FCPOConfig, fleet: Fleet, traces, *,
                           transport: Optional[TransportConfig] = None,
                           guards: Optional[GuardConfig] = None,
                           faults: Optional[FaultConfig] = None,
-                          gumbel=None, byz_noise=None):
+                          gumbel=None, byz_noise=None,
+                          episode_offset: int = 0,
+                          total_episodes: Optional[int] = None):
     """The Python-loop driver: episodes over ``traces`` (A, total_steps),
     an FL round every ``fl_every`` episodes (stragglers from
     ``draw_availability(seed)``, the reference's stream), a pod merge every
     ``hierarchical_period`` rounds. ``guards`` / ``faults``: the chaos
     layer (``draw_fault_plan`` from ``faults.seed``, the reference's plan):
     a crashed agent's episode and round are undone and it sits out the
-    round, partitioned pods skip merges. ``gumbel``: optional pre-drawn
-    action noise (n_episodes, A, n_steps, n_res+n_bs+n_mt); ``byz_noise``:
-    optional byzantine noise, {name: (n_episodes, A, ...)}. ``env_backend``:
-    ``"fluid"`` (default) / ``"twin"`` / a backend, the one the fleet was
-    built with. Returns (fleet, history) with one fleet-mean value per
-    episode and metric (with crashes, the mean over the agents that
-    ran)."""
+    round, partitioned pods skip merges. ``episode_offset`` /
+    ``total_episodes``: ``traces`` holds the absolute episodes from
+    ``episode_offset`` of a run of ``total_episodes`` (default: this
+    call's end), so that the schedule, the straggler and fault draws and
+    the merge cadence are the uninterrupted run's. ``gumbel``: optional
+    pre-drawn action noise (n_episodes, A, n_steps, n_res+n_bs+n_mt);
+    ``byz_noise``: optional byzantine noise, {name: (n_episodes, A, ...)},
+    both over this call's episodes. ``env_backend``: ``"fluid"`` (default)
+    / ``"twin"`` / a backend, the one the fleet was built with. Returns
+    (fleet, history) with one fleet-mean value per episode and metric
+    (with crashes, the mean over the agents that ran)."""
     backend = get_backend(env_backend)
     faults, guards = _normalize_chaos(faults, guards)
     dev = fleet.pod_ids.device
     traces = traces.to(dev)
-    a, total = traces.shape
-    n_eps = total // cfg.n_steps
-    schedule = fed.fl_schedule(cfg, n_eps, federated=federated, learn=learn)
-    avail = fed.draw_availability(schedule, a, straggler_prob, seed)
-    plan = rfaults.draw_fault_plan(schedule, a, fleet.n_pods, faults)
+    n_eps = traces.shape[1] // cfg.n_steps
+    schedule, avail, plan, rounds = _run_plan(
+        cfg, fleet, n_eps, learn, federated, straggler_prob, seed, faults,
+        episode_offset, total_episodes)
     crash_on = faults is not None and faults.crash_active
     byz_on = faults is not None and faults.byzantine_active
-    fault_gen = _fault_generator(faults, byz_noise, dev)
+    fault_gen = _fault_generator(fleet, faults, byz_noise)
     bits = lambda x: torch.as_tensor(x, device=dev)
     history: Dict[str, list] = {}
-    rounds = 0
     for e in range(n_eps):
         rates = traces[:, e * cfg.n_steps:(e + 1) * cfg.n_steps]
         prev = rfaults.snapshot_astate(fleet.astate) if crash_on else None
@@ -551,7 +669,8 @@ class FleetScan:
                  transport: Optional[TransportConfig] = None,
                  guards: Optional[GuardConfig] = None,
                  faults: Optional[FaultConfig] = None, gumbel=None,
-                 byz_noise=None):
+                 byz_noise=None, episode_offset: int = 0,
+                 total_episodes: Optional[int] = None):
         self.cfg, self.fleet, self.learn = cfg, fleet, learn
         self.backend = get_backend(env_backend)
         self.transport = DEFAULT_TRANSPORT if transport is None else transport
@@ -561,10 +680,9 @@ class FleetScan:
         a, total = traces.shape
         n = cfg.n_steps
         self.n_eps = total // n
-        self.schedule = fed.fl_schedule(cfg, self.n_eps, federated=federated,
-                                        learn=learn)
-        avail = fed.draw_availability(self.schedule, a, straggler_prob, seed)
-        plan = rfaults.draw_fault_plan(self.schedule, a, fleet.n_pods, faults)
+        self.schedule, avail, plan, self.rounds = _run_plan(
+            cfg, fleet, self.n_eps, learn, federated, straggler_prob, seed,
+            faults, episode_offset, total_episodes)
         # the run's inputs, staged on the device once, episode-major
         self.rates = traces[:, :self.n_eps * n].to(dev, torch.float32) \
             .reshape(a, self.n_eps, n).transpose(0, 1).contiguous()
@@ -579,9 +697,9 @@ class FleetScan:
         self.byz_noise = None if byz_noise is None else \
             {k: v.to(dev, torch.float32).contiguous()
              for k, v in byz_noise.items()}
-        self.fault_gen = _fault_generator(faults, byz_noise, dev)
+        self.fault_gen = _fault_generator(fleet, faults, byz_noise)
         self.counter = torch.zeros((), dtype=torch.long, device=dev)
-        self.episodes = self.rounds = 0        # the host's copies
+        self.episodes = 0     # the host's copies (rounds: of the whole run)
         f32 = lambda *s: torch.zeros(s, dtype=torch.float32, device=dev)
         self.ep_hist = f32(self.n_eps, len(EPISODE_METRICS))
         self.fl_hist = f32(self.n_eps, len(fl_transport.FL_METRIC_KEYS))
@@ -708,7 +826,8 @@ def train_fleet_scan(cfg: FCPOConfig, fleet: Fleet, traces, *,
                      transport: Optional[TransportConfig] = None,
                      guards: Optional[GuardConfig] = None,
                      faults: Optional[FaultConfig] = None,
-                     gumbel=None, byz_noise=None):
+                     gumbel=None, byz_noise=None, episode_offset: int = 0,
+                     total_episodes: Optional[int] = None):
     """The graph driver: episodes over ``traces`` (A, total_steps), an FL
     round every ``fl_every`` episodes (stragglers from
     ``draw_availability(seed)``), a pod merge every ``hierarchical_period``
@@ -725,6 +844,8 @@ def train_fleet_scan(cfg: FCPOConfig, fleet: Fleet, traces, *,
     noise (n_episodes, A, n_steps, n_res+n_bs+n_mt); without it the noise
     comes from ``fleet.generator`` in the reference driver's order.
     ``byz_noise``: optional byzantine noise, {name: (n_episodes, A, ...)}.
+    ``episode_offset`` / ``total_episodes``: as in
+    ``train_fleet_reference`` (a resumed run's absolute episodes).
     ``env_backend``: the backend the fleet was built with. Float32 products
     run without TF32 for the run. Returns (fleet, history) with one
     fleet-mean float32 value per episode and metric (FL metrics 0 on
@@ -733,7 +854,8 @@ def train_fleet_scan(cfg: FCPOConfig, fleet: Fleet, traces, *,
                      straggler_prob=straggler_prob, seed=seed,
                      env_backend=env_backend, transport=transport,
                      guards=guards, faults=faults, gumbel=gumbel,
-                     byz_noise=byz_noise).run()
+                     byz_noise=byz_noise, episode_offset=episode_offset,
+                     total_episodes=total_episodes).run()
 
 
 def train_fleet(cfg: FCPOConfig, fleet: Fleet, traces, *, learn: bool = True,
@@ -742,7 +864,8 @@ def train_fleet(cfg: FCPOConfig, fleet: Fleet, traces, *, learn: bool = True,
                 transport: Optional[TransportConfig] = None,
                 guards: Optional[GuardConfig] = None,
                 faults: Optional[FaultConfig] = None, gumbel=None,
-                byz_noise=None):
+                byz_noise=None, episode_offset: int = 0,
+                total_episodes: Optional[int] = None):
     """The default entry point: delegates to ``train_fleet_scan``, as the
     JAX package's ``train_fleet`` does."""
     return train_fleet_scan(cfg, fleet, traces, learn=learn,
@@ -750,4 +873,6 @@ def train_fleet(cfg: FCPOConfig, fleet: Fleet, traces, *, learn: bool = True,
                             straggler_prob=straggler_prob, seed=seed,
                             env_backend=env_backend, transport=transport,
                             guards=guards, faults=faults, gumbel=gumbel,
-                            byz_noise=byz_noise)
+                            byz_noise=byz_noise,
+                            episode_offset=episode_offset,
+                            total_episodes=total_episodes)

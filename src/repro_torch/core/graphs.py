@@ -106,19 +106,25 @@ def full_float32():
          torch.backends.cudnn.allow_tf32) = saved
 
 
-def copy_into(dst, src) -> None:
+def copy_into(dst, src, path: str = "") -> None:
     """Copy ``src`` into the tensors of ``dst`` in place, walking
     dataclasses, dicts and tensors of the same layout (the static carry:
-    what a new-state return would rebind). Shared objects are skipped."""
+    what a new-state return would rebind). Shared objects are skipped. A
+    tensor whose dtype differs from its destination's raises, naming the
+    leaf: a silent cast would store what the other driver does not."""
     if dst is src:
         return
     if torch.is_tensor(dst):
+        if src.dtype != dst.dtype:
+            raise TypeError(f"copy_into: {path or 'tensor'} is {src.dtype}, "
+                            f"its destination {dst.dtype}")
         dst.copy_(src)
     elif isinstance(dst, dict):
         for k, v in dst.items():
-            copy_into(v, src[k])
+            copy_into(v, src[k], f"{path}.{k}" if path else str(k))
     elif is_dataclass(dst):
         for f in fields(dst):
-            copy_into(getattr(dst, f.name), getattr(src, f.name))
+            copy_into(getattr(dst, f.name), getattr(src, f.name),
+                      f"{path}.{f.name}" if path else f.name)
     else:
         raise TypeError(f"copy_into: cannot copy into {type(dst).__name__}")

@@ -114,21 +114,26 @@ def _rows(x, like):
 
 def _adam(cfg: FCPOConfig, params, grads, opt, freeze=()):
     """One Adam step per agent; leaves whose top-level key is in ``freeze``
-    keep their params but still update their moments."""
+    keep their params but still update their moments. The moment math runs
+    in float32 whatever the stored dtypes (a state policy may keep params
+    and moments bf16), and each result is stored back at its leaf's dtype:
+    the identity under float32."""
     t = opt["t"] + 1
     b1, b2, eps = 0.9, 0.999, 1e-8
     tf = t.to(torch.float32)
     bc1, bc2 = 1 - torch.pow(b1, tf), 1 - torch.pow(b2, tf)
     new_p, new_m, new_v = {}, {}, {}
     for k, p in params.items():
-        g = grads[k]
-        m = b1 * opt["m"][k] + (1 - b1) * g
-        v = b2 * opt["v"][k] + (1 - b2) * g * g
+        g = grads[k].float()
+        m0, v0 = opt["m"][k], opt["v"][k]
+        m = b1 * m0.float() + (1 - b1) * g
+        v = b2 * v0.float() + (1 - b2) * g * g
         mh = m / _rows(bc1, m)
         vh = v / _rows(bc2, v)
         step = cfg.lr * mh / (torch.sqrt(vh) + eps)
-        new_p[k] = p if k.split(".")[0] in freeze else p - step
-        new_m[k], new_v[k] = m, v
+        new_p[k] = p if k.split(".")[0] in freeze else \
+            (p.float() - step).to(p.dtype)
+        new_m[k], new_v[k] = m.to(m0.dtype), v.to(v0.dtype)
     return new_p, {"m": new_m, "v": new_v, "t": t}
 
 
@@ -150,6 +155,8 @@ def agent_update(cfg: FCPOConfig, params, opt, rollout: Rollout,
     ``params`` maps names to autograd leaves (``AgentPolicy.params()``).
     Returns (new_params, new_opt, metrics) with detached (A, ...) tensors."""
     with torch.enable_grad():
+        # bf16 parameters are read up to float32 inside the forward, so
+        # their gradients arrive rounded to bf16, as the reference's do
         loss, metrics = fcpo_loss(cfg, params, rollout, mask)
         names = list(params)
         grads = torch.autograd.grad(loss.sum(), [params[k] for k in names])

@@ -24,12 +24,15 @@ def codec_roundtrip(delta: Dict[str, torch.Tensor],
                     transport: TransportConfig):
     """Encode->decode a fleet's deltas with error feedback. Returns
     (decoded, new_residual) dicts with ``decoded + new_residual == delta +
-    residual`` per leaf (bit-exact for float32/topk)."""
+    residual`` per leaf (bit-exact for float32/topk). The deltas are
+    float32; residuals stored narrower (a state policy) are read up to
+    float32, and both outputs are float32 (the caller stores the residuals
+    back at their dtype)."""
     flat = lambda x: x.reshape(x.shape[0], -1).contiguous()
     names = list(delta)
     ds = [flat(delta[n]) for n in names]
     decs, ress = delta_codec_leaves(
-        ds, [flat(residual[n]) for n in names], codec=transport.codec,
+        ds, [flat(residual[n].float()) for n in names], codec=transport.codec,
         ks=[topk_k(d.shape[1], transport.topk_frac) for d in ds])
     return ({n: x.reshape(delta[n].shape) for n, x in zip(names, decs)},
             {n: x.reshape(delta[n].shape) for n, x in zip(names, ress)})

@@ -74,10 +74,11 @@ def merge_contributions(decoded, pending: PendingDeltas, fresh_ok, w_stale):
 
 def update_pending(pending: PendingDeltas, decoded, parked, consumed,
                    fresh_sent) -> PendingDeltas:
-    """The buffer after one round (see the module docstring)."""
+    """The buffer after one round (see the module docstring). The float32
+    decoded deltas are parked at the buffer's stored dtype."""
     kept = pending.has & ~consumed & ~fresh_sent
     return PendingDeltas(
-        delta={k: torch.where(_rows(parked, p), decoded[k], p)
+        delta={k: torch.where(_rows(parked, p), decoded[k].to(p.dtype), p)
                for k, p in pending.delta.items()},
         staleness=torch.where(parked, 1, torch.where(
             kept, pending.staleness + 1, 0)).to(torch.int32),

@@ -21,6 +21,16 @@ transport and chaos layers take the JAX CLI's flags: ``--fl-async``
 ``--susp-threshold`` waits for the health observatory (ROADMAP queue 1,
 item 5).
 
+``--state-dtype {float32,bf16,lean}`` stores the fleet's state families
+narrower (``repro_torch.core.dtypes``); the math stays float32.
+``--ckpt-dir`` + ``--ckpt-every`` write checkpoints in the JAX package's
+format (``repro_torch.training.checkpoint``) with auto-resume: a killed
+run relaunched with the same command restarts from the latest checkpoint
+and gives the uninterrupted run's numbers bit for bit (``--stop-after N``
+stops an invocation after N episodes, for the drill). ``--pallas`` and
+``--fl-pallas`` are accepted with the JAX CLI's errors; they change
+nothing, because the device picks each kernel's path.
+
 Examples:
   PYTHONPATH=src python -m repro_torch.launch.train_fleet
   PYTHONPATH=src python -m repro_torch.launch.train_fleet --agents 8 \\
@@ -33,6 +43,8 @@ Examples:
       --fl-deadline-s 0.002 --fl-async --robust-agg trimmed \\
       --clip-factor 3 --fault-crash-prob 0.1 --fault-byzantine-frac 0.25 \\
       --fault-partition-prob 0.3
+  PYTHONPATH=src python -m repro_torch.launch.train_fleet --state-dtype \\
+      lean --ckpt-dir /tmp/run1 --ckpt-every 5 --stop-after 7  # then rerun
 """
 from __future__ import annotations
 
@@ -45,13 +57,68 @@ import torch
 from repro_torch import resolve_device
 from repro_torch.configs.fcpo import FCPOConfig
 from repro_torch.core.backends import BACKENDS, get_backend
+from repro_torch.core.dtypes import POLICIES
+from repro_torch.core.graphs import full_float32
 from repro_torch.core.fleet import (FleetScan, fleet_init,
-                                    train_fleet_reference)
+                                    fleet_state_bytes, train_fleet_reference)
 from repro_torch.fl.transport import CODECS, TransportConfig
 from repro_torch.kernels import build
 from repro_torch.resilience.faults import BYZANTINE_MODES, FaultConfig
 from repro_torch.resilience.guards import AGG_METHODS, GuardConfig
 from repro_torch.sim import SCENARIOS, SimParams, make_scenario
+from repro_torch.training import checkpoint as ckpt_mod
+
+
+def resume(args, cfg, fleet, start: int, faults):
+    """The fleet of checkpoint ``start`` restored into ``fleet``'s layout
+    and dtypes. A checkpoint without this device's generator states (one
+    the JAX package wrote, or one from another device) has its generators
+    seeded from ``--seed`` / ``--fault-seed`` and the step, and says so."""
+    step_seed = lambda s: int(np.random.SeedSequence([s, start])
+                              .generate_state(1)[0])
+    fleet, manifest = ckpt_mod.restore(args.ckpt_dir, start, fleet, cfg,
+                                       seed=step_seed(args.seed))
+    print(f"auto-resume: restored episode {start} from {args.ckpt_dir}")
+    got = manifest["restored_generators"]
+    if "torch/generator" not in got:
+        print(f"auto-resume: the checkpoint holds no generator state for "
+              f"this device; the action noise is seeded from --seed "
+              f"{args.seed} and step {start}")
+    if (faults.byzantine_active and faults.byzantine_mode == "noise"
+            and "torch/fault_generator" not in got):
+        gen = torch.Generator(device=fleet.pod_ids.device)
+        gen.manual_seed(step_seed(faults.seed))
+        fleet.fault_generator = gen
+        print(f"auto-resume: the byzantine noise is seeded from "
+              f"--fault-seed {faults.seed} and step {start}")
+    return fleet
+
+
+def run_with_checkpoints(args, driver: FleetScan, start: int) -> None:
+    """The graph driver over ``[start, --episodes)`` with a checkpoint
+    every ``--ckpt-every`` episodes of this invocation and at its end, read
+    from the fleet's own tensors between episodes (the JAX CLI's chunk
+    boundaries, without restarting the driver); ``--stop-after`` ends the
+    invocation early."""
+    every = args.ckpt_every or (args.episodes - start)
+    e, since = start, 0
+    extra = dict(episodes=args.episodes, agents=args.agents,
+                 pods=args.pods, seed=args.seed, scenario=args.scenario,
+                 state_dtype=args.state_dtype)
+    with full_float32():
+        while e < args.episodes:
+            driver.step()
+            e, since = e + 1, since + 1
+            stop = bool(args.stop_after) and e - start >= args.stop_after
+            if since == every or e == args.episodes or stop:
+                ckpt_mod.save(args.ckpt_dir, e, driver.fleet, extra=extra)
+                ckpt_mod.keep_last(args.ckpt_dir, args.keep_last)
+                since = 0
+            if stop:
+                print(f"--stop-after {args.stop_after}: stopping at episode "
+                      f"{e}/{args.episodes} (rerun the same command to "
+                      f"resume)")
+                return
 
 
 def main(argv=None):
@@ -79,6 +146,11 @@ def main(argv=None):
                     help="staleness-tolerant rounds: a selected client that "
                          "misses the deadline parks its decoded delta and "
                          "joins a later round staleness-discounted")
+    ap.add_argument("--fl-pallas", action="store_true",
+                    help="the JAX CLI's switch to the fused delta codec "
+                         "kernel; accepted, and changes nothing here: CUDA "
+                         "tensors always launch the K2 kernel, CPU tensors "
+                         "run its plain version")
     # --- chaos layer: fault injection (FaultConfig) ---
     ap.add_argument("--fault-crash-prob", type=float, default=0.0,
                     help="per-agent per-episode crash probability: the "
@@ -130,6 +202,19 @@ def main(argv=None):
                     help="twin microticks per control interval")
     ap.add_argument("--ring", type=int, default=512,
                     help="twin ring capacity (power of two)")
+    ap.add_argument("--pallas", action="store_true",
+                    help="the JAX CLI's switch to the fused twin kernel; "
+                         "accepted, and changes nothing here: CUDA tensors "
+                         "always launch the K3 kernel, CPU tensors run its "
+                         "plain version")
+    ap.add_argument("--state-dtype", choices=tuple(POLICIES),
+                    dest="state_dtype", default="float32",
+                    help="stored-state precision policy "
+                         "(repro_torch.core.dtypes): float32 is the default "
+                         "layout; bf16 halves optimizer/env/transport/buffer "
+                         "state; lean adds int8 buffer slots and bf16 "
+                         "params (>= 2x fewer bytes per agent). The math "
+                         "stays float32")
     ap.add_argument("--driver", choices=("scan", "reference"),
                     default="scan",
                     help="scan: the episode, FL round and pod merge as "
@@ -137,6 +222,23 @@ def main(argv=None):
                          "CPU); reference: the Python-loop driver")
     ap.add_argument("--no-federated", action="store_true")
     ap.add_argument("--no-learn", action="store_true")
+    # --- periodic checkpoint + auto-resume ---
+    ap.add_argument("--ckpt-dir", type=str, default=None,
+                    help="checkpoint directory (training.checkpoint "
+                         "layout, the JAX package's). If it already holds "
+                         "checkpoints, the run AUTO-RESUMES from "
+                         "latest_step and reproduces the uninterrupted "
+                         "run's numbers exactly")
+    ap.add_argument("--ckpt-every", type=int, default=0,
+                    help="save a checkpoint every N episodes (requires "
+                         "--ckpt-dir; 0 saves only at the end of the run)")
+    ap.add_argument("--keep-last", type=int, default=3,
+                    help="prune all but the newest N checkpoints after "
+                         "every save")
+    ap.add_argument("--stop-after", type=int, default=0,
+                    help="exit after this many episodes of THIS invocation "
+                         "(kill-and-resume drills; requires --ckpt-dir). "
+                         "0 disables")
     ap.add_argument("--seed", type=int, default=0)
     ap.add_argument("--device", choices=("cuda", "cpu"), default="cuda")
     args = ap.parse_args(argv)
@@ -144,21 +246,36 @@ def main(argv=None):
         ap.error("--episodes must be >= 1")
     if args.fl_every is not None and args.fl_every < 1:
         ap.error("--fl-every must be >= 1 (use --no-federated to disable FL)")
-    if args.fl_topk_frac != 0.05 and args.fl_codec != "topk":
-        ap.error("--fl-topk-frac only affects the topk codec; add "
-                 "--fl-codec topk")
     if args.ring <= 0 or args.ring & (args.ring - 1):
         ap.error("--ring must be a positive power of two")
     if args.k_ticks < 1:
         ap.error("--k-ticks must be >= 1")
     if args.env_backend == "fluid" and (
-            args.dt != 0.05 or args.k_ticks != 20 or args.ring != 512):
-        ap.error("--dt/--k-ticks/--ring configure the twin data plane and "
-                 "are silent no-ops on the fluid backend; add "
+            args.pallas or args.dt != 0.05 or args.k_ticks != 20
+            or args.ring != 512):
+        ap.error("--pallas/--dt/--k-ticks/--ring configure the twin data "
+                 "plane and are silent no-ops on the fluid backend; add "
                  "--env-backend twin")
     if args.fl_async and args.fl_deadline_s <= 0:
         ap.error("--fl-async parks deadline-missed uploads and needs "
                  "--fl-deadline-s > 0 to ever have one")
+    if args.fl_pallas and args.fl_codec == "float32":
+        ap.error("--fl-pallas routes the delta codec through the fused "
+                 "kernel, but the float32 codec skips the codec entirely "
+                 "(lossless identity path); add --fl-codec int8 or topk")
+    if args.fl_topk_frac != 0.05 and args.fl_codec != "topk":
+        ap.error("--fl-topk-frac only affects the topk codec; add "
+                 "--fl-codec topk")
+    if args.ckpt_every and not args.ckpt_dir:
+        ap.error("--ckpt-every needs --ckpt-dir")
+    if args.stop_after and not args.ckpt_dir:
+        ap.error("--stop-after simulates a kill mid-run and only makes "
+                 "sense with --ckpt-dir (nothing would survive otherwise)")
+    if args.ckpt_dir and args.driver == "reference":
+        ap.error("--ckpt-dir periodic checkpointing drives the scan "
+                 "driver; drop --driver reference")
+    if args.ckpt_every < 0 or args.stop_after < 0 or args.keep_last < 1:
+        ap.error("--ckpt-every/--stop-after must be >= 0, --keep-last >= 1")
 
     dev = resolve_device(args.device)
     # full float32 on the card, as on the CPU (no TF32 rounding)
@@ -188,7 +305,10 @@ def main(argv=None):
     backend = get_backend(args.env_backend, sim_params=SimParams(
         dt=args.dt, k_ticks=args.k_ticks, ring=args.ring))
     fleet = fleet_init(cfg, args.agents, args.seed, n_pods=args.pods,
-                       device=dev, env_backend=backend)
+                       device=dev, env_backend=backend,
+                       state_policy=(args.state_dtype
+                                     if args.state_dtype != "float32"
+                                     else None))
     gen = torch.Generator()
     gen.manual_seed(args.seed + 1)
     traces = make_scenario(args.scenario, gen, args.agents,
@@ -197,16 +317,32 @@ def main(argv=None):
     print(f"fleet: {args.agents} iAgents, {args.pods} pods, "
           f"{args.episodes} episodes, env={backend.name}, "
           f"scenario={args.scenario}, driver={args.driver}, "
+          f"state_dtype={args.state_dtype} "
+          f"({fleet_state_bytes(fleet)['per_agent'] / 1024:.1f} KB/agent), "
           f"device={dev.type} ({name})")
 
     kw = dict(learn=not args.no_learn, federated=not args.no_federated,
               straggler_prob=args.straggler_prob, seed=args.seed,
               env_backend=backend, transport=transport,
               faults=faults if faults.active else None, guards=guards)
+    start = (ckpt_mod.latest_step(args.ckpt_dir) or 0) \
+        if args.ckpt_dir else 0
+    if start >= args.episodes:
+        print(f"checkpoint step {start} >= --episodes {args.episodes}: "
+              f"run already complete, nothing to do")
+        return fleet, {}
+    if start > 0:
+        fleet = resume(args, cfg, fleet, start, faults)
     t0 = time.time()
     if args.driver == "scan":
-        driver = FleetScan(cfg, fleet, traces, **kw)
-        fleet, hist = driver.run()
+        driver = FleetScan(cfg, fleet, traces[:, start * cfg.n_steps:],
+                           episode_offset=start,
+                           total_episodes=args.episodes, **kw)
+        if args.ckpt_dir:
+            run_with_checkpoints(args, driver, start)
+        else:
+            driver.run()
+        fleet, hist = driver.fleet, driver.history()
         capture = driver.capture_s
     else:
         fleet, hist = train_fleet_reference(cfg, fleet, traces, **kw)

@@ -26,13 +26,14 @@ functions below select per agent between it and the new state.
 """
 from __future__ import annotations
 
-from dataclasses import dataclass, fields, is_dataclass
+from dataclasses import dataclass
 from typing import Any, Dict, NamedTuple, Optional
 
 import numpy as np
 import torch
 
 from repro_torch.core.crl import AgentState
+from repro_torch.core.dtypes import tree_map
 from repro_torch.core.graphs import copy_into
 
 BYZANTINE_MODES = ("sign_flip", "noise", "nan")
@@ -126,20 +127,6 @@ class AgentSnapshot:
     env_state: Any
 
 
-def _tree_map(fn, *trees):
-    """``fn`` over the tensors of dicts / dataclasses of one layout."""
-    t = trees[0]
-    if torch.is_tensor(t):
-        return fn(*trees)
-    if isinstance(t, dict):
-        return {k: _tree_map(fn, *(x[k] for x in trees)) for k in t}
-    if is_dataclass(t):
-        return type(t)(**{f.name: _tree_map(fn, *(getattr(x, f.name)
-                                                   for x in trees))
-                          for f in fields(t)})
-    raise TypeError(f"cannot map over {type(t).__name__}")
-
-
 def _rows(m, leaf):
     return m.reshape((-1,) + (1,) * (leaf.dim() - 1))
 
@@ -152,17 +139,17 @@ def snapshot_astate(astate: AgentState, into: Optional[AgentSnapshot] = None
                          astate.policy.params().items()},
                         astate.opt, astate.buffer, astate.env_state)
     if into is None:
-        return _tree_map(torch.clone, now)
+        return tree_map(torch.clone, now)
     copy_into(into, now)
     return into
 
 
 def _where(m, old, new):
-    return _tree_map(lambda o, n: torch.where(_rows(m, n), o, n), old, new)
+    return tree_map(lambda o, n: torch.where(_rows(m, n), o, n), old, new)
 
 
 def _zero_where(m, tree):
-    return _tree_map(lambda o: torch.where(_rows(m, o), 0, o), tree)
+    return tree_map(lambda o: torch.where(_rows(m, o), 0, o), tree)
 
 
 def freeze_astate(down, old: AgentSnapshot, new: AgentState) -> AgentState:

@@ -9,7 +9,10 @@ plain version within rtol 1e-4 / atol 1e-5 with identical decision traces,
 a first divergence accepted only at a near-tie (score gap below 1e-5
 relative); K2 and K3 bit for bit; the trainer must launch the kernels. The
 graph driver (CUDA graphs of the episode, FL round and pod merge) and the
-graphed twin harness are held bit for bit against the eager runs.
+graphed twin harness are held bit for bit against the eager runs, also
+under the bf16 and lean state policies (every leaf at its stored dtype,
+the generators' states equal), and a run resumed from a checkpoint is the
+straight run bit for bit.
 """
 import os
 import subprocess
@@ -783,3 +786,123 @@ def test_chaos_card_run_matches_cpu_run(cuda_device, codec):
     for k in ("has", "staleness"):
         np.testing.assert_array_equal(st_k["pending"][k], st_c["pending"][k],
                                       err_msg=k)
+
+
+# ---------------------------------------------------------------------------
+# state dtype policies and checkpoint resume on the card
+# ---------------------------------------------------------------------------
+def noise_chaos():
+    """The chaos slice with byzantine ``noise`` (drawn from the fleet's
+    fault generator, registered with the FL-round graph)."""
+    from repro_torch.resilience.faults import FaultConfig
+    kw = chaos_kwargs()
+    kw["faults"] = FaultConfig(crash_prob=0.1, byzantine_frac=0.25,
+                               byzantine_mode="noise", byzantine_scale=2.0,
+                               partition_prob=0.3)
+    return kw
+
+
+def raw(x):
+    """A numpy leaf's bits (bf16 ``|V2`` leaves as uint16)."""
+    x = np.ascontiguousarray(np.asarray(x))
+    return x.view(np.uint16) if x.dtype.kind == "V" else x
+
+
+def assert_raw_equal(got, want, prefix=""):
+    for k, v in want.items():
+        if isinstance(v, dict):
+            assert_raw_equal(got[k], v, f"{prefix}{k}.")
+        else:
+            assert np.asarray(got[k]).dtype == np.asarray(v).dtype, k
+            np.testing.assert_array_equal(raw(got[k]), raw(v),
+                                          err_msg=f"{prefix}{k}")
+
+
+def assert_generators_equal(a, b):
+    for name in ("generator", "fault_generator"):
+        ga, gb = getattr(a, name), getattr(b, name)
+        assert (ga is None) == (gb is None), name
+        if ga is not None:
+            assert torch.equal(ga.get_state(), gb.get_state()), name
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("backend", ["fluid", "twin"])
+@pytest.mark.parametrize("policy", ["bf16", "lean"])
+def test_graph_driver_matches_reference_per_policy_on_the_card(
+        cuda_device, monkeypatch, policy, backend):
+    """A bf16 / lean fleet (A=8, P=2, ``fl_every=1``, eight episodes)
+    under the chaos slice with byzantine noise: the graph driver takes the
+    reference driver's actions; its histories, final state (every leaf at
+    its stored dtype) and launch counts are the reference's bit for bit,
+    and the Philox offsets its replays advanced are the ones
+    ``get_state()`` reports, equal to the eager driver's."""
+    from repro_torch.core import fleet as tfleet
+    cfg = FCPOConfig(fl_every=1)
+    a, n_eps = 8, 8
+    traces = torch.tensor(np.random.default_rng(5).uniform(
+        5.0, 160.0, (a, n_eps * cfg.n_steps)).astype(np.float32),
+        device=cuda_device)
+    runs = []
+    for drive in (tfleet.train_fleet_reference, tfleet.train_fleet_scan):
+        rec = recorded_actions(monkeypatch, n_eps * cfg.n_steps, a,
+                               cuda_device)
+        fleet = tfleet.fleet_init(cfg, a, 11, n_pods=2, device=cuda_device,
+                                  env_backend=backend, state_policy=policy)
+        diversity_insert.launches = delta_codec.launches = 0
+        queue_advance.launches = 0
+        fleet, hist = drive(cfg, fleet, traces, straggler_prob=0.25, seed=3,
+                            env_backend=backend, **noise_chaos())
+        runs.append((rec.cpu(), hist, fleet,
+                     (diversity_insert.launches, delta_codec.launches,
+                      queue_advance.launches)))
+    (act_r, hist_r, f_r, n_r), (act_s, hist_s, f_s, n_s) = runs
+    assert (act_r >= 0).all() and torch.equal(act_s, act_r)
+    for k, v in hist_r.items():
+        np.testing.assert_array_equal(hist_s[k], v, err_msg=k)
+    assert_raw_equal(tfleet.fleet_to_numpy(f_s), tfleet.fleet_to_numpy(f_r))
+    assert_generators_equal(f_s, f_r)
+    assert f_s.astate.opt["m"]["head_bs.w"].dtype == torch.bfloat16
+    assert n_s == n_r == (n_eps, n_eps,
+                          n_eps * cfg.n_steps if backend == "twin" else 0)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("backend", ["fluid", "twin"])
+def test_resume_on_the_card_is_the_straight_run(cuda_device, tmp_path,
+                                                backend):
+    """The graph driver on a lean fleet under the chaos slice with noise:
+    eight episodes straight, against three, a checkpoint, a restore into a
+    fresh fleet and five more: histories, final state and both generators'
+    states bit for bit. The checkpoint also restores on the CPU, every
+    leaf equal."""
+    from repro_torch.core import fleet as tfleet
+    from repro_torch.training import checkpoint as ckpt
+    cfg = FCPOConfig(fl_every=1)
+    a, n_eps, cut = 8, 8, 3
+    traces = torch.tensor(np.random.default_rng(6).uniform(
+        5.0, 160.0, (a, n_eps * cfg.n_steps)).astype(np.float32),
+        device=cuda_device)
+    mk = lambda dev=cuda_device: tfleet.fleet_init(
+        cfg, a, 11, n_pods=2, device=dev, env_backend=backend,
+        state_policy="lean")
+    kw = dict(straggler_prob=0.25, seed=3, env_backend=backend,
+              total_episodes=n_eps, **noise_chaos())
+    f_s, h_s = tfleet.train_fleet_scan(cfg, mk(), traces, **kw)
+    f_1, h_1 = tfleet.train_fleet_scan(
+        cfg, mk(), traces[:, :cut * cfg.n_steps], **kw)
+    ckpt.save(str(tmp_path), cut, f_1)
+    f_2, manifest = ckpt.restore(str(tmp_path), cut, mk(), cfg)
+    assert manifest["restored_generators"] == ["torch/generator",
+                                               "torch/fault_generator"]
+    f_2, h_2 = tfleet.train_fleet_scan(
+        cfg, f_2, traces[:, cut * cfg.n_steps:], episode_offset=cut, **kw)
+    for k, v in h_s.items():
+        np.testing.assert_array_equal(np.concatenate([h_1[k], h_2[k]]), v,
+                                      err_msg=k)
+    assert_raw_equal(tfleet.fleet_to_numpy(f_2), tfleet.fleet_to_numpy(f_s))
+    assert_generators_equal(f_2, f_s)
+    on_cpu, manifest = ckpt.restore(str(tmp_path), cut, mk("cpu"), cfg)
+    assert manifest["restored_generators"] == []   # the card's generators
+    assert_raw_equal(tfleet.fleet_to_numpy(on_cpu),
+                     tfleet.fleet_to_numpy(f_1))

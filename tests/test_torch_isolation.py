@@ -23,9 +23,11 @@ def test_importing_every_module_pulls_in_no_jax_and_no_repro():
         "for m in mods:\n"
         "    importlib.import_module(m)\n"
         "bad = sorted(k for k in sys.modules if k == 'jax' or "
-        "k.startswith(('jax.', 'jaxlib')) or k == 'repro' or "
+        "k.startswith(('jax.', 'jaxlib', 'ml_dtypes')) or k == 'repro' or "
         "k.startswith('repro.'))\n"
-        "assert len(mods) >= 46, mods\n"
+        "assert len(mods) >= 49, mods\n"
+        "assert {'repro_torch.core.dtypes', 'repro_torch.training', "
+        "'repro_torch.training.checkpoint'} <= set(mods), mods\n"
         "assert not bad, bad\n"
         "print(len(mods))\n")
     out = subprocess.run([sys.executable, "-c", code], capture_output=True,
@@ -37,8 +39,9 @@ def test_importing_every_module_pulls_in_no_jax_and_no_repro():
 
 def test_no_source_file_names_jax_or_the_reference_package():
     pat = re.compile(r"^\s*(import jax|from jax|import repro\b|"
-                     r"from repro(\.| import))", re.M)
-    for path in PORT.rglob("*.py"):
+                     r"from repro(\.| import)|import ml_dtypes|"
+                     r"from ml_dtypes)", re.M)
+    for path in [*PORT.rglob("*.py"), SRC.parent / "chip_smoke.py"]:
         assert not pat.search(path.read_text()), path
 
 

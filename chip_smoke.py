@@ -85,14 +85,38 @@ In order, it:
      against the CPU per policy (A=4, histories within rtol 1e-2 / atol
      1e-3); ten profiled episodes per policy;
  11d. ``[resume]``: ``train_fleet --state-dtype lean`` with the chaos
-     slice and byzantine noise, 20 episodes, straight through and killed by
-     ``--stop-after 7`` at ``--ckpt-every 5`` and rerun: histories and the
-     final checkpoint bit for bit, generator states included; that
-     checkpoint restores on the CPU;
+     slice, byzantine noise, ``--health`` and ``--metrics-out``, 20
+     episodes, straight through and killed by ``--stop-after 7`` at
+     ``--ckpt-every 5`` and rerun: histories, the final checkpoint
+     (generator and health states included) and the streamed episode
+     records bit for bit; that checkpoint restores on the CPU;
  11e. ``[state bytes]``: ``fleet_state_bytes`` by family, the allocated
      memory of a built fleet and a checkpoint's save / restore time and
      size per policy at A=8 and A=2048 (lean at least 2x smaller per agent
      than float32 at A=2048);
+ 11f. ``[health]``: ``train_fleet --health --metrics-out --alerts-out``,
+     fluid and twin, 20 episodes under both drivers (bit for bit), then
+     with the chaos flags and ``--susp-threshold 0.5``: K1, K2 and K3
+     launch as in the same runs without health; the graph driver against
+     the reference driver with health, plain and gated (bit for bit, equal
+     launches and streamed records); the card against the CPU at A=4
+     (health counts identical; the suspicion per agent and round, an
+     agent left out from a round whose leave-one-out reference is under
+     ``LOO_SHARE`` of the reference); the ops the
+     episode and round bodies dispatch without ``--health`` equal to the
+     parent port's (``PARENT_BODY_OPS``), and with it; ten profiled
+     episodes with and without ``--health`` per backend;
+ 11g. ``[metrics]``: the CLI's JSONL records equal its returned history
+     under both drivers, with the trailing scaling record; ``watch``
+     renders the file; ms per replayed episode with the sink against
+     without it (off, on, on, off); the stream with a ring of two slots
+     (the host waits, every record once and in order); ten profiled
+     episodes with health and the sink (at most three graph launches an
+     episode);
+ 11h. ``[leaderboard]``: the ``[main path]`` default run checkpointed at
+     its end, loaded with ``load_fleet`` and scored on {steady, burst} ×
+     {fluid, twin} × {float32, int8} (one replicate) twice: finite rows,
+     equal between the calls;
  12. holds K5 ``decode_attention`` and K4 ``flash_attention`` against their
      plain versions (the JAX tests' sweeps, K4's bf16 tensor-core path on
      every shape of the sweep, K5 with several splits and the combine, the
@@ -165,6 +189,49 @@ def chaos_kwargs(mode="sign_flip"):
         guards=GuardConfig(agg="trimmed", clip_factor=3.0),
         faults=FaultConfig(crash_prob=0.1, byzantine_frac=0.25,
                            byzantine_mode=mode, partition_prob=0.3))
+
+
+def health_kwargs(threshold=0.0):
+    """``--health`` (and ``--susp-threshold``, on the chaos slice's
+    guards) as the drivers' keyword arguments."""
+    from repro_torch.health import HealthConfig
+    from repro_torch.resilience.guards import GuardConfig
+    out = dict(health=HealthConfig())
+    if threshold:
+        guards = chaos_kwargs()["guards"]
+        out["guards"] = GuardConfig(agg=guards.agg,
+                                    clip_factor=guards.clip_factor,
+                                    susp_threshold=threshold)
+    return out
+
+
+class ListSink:
+    """A metrics sink that keeps its records."""
+
+    def __init__(self):
+        self.records = []
+
+    def append(self, record):
+        self.records.append(record)
+
+
+def check_records(records, hist, label):
+    """One streamed record per episode, in order, equal to the history
+    row (float32 values)."""
+    import numpy as np
+    episodes = [r for r in records if "episode" in r]
+    n = len(next(iter(hist.values())))
+    if [r["episode"] for r in episodes] != list(range(n)):
+        raise AssertionError(f"{label}: streamed episodes "
+                             f"{[r['episode'] for r in episodes]}")
+    for i, r in enumerate(episodes):
+        if set(r) != {"episode", *hist}:
+            raise AssertionError(f"{label}: record keys differ from the "
+                                 f"history's")
+        for k, v in hist.items():
+            if np.float32(r[k]) != np.float32(v[i]):
+                raise AssertionError(f"{label}: record {i} {k} {r[k]} is "
+                                     f"not the history's {v[i]}")
 
 
 def raw(x):
@@ -884,7 +951,7 @@ def drive_simulate(argv, want_k3):
     return k3
 
 
-def run_pair(torch, cfg, backend, chaos=False, policy=None):
+def run_pair(torch, cfg, backend, chaos=False, policy=None, health=False):
     """A=4, P=2, int8 codec, 3 episodes (``chaos``: the chaos kwargs, eight
     episodes): the card run (kernels) and the CPU run (plain versions) of
     ``train_fleet_reference`` from one numpy fleet state, one set of traces
@@ -895,7 +962,10 @@ def run_pair(torch, cfg, backend, chaos=False, policy=None):
     below 1e-5 relative), and reported. ``policy``: the fleet stored at a
     state policy; bf16 storage rounds where float32 roundoff differs, so
     the histories are held within rtol 1e-2 / atol 1e-3 (about two bf16
-    steps)."""
+    steps). ``health``: the observatory on (the gate at 0.5 under
+    ``chaos``); with identical actions, its histogram counts, observation
+    counts, marker positions and last selection must be equal, and the
+    suspicion is held round by round (``susp_rounds``)."""
     import numpy as np
     from repro_torch.core import crl
     from repro_torch.core.fleet import (fleet_from_numpy, fleet_init,
@@ -904,6 +974,8 @@ def run_pair(torch, cfg, backend, chaos=False, policy=None):
     a, n_eps = 4, 8 if chaos else 3
     kw = chaos_kwargs() if chaos else dict(
         transport=TransportConfig(codec="int8"))
+    if health:
+        kw.update(health_kwargs(0.5 if chaos else 0.0))
     tree = fleet_to_numpy(fleet_init(cfg, a, 7, n_pods=2, device="cpu",
                                      env_backend=backend,
                                      state_policy=policy))
@@ -914,9 +986,9 @@ def run_pair(torch, cfg, backend, chaos=False, policy=None):
     u = rng.uniform(1e-6, 1.0, (n_eps, a, cfg.n_steps, 15))
     gumbel = (-np.log(-np.log(u))).astype(np.float32)
     sample = crl.sample_actions
-    hists, trees, records = [], [], []
+    hists, trees, records, rounds = [], [], [], []
     for dev in (DEV, "cpu"):
-        record = []
+        record, rnd = [], []
 
         def recording(cfg_, params, obs, mask, gumbel=None, generator=None):
             out = sample(cfg_, params, obs, mask, gumbel=gumbel,
@@ -927,6 +999,7 @@ def run_pair(torch, cfg, backend, chaos=False, policy=None):
             return out
 
         crl.sample_actions = recording
+        restore = record_rounds(torch, rnd) if health else (lambda: None)
         try:
             fleet = fleet_from_numpy(cfg, tree, device=dev)
             fleet, h = train_fleet_reference(
@@ -936,13 +1009,24 @@ def run_pair(torch, cfg, backend, chaos=False, policy=None):
                 **kw)
         finally:
             crl.sample_actions = sample
+            restore()
         hists.append(h)
         trees.append(fleet_to_numpy(fleet))
         records.append(record)
+        rounds.append(rnd)
+    diverged = first_action_divergence(torch, cfg, *records)
+    tainted = susp_rounds(rounds, rtol, atol) if health and not diverged \
+        else None
     for key in hists[1]:
+        if key == "health_susp" and (tainted is None or tainted.any()):
+            # a fleet mean over agents; held agent by agent above
+            gap = np.abs(np.asarray(hists[0][key], np.float64)
+                         - np.asarray(hists[1][key], np.float64)).max()
+            log(f"  card vs cpu: {key} (fleet mean) max gap {gap:.4g}; "
+                f"held per agent and round in susp_rounds")
+            continue
         np.testing.assert_allclose(hists[0][key], hists[1][key], rtol=rtol,
                                    atol=atol, err_msg=f"card vs cpu: {key}")
-    diverged = first_action_divergence(torch, cfg, *records)
     exact = []
     if backend == "twin" and not diverged:
         exact += [(f"twin state {k}", trees[0]["env_state"]["sim"][k], v)
@@ -952,18 +1036,110 @@ def run_pair(torch, cfg, backend, chaos=False, policy=None):
                   for k in ("crash_timer", "partition_timer")]
         exact += [(f"pending.{k}", trees[0]["pending"][k],
                    trees[1]["pending"][k]) for k in ("has", "staleness")]
+    if health and not diverged:
+        exact += [(f"health.{k}", trees[0]["health"][k],
+                   trees[1]["health"][k])
+                  for k in ("reward_hist", "miss_hist", "n_obs", "sel_last")]
+        exact.append(("health.reward_p2.n", trees[0]["health"]["reward_p2"]
+                      ["n"], trees[1]["health"]["reward_p2"]["n"]))
     for name, got, want in exact:
         np.testing.assert_array_equal(got, want,
                                       err_msg=f"card vs cpu: {name}")
     log(f"  card run == CPU run ({backend}, A={a}, {n_eps} episodes, int8"
         f"{', chaos' if chaos else ''}"
-        f"{', ' + policy if policy else ''}): {len(hists[1])} metrics "
+        f"{', ' + policy if policy else ''}"
+        f"{', health' if health else ''}): {len(hists[1])} metrics "
         f"within rtol {rtol:g} / atol {atol:g}, actions "
         f"{'identical' if not diverged else 'identical up to a near-tie'}"
         + (", final twin state identical" if backend == "twin"
            and not diverged else "")
         + (", crash / partition timers and parked uploads identical"
-           if chaos and not diverged else ""))
+           if chaos and not diverged else "")
+        + (", health counts identical" if health and not diverged else ""))
+
+
+# the leave-one-out reference's share of the reference, |r - w_i d_i|^2 /
+# |r|^2, below which an agent's round is left out of the card-vs-CPU
+# suspicion check: the closed form (``dot - w sq``, ``ref_sq - 2 w dot +
+# w^2 sq``) then cancels, and float32 moves cos_loo by ~eps |r| / |r_-i|
+# in both packages; down to 1e-4 the float32 suspicion stays in the band
+# of float64 (tests/test_torch_health.py::
+# test_attribution_in_band_down_to_a_loo_share_of_1e_4)
+LOO_SHARE = 1e-4
+
+
+def record_rounds(torch, out):
+    """Wraps the FL round's attribution and suspicion update
+    (``repro_torch.core.fleet``) to append, per round, the scored
+    selection, the agents whose leave-one-out reference is under
+    ``LOO_SHARE`` of the reference (computed in float64 from the round's
+    deltas and weights; a lone contributor's is 0), the round's raw
+    suspicion and the EMA after it to ``out``. Returns the function that
+    unwraps them."""
+    from repro_torch.core import fleet as tfleet
+    from repro_torch.health.attribution import robust_reference_weights
+    score, update = tfleet.attribution_scores, tfleet.update_round
+
+    def scoring(deltas, sel):
+        got = score(deltas, sel)
+        w = robust_reference_weights(got["norm"], sel).cpu().double()
+        leaves = [deltas[k].detach().cpu().double().reshape(len(w), -1)
+                  for k in sorted(deltas)]
+        refs = [w @ f for f in leaves]
+        ref_sq = sum((r * r).sum() for r in refs)
+        loo_sq = sum(((r - w[:, None] * f) ** 2).sum(1)
+                     for r, f in zip(refs, leaves))
+        out.append(dict(sel=sel.cpu(), susp=got["susp"].cpu(),
+                        ill=sel.cpu() & (loo_sq < LOO_SHARE * ref_sq),
+                        share=(loo_sq / ref_sq).float()))
+        return got
+
+    def updating(hcfg, state, susp_new, sel):
+        new = update(hcfg, state, susp_new, sel)
+        out[-1]["ema"] = new.susp.cpu()
+        return new
+
+    tfleet.attribution_scores, tfleet.update_round = scoring, updating
+
+    def restore():
+        tfleet.attribution_scores, tfleet.update_round = score, update
+    return restore
+
+
+def susp_rounds(rounds, rtol, atol):
+    """The card's and the CPU's rounds (``record_rounds``), in the band
+    round by round: every agent's raw suspicion and EMA, but an agent's
+    from the first round in which its leave-one-out reference was under
+    ``LOO_SHARE`` of the reference on either side (logged, with the
+    card's share and the gap there). Returns the (A,) mask of the agents
+    left out."""
+    import numpy as np
+    card, cpu = rounds
+    if len(card) != len(cpu):
+        raise AssertionError(f"card vs cpu: {len(card)} scored rounds, "
+                             f"{len(cpu)} on the CPU")
+    tainted = np.zeros(card[0]["sel"].shape[0], bool) if card else \
+        np.zeros(0, bool)
+    for r, (k, c) in enumerate(zip(card, cpu)):
+        if not np.array_equal(k["sel"].numpy(), c["sel"].numpy()):
+            raise AssertionError(f"card vs cpu: round {r} scored other "
+                                 f"clients")
+        ill = k["ill"].numpy() | c["ill"].numpy()
+        for i in np.flatnonzero(ill):
+            log(f"  card vs cpu: round {r}, agent {i}: leave-one-out share "
+                f"{float(k['share'][i]):.3g} of the reference; suspicion "
+                f"{float(k['susp'][i]):.6g} on the card, "
+                f"{float(c['susp'][i]):.6g} on the CPU (left out from here)")
+        tainted |= ill
+        keep = ~tainted
+        for key in ("susp", "ema"):
+            np.testing.assert_allclose(
+                k[key].numpy()[keep], c[key].numpy()[keep], rtol=rtol,
+                atol=atol, err_msg=f"card vs cpu: {key} of round {r}")
+    log(f"  card vs cpu: suspicion and its EMA held for every agent in "
+        f"{len(card)} rounds, but {int(tainted.sum())} agent(s) from an "
+        f"ill-conditioned round on")
+    return tainted
 
 
 def first_action_divergence(torch, cfg, card, cpu):
@@ -1009,7 +1185,9 @@ def profile_episodes(torch, cfg, backend="fluid", n_episodes=10,
     follows the eighth), ``n_episodes`` timed alone, then ``n_episodes``
     under ``torch.profiler``. Every window holds five FL rounds and one
     pod merge. A replayed episode takes at most three graph launches.
-    ``policy``: the fleet stored at that state policy."""
+    ``policy``: the fleet stored at that state policy. Returns the graph
+    driver's window: ``profiled``'s numbers and ``alone_ms`` (ms per
+    replayed episode without the profiler)."""
     from repro_torch.core.fleet import (FleetScan, fleet_init,
                                         train_fleet_reference)
     from repro_torch.data.workload import fleet_traces
@@ -1019,7 +1197,9 @@ def profile_episodes(torch, cfg, backend="fluid", n_episodes=10,
     traces = fleet_traces(gen, 8, (warm + 2 * n_episodes) * n, device=DEV)
     window = lambda i: traces[:, (warm + i * n_episodes) * n:
                               (warm + (i + 1) * n_episodes) * n]
-    name = backend + (f" --state-dtype {policy}" if policy else "")
+    name = backend + (f" --state-dtype {policy}" if policy else "") + (
+        " --health" if kw.get("health") else "") + (
+        " --metrics-out" if kw.get("metrics_sink") else "")
     init = lambda: fleet_init(cfg, 8, 0, n_pods=2, device=DEV,
                               env_backend=backend, state_policy=policy)
     fleet = init()
@@ -1051,14 +1231,16 @@ def profile_episodes(torch, cfg, backend="fluid", n_episodes=10,
         f"{(driver.graph_launches - replays) / n_episodes:.2f} graph "
         f"launches/episode; capture {driver.capture_s:.3f} s for "
         f"{sum(g.graph is not None for g in driver.graphs)} graphs")
-    profiled(torch, steps, n_episodes,
-             f"{name} --driver scan: {n_episodes} episodes", "episode",
-             alone=wall)
+    out = profiled(torch, steps, n_episodes,
+                   f"{name} --driver scan: {n_episodes} episodes", "episode",
+                   alone=wall) or {}
     if max(per_step) > 3:
         raise AssertionError(f"{name}: a replayed episode took "
                              f"{max(per_step)} graph launches (at most 3)")
     log(f"    graph launches per replayed episode: at most "
         f"{max(per_step)}")
+    return dict(out, alone_ms=wall / n_episodes * 1e3,
+                max_graph_launches=max(per_step))
 
 
 def profile_simulate(torch, cfg, n_int=60):
@@ -1161,7 +1343,7 @@ def profiled(torch, fn, n, label, unit, capture=None, alone=None):
     n_launch = sum(e.count for e in kernels)
     if not total:
         log("  device time: not measured (the profiler recorded no kernel)")
-        return
+        return None
     graph_launches = sum(e.count for e in prof.key_averages()
                          if e.key == "cudaGraphLaunch")
     log(f"  {label} under the profiler: wall {wall / n * 1e3:.2f} ms/{unit}"
@@ -1184,10 +1366,14 @@ def profiled(torch, fn, n, label, unit, capture=None, alone=None):
     if any(counted[i] != seen[j] for j, (_, i) in enumerate(KERNEL_NAMES)):
         log("    (they differ: the profiler does not show every kernel "
             "inside a graph replay)")
+    return dict(kernels=n_launch / n, device_ms=total / 1e3 / n,
+                wall_ms=wall / n * 1e3, graph_launches=graph_launches / n,
+                busy=(total / 1e6 / alone) if alone else None,
+                launches=counted[:3])
 
 
 def graph_parity(torch, backend, chaos=False, policy=None,
-                 mode="sign_flip"):
+                 mode="sign_flip", health=False):
     """The graph driver against the reference driver on the card: A=8,
     P=2, ``fl_every=1``, eight episodes (two pod merges), int8, Bernoulli
     stragglers (``chaos``: the chaos kwargs on top), noise from each
@@ -1198,7 +1384,9 @@ def graph_parity(torch, backend, chaos=False, policy=None,
     ``policy``: the fleets stored at that state policy (every leaf
     compared at its stored dtype); ``mode``: the byzantine mode under
     ``chaos`` (``noise`` draws from the fault generator in the FL-round
-    graph)."""
+    graph). ``health``: the observatory on (with ``chaos``, the suspicion
+    gate at 0.5), its state compared with the rest and the streamed
+    records with the histories."""
     import numpy as np
     from repro_torch.configs.fcpo import FCPOConfig
     from repro_torch.core import crl
@@ -1211,9 +1399,11 @@ def graph_parity(torch, backend, chaos=False, policy=None,
     n = n_eps * cfg.n_steps
     kw = chaos_kwargs(mode) if chaos else dict(
         transport=TransportConfig(codec="int8"))
+    if health:
+        kw.update(health_kwargs(0.5 if chaos else 0.0))
     traces = torch.as_tensor(np.random.default_rng(5).uniform(
         5.0, 160.0, (a, n)).astype(np.float32), device=DEV)
-    runs = []
+    runs, sinks = [], []
     for drive_fn in (train_fleet_reference, train_fleet_scan):
         rec = torch.full((n, a, 3), -1, dtype=torch.long, device=DEV)
         pos = torch.zeros((), dtype=torch.long, device=DEV)
@@ -1228,9 +1418,12 @@ def graph_parity(torch, backend, chaos=False, policy=None,
         try:
             fleet = fleet_init(cfg, a, 11, n_pods=2, device=DEV,
                                env_backend=backend, state_policy=policy)
+            sinks.append(ListSink())
             reset_launches()
             fleet, hist = drive_fn(cfg, fleet, traces, straggler_prob=0.25,
-                                   seed=3, env_backend=backend, **kw)
+                                   seed=3, env_backend=backend,
+                                   metrics_sink=sinks[-1] if health else None,
+                                   **kw)
             counts = read_launches()[:3]
         finally:
             crl.sample_actions = sample_actions
@@ -1248,6 +1441,13 @@ def graph_parity(torch, backend, chaos=False, policy=None,
     if n_r != n_s:
         raise AssertionError(f"graph parity ({backend}): launches {n_s} "
                              f"against the reference's {n_r}")
+    if health:
+        if sinks[0].records != sinks[1].records:
+            raise AssertionError(f"graph parity ({backend}, health): the "
+                                 f"streamed records differ")
+        if "health" not in st_s or "health_susp" not in hist_s:
+            raise AssertionError(f"graph parity ({backend}): no health")
+        check_records(sinks[1].records, hist_s, f"graph parity ({backend})")
 
     got = dict(leaves(st_s))
     for name, want in [*leaves(st_r), *((f"history.{k}", v)
@@ -1258,7 +1458,9 @@ def graph_parity(torch, backend, chaos=False, policy=None,
             raise AssertionError(f"graph parity ({backend}): {name} differs "
                                  f"from the reference driver's")
     log(f"  {backend}{' (chaos, ' + mode + ')' if chaos else ''}"
-        f"{' --state-dtype ' + policy if policy else ''}: {n} control steps "
+        f"{' --state-dtype ' + policy if policy else ''}"
+        f"{' --health' + (' gate 0.5' if chaos else '') if health else ''}"
+        f"{', streamed records equal' if health else ''}: {n} control steps "
         f"of identical actions; "
         f"{len(hist_r)} history metrics and {len(got)} state leaves bit "
         f"for bit; {len(g_s)} generator states equal; launches K1, K2, K3 "
@@ -1335,29 +1537,35 @@ def float32_is_default(torch):
 
 
 def resume_phase(torch, cfg):
-    """``train_fleet --state-dtype lean`` with the chaos slice and
-    byzantine noise, 20 episodes, the graph driver: once straight through
-    (``--ckpt-every 5``), once killed by ``--stop-after 7`` and rerun. The
-    checkpoints land at 5, 7, 12, 17, 20; the two invocations' histories
-    are the straight run's and the final checkpoint is its checkpoint bit
-    for bit, both generators' states included. That checkpoint then
-    restores on the CPU, every leaf equal."""
+    """``train_fleet --state-dtype lean`` with the chaos slice, byzantine
+    noise, ``--health`` and ``--metrics-out``, 20 episodes, the graph
+    driver: once straight through (``--ckpt-every 5``), once killed by
+    ``--stop-after 7`` and rerun. The checkpoints land at 5, 7, 12, 17,
+    20; the two invocations' histories are the straight run's, the final
+    checkpoint is its checkpoint bit for bit (both generators' states and
+    the health state included) and the resumed metrics file holds the
+    straight file's episode records. That checkpoint then restores on the
+    CPU, every leaf equal."""
     import shutil
     import tempfile
     import numpy as np
     from repro_torch.core.fleet import fleet_init
     from repro_torch.launch import train_fleet
     from repro_torch.training import checkpoint as ckpt
+    from repro_torch.eval.stream import read_metrics
+    from repro_torch.health import HealthConfig
     argv = ["--episodes", "20", "--state-dtype", "lean", *NOISE_ARGV,
-            "--ckpt-every", "5", "--device", DEV]
+            "--health", "--ckpt-every", "5", "--device", DEV]
     tmp = Path(tempfile.mkdtemp(prefix="chip_smoke_ckpt_"))
     try:
         reset_launches()
-        _, h_s = train_fleet.main([*argv, "--ckpt-dir", str(tmp / "a")])
+        _, h_s = train_fleet.main([*argv, "--ckpt-dir", str(tmp / "a"),
+                                   "--metrics-out", str(tmp / "a.jsonl")])
         k = read_launches()[:3]
         if k != (20, 20 // cfg.fl_every, 0):
             raise AssertionError(f"[resume]: K1, K2, K3 launched {k}")
-        killed = [*argv, "--ckpt-dir", str(tmp / "b")]
+        killed = [*argv, "--ckpt-dir", str(tmp / "b"),
+                  "--metrics-out", str(tmp / "b.jsonl")]
         _, h_1 = train_fleet.main([*killed, "--stop-after", "7"])
         if ckpt.latest_step(str(tmp / "b")) != 7:
             raise AssertionError("[resume]: --stop-after 7 left no "
@@ -1378,11 +1586,22 @@ def resume_phase(torch, cfg):
                                  "checkpoint differs from the straight "
                                  "run's")
         gens = [key for key in want if key.startswith("torch/")]
+        n_health = sum(key.startswith("13/") for key in want)
+        if not n_health:
+            raise AssertionError("[resume]: no health state in the "
+                                 "checkpoint")
+        episodes = lambda path: [r for r in read_metrics(str(path))[1]
+                                 if "episode" in r]
+        if episodes(tmp / "a.jsonl") != episodes(tmp / "b.jsonl") or \
+                len(episodes(tmp / "a.jsonl")) != 20:
+            raise AssertionError("[resume]: the resumed metrics file's "
+                                 "records differ from the straight run's")
         log(f"  stop at 7 and rerun == straight run: 20 episodes of "
-            f"histories and all {len(want)} checkpoint arrays bit for bit "
-            f"({', '.join(gens)} included)")
+            f"histories, all {len(want)} checkpoint arrays ({n_health} of "
+            f"health state, {', '.join(gens)} included) and the 20 "
+            f"streamed episode records bit for bit")
         like = fleet_init(cfg, 8, 0, n_pods=2, device="cpu",
-                          state_policy="lean")
+                          state_policy="lean", health=HealthConfig())
         on_cpu, manifest = ckpt.restore(str(tmp / "b"), 20, like, cfg)
         flat = ckpt.fleet_flat(on_cpu)
         for key, v in flat.items():
@@ -1395,6 +1614,275 @@ def resume_phase(torch, cfg):
             f"{manifest['restored_generators'] or 'none, another device'})")
     finally:
         shutil.rmtree(tmp, ignore_errors=True)
+
+
+# ---------------------------------------------------------------------------
+# The health observatory, the metrics stream, the leaderboard
+# ---------------------------------------------------------------------------
+# (episode body, FL-round body) ops that the graph driver's bodies
+# dispatch on the card without health or sink (``body_ops``, A=8, P=2,
+# the CLI's default run), as the port before the health observatory
+# dispatched them, counted by ``body_ops`` under torch ``BODY_OPS_TORCH``
+BODY_OPS_TORCH = "2.11.0+cu128"
+PARENT_BODY_OPS = {"fluid": [1964, 1150], "twin": [2357, 1152]}
+
+
+def body_ops(torch, cfg, backend, **kw):
+    """The non-view ops the graph driver's episode and FL-round bodies
+    dispatch on ``DEV`` (A=8, P=2, one eager call of each after four
+    episodes: the graphs capture exactly these). Each op is at most a
+    kernel or a copy; the kernels K1–K3 launch through ``ctypes`` and are
+    counted by their own counters."""
+    from torch.utils._python_dispatch import TorchDispatchMode
+    from repro_torch.core.fleet import FleetScan, fleet_init
+    from repro_torch.data.workload import fleet_traces
+
+    class OpCount(TorchDispatchMode):
+        n = 0
+
+        def __torch_dispatch__(self, func, types, args=(), kwargs=None):
+            if not func.is_view and func is not torch.ops.aten.detach.default:
+                self.n += 1
+            return func(*args, **(kwargs or {}))
+
+    gen = torch.Generator()
+    gen.manual_seed(1)
+    driver = FleetScan(cfg, fleet_init(cfg, 8, 0, n_pods=2, device=DEV,
+                                       env_backend=backend),
+                       fleet_traces(gen, 8, 6 * cfg.n_steps, device=DEV),
+                       env_backend=backend, **kw)
+    for _ in range(4):
+        driver.step()
+    out = []
+    for graph in driver.graphs[:2]:
+        with OpCount() as c:
+            graph.body()
+        out.append(c.n)
+    torch.cuda.synchronize()
+    return out
+
+
+def health_phase(torch, cfg, default, k_base):
+    """``train_fleet --health --metrics-out --alerts-out`` fluid and twin,
+    20 episodes under both drivers (histories bit for bit), then with the
+    chaos flags and ``--susp-threshold 0.5``: K1, K2 and K3 launch as in
+    the same runs without health (``k_base``). The graph driver against
+    the reference driver with health (plain and gated chaos), bit for bit
+    with equal launch counts and streamed records; the card against the
+    CPU at A=4; per backend, the ops the episode and round bodies
+    dispatch without health exactly the parent port's
+    (``PARENT_BODY_OPS``, ``body_ops``) and with it, and ten profiled
+    episodes with and without health (the profiler's kernel counts are
+    reported beside ``default``, the default window profiled earlier in
+    this call: they move by a few kernels between windows of one call).
+    Returns the windows {(backend, health on): numbers}."""
+    import shutil
+    import tempfile
+    from repro_torch.configs.fcpo import FCPOConfig
+    n = cfg.n_steps
+    tmp = Path(tempfile.mkdtemp(prefix="chip_smoke_health_"))
+    counts = {}
+    try:
+        for backend in ("fluid", "twin"):
+            twin = ["--env-backend", "twin"] if backend == "twin" else []
+            out = ["--health", "--metrics-out", str(tmp / "run.jsonl"),
+                   "--alerts-out", str(tmp / "alerts.jsonl")]
+            counts[backend] = drive(torch, ["--episodes", "20", *out,
+                                            *twin], 20, cfg.fl_every, n,
+                                    strict=True)
+            counts[backend + " chaos"] = drive(
+                torch, ["--episodes", "20", *CHAOS_ARGV, *out,
+                        "--susp-threshold", "0.5", *twin], 20,
+                cfg.fl_every, n)
+    finally:
+        shutil.rmtree(tmp, ignore_errors=True)
+    log("  launches of K1, K2, K3 with --health: " + json.dumps(counts))
+    if counts != k_base:
+        raise AssertionError(f"[health]: K1, K2, K3 launched {counts}, "
+                             f"without health {k_base}")
+    for backend in ("fluid", "twin"):
+        graph_parity(torch, backend, health=True)
+        graph_parity(torch, backend, chaos=True, health=True)
+    for backend in ("fluid", "twin"):
+        run_pair(torch, FCPOConfig(fl_every=1), backend, health=True)
+    run_pair(torch, FCPOConfig(fl_every=1), "twin", chaos=True, health=True)
+    for backend in ("fluid", "twin"):
+        ops_off = body_ops(torch, cfg, backend)
+        ops_on = body_ops(torch, cfg, backend, **health_kwargs())
+        if torch.__version__ != BODY_OPS_TORCH:
+            raise AssertionError(
+                f"[health] {backend}: PARENT_BODY_OPS were counted under "
+                f"torch {BODY_OPS_TORCH}, this is {torch.__version__}: "
+                f"count them again with body_ops on the parent port")
+        if ops_off != PARENT_BODY_OPS[backend]:
+            raise AssertionError(
+                f"[health] {backend}: without --health the episode and "
+                f"round bodies dispatch {ops_off} ops, the parent port "
+                f"{PARENT_BODY_OPS[backend]}")
+        log(f"  [health] {backend}: episode / round bodies dispatch "
+            f"{ops_off[0]} / {ops_off[1]} ops without --health (the parent "
+            f"port's), {ops_on[0]} / {ops_on[1]} with it (+"
+            f"{ops_on[0] - ops_off[0]} / +{ops_on[1] - ops_off[1]})")
+    windows = {}
+    for backend in ("fluid", "twin"):
+        windows[backend, False] = profile_episodes(torch, cfg, backend)
+        windows[backend, True] = profile_episodes(torch, cfg, backend,
+                                                  **health_kwargs())
+        off, on, base = windows[backend, False], windows[backend, True], \
+            default[backend]
+        if on.get("launches") != off.get("launches"):
+            raise AssertionError(f"[health] {backend}: K1, K2, K3 "
+                                 f"{on.get('launches')} in the profiled "
+                                 f"window, {off.get('launches')} without")
+        log(f"  [health] {backend}: --health adds "
+            f"{on.get('kernels', 0) - off.get('kernels', 0):.1f} kernels and "
+            f"{on['alone_ms'] - off['alone_ms']:.3f} ms per replayed episode "
+            f"alone ({on['alone_ms']:.3f} against {off['alone_ms']:.3f}), "
+            f"device {on.get('device_ms', 0) - off.get('device_ms', 0):.3f} "
+            f"ms; {on.get('graph_launches')} graph launches an episode; "
+            f"without --health the profiler counts {off.get('kernels')} "
+            f"kernels an episode, in the default window "
+            f"{base.get('kernels')}")
+    return windows
+
+
+def metrics_phase(torch, cfg):
+    """``train_fleet --health --fl-codec int8 --metrics-out --alerts-out``
+    under both drivers: the file's episode records equal the returned
+    history, a trailing scaling record follows; ``watch`` renders the
+    file. Then ms per replayed episode with a JSONL sink against without
+    one (health on, fluid; alternately off, on, on, off, ten episodes
+    each after eight), and ten profiled episodes with health and the sink
+    (at most three graph launches an episode). Returns the timings."""
+    import shutil
+    import tempfile
+    from repro_torch.core.fleet import FleetScan, fleet_init
+    from repro_torch.data.workload import fleet_traces
+    from repro_torch.eval.stream import MetricsSink, read_metrics
+    from repro_torch.launch import train_fleet
+    from repro_torch.launch.watch import render
+    tmp = Path(tempfile.mkdtemp(prefix="chip_smoke_metrics_"))
+    try:
+        for driver in ("scan", "reference"):
+            path, alerts = tmp / f"{driver}.jsonl", tmp / "alerts.jsonl"
+            _, hist = train_fleet.main([
+                "--episodes", "20", "--health", "--fl-codec", "int8",
+                "--device", DEV, "--driver", driver, "--metrics-out",
+                str(path), "--alerts-out", str(alerts)])
+            _, recs = read_metrics(str(path))
+            check_records(recs[:-1], hist, f"[metrics] {driver}")
+            if "devices" not in recs[-1]:
+                raise AssertionError("[metrics]: no trailing scaling record")
+            log(f"  --driver {driver}: {len(recs) - 1} records equal the "
+                f"returned history, then the scaling record "
+                f"{json.dumps(recs[-1])}")
+        text = render(str(path), 10, alerts_path=str(alerts))
+        if "episodes recorded: 20" not in text or "health:" not in text:
+            raise AssertionError("[metrics]: watch did not render the run")
+        for line in text.splitlines():
+            log("    watch | " + line)
+
+        warm, n_eps, n = 8, 10, cfg.n_steps
+        gen = torch.Generator()
+        gen.manual_seed(1)
+        traces = fleet_traces(gen, 8, (warm + n_eps) * n, device=DEV)
+        hk = health_kwargs()
+        per = {False: [], True: []}
+        for i, on in enumerate((False, True, True, False)):
+            sink = MetricsSink(str(tmp / f"t{i}.jsonl")) if on else None
+            driver = FleetScan(cfg, fleet_init(cfg, 8, 0, n_pods=2,
+                                               device=DEV), traces,
+                               metrics_sink=sink, **hk)
+            for _ in range(warm):
+                driver.step()
+
+            def steps():
+                for _ in range(n_eps):
+                    driver.step()
+                driver.drain()
+            per[on].append(timed(torch, steps) / n_eps * 1e3)
+            if sink is not None:
+                sink.close()
+                if len(read_metrics(str(tmp / f"t{i}.jsonl"))[1]) != \
+                        warm + n_eps:
+                    raise AssertionError("[metrics]: records lost")
+        off, on = sum(per[False]) / 2, sum(per[True]) / 2
+        log(f"  sink cost (fluid, --health, ten replayed episodes alone, "
+            f"off/on/on/off): {per[False][0]:.3f} / {per[True][0]:.3f} / "
+            f"{per[True][1]:.3f} / {per[False][1]:.3f} ms per episode; "
+            f"the sink adds {on - off:.3f} ms per episode")
+        ring_waits = sink_ring_of_two(torch, cfg, traces, hk)
+        with MetricsSink(str(tmp / "profiled.jsonl")) as sink:
+            window = profile_episodes(torch, cfg, metrics_sink=sink, **hk)
+        if window["max_graph_launches"] > 3:
+            raise AssertionError("[metrics]: more than 3 graph launches")
+    finally:
+        shutil.rmtree(tmp, ignore_errors=True)
+    return dict(off_ms=off, on_ms=on, window=window, ring_waits=ring_waits)
+
+
+def sink_ring_of_two(torch, cfg, traces, hk):
+    """The graph driver's stream with ``SINK_DEPTH`` 2 over ``traces``:
+    the host runs ahead of the device and waits for its oldest copy
+    (``SinkTap.waits`` > 0); the records are the history, in order, each
+    once. Returns the waits."""
+    from repro_torch.core import fleet as tfleet
+    records = []
+
+    class ListSink:
+        append = staticmethod(records.append)
+
+    depth, tfleet.SINK_DEPTH = tfleet.SINK_DEPTH, 2
+    try:
+        driver = tfleet.FleetScan(cfg, tfleet.fleet_init(
+            cfg, 8, 0, n_pods=2, device=DEV), traces,
+            metrics_sink=ListSink(), **hk)
+        _, hist = driver.run()
+    finally:
+        tfleet.SINK_DEPTH = depth
+    check_records(records, hist, "[metrics] ring of two")
+    if driver.tap.waits == 0:
+        raise AssertionError("[metrics] ring of two: the host never waited "
+                             "for a slot")
+    log(f"  ring of two: {len(records)} records equal the history; the "
+        f"host waited {driver.tap.waits} times for a slot")
+    return driver.tap.waits
+
+
+def leaderboard_phase(torch, cfg):
+    """The default ``train_fleet`` run of ``[main path]`` (20 episodes)
+    with a checkpoint at its end, loaded by ``load_fleet`` and scored on
+    {steady, burst} × {fluid, twin} × {float32, int8} (one replicate, six
+    adaptation episodes, 30 held-out twin intervals), twice: finite rows,
+    equal between the two calls. Returns the rows."""
+    import shutil
+    import tempfile
+    from repro_torch.eval import leaderboard as lb
+    from repro_torch.launch import train_fleet
+    tmp = Path(tempfile.mkdtemp(prefix="chip_smoke_board_"))
+    try:
+        train_fleet.main(["--episodes", "20", "--device", DEV,
+                          "--ckpt-dir", str(tmp)])
+        fleet = lb.load_fleet(cfg, str(tmp), n_agents=8, n_pods=2,
+                              device=DEV)
+    finally:
+        shutil.rmtree(tmp, ignore_errors=True)
+    cells = lb.grid_cells(("steady", "burst"), ("fluid", "twin"),
+                          ("float32", "int8"))
+    t0 = time.time()
+    rows = lb.run_leaderboard(cfg, fleet, cells, replicates=1)
+    wall = time.time() - t0
+    again = lb.run_leaderboard(cfg, fleet, cells, replicates=1)
+    if rows != again:
+        raise AssertionError("[leaderboard]: rows differ between two calls")
+    keys = ("reward_mean", "train_eff_mean", "eval_eff_mean",
+            "eval_p99_mean", "eval_slo_mean", "fl_payload_bytes")
+    for r in rows:
+        if not all(math.isfinite(r[k]) for k in keys):
+            raise AssertionError(f"[leaderboard]: {r['name']} not finite")
+        log("  " + json.dumps({k: r[k] for k in ("name", *keys)}))
+    log(f"  {len(rows)} cells in {wall:.2f} s, equal in a second call")
+    return rows
 
 
 def state_bytes_phase(torch, cfg):
@@ -2000,8 +2488,8 @@ def main():
     drive_simulate(["--train-episodes", "4", "--train-backend", "twin",
                     "--compare-fluid"], 4 * n + 60)
     log("[profile] default runs under both drivers, torch.profiler")
-    profile_episodes(torch, cfg)
-    profile_episodes(torch, cfg, "twin")
+    default_windows = {"fluid": profile_episodes(torch, cfg),
+                       "twin": profile_episodes(torch, cfg, "twin")}
     profile_simulate(torch, cfg)
     log("[graph parity] graph driver vs reference driver on the card")
     graph_parity(torch, "fluid")
@@ -2031,6 +2519,16 @@ def main():
     resume_phase(torch, cfg)
     log("[state bytes] fleet_state_bytes, allocated memory, checkpoints")
     state_bytes_phase(torch, cfg)
+    log("[health] train_fleet --health --metrics-out --alerts-out, fluid "
+        "and twin, plain and with the chaos flags and --susp-threshold 0.5")
+    health_phase(torch, cfg, default_windows,
+                 {"fluid": (20, 0, 0), "fluid chaos": k_chaos["fluid"],
+                  "twin": (20, 0, 20 * n), "twin chaos": k_chaos["twin"]})
+    log("[metrics] the JSONL stream, watch, the sink's cost")
+    metrics_phase(torch, cfg)
+    log("[leaderboard] a reduced grid from the [main path] run's "
+        "checkpoint")
+    leaderboard_phase(torch, cfg)
 
     log("[K5] decode_attention vs plain")
     k5_err, k5_t = check_k5(torch, gen)

@@ -42,11 +42,14 @@ class AgentState:
 
 def run_episode(cfg: FCPOConfig, ep: env_mod.EnvParams, astate: AgentState,
                 rates: torch.Tensor, mask: ActionMask, backend=FLUID,
-                gumbel=None, generator=None
+                gumbel=None, generator=None, health: bool = False
                 ) -> Tuple[AgentState, Rollout, Dict[str, torch.Tensor]]:
     """Collect one episode for every agent (rates: (A, n_steps) arrivals
     per interval). ``gumbel`` ((A, n_steps, n_res+n_bs+n_mt)) is pre-drawn
-    action noise; without it the noise comes from ``generator``."""
+    action noise; without it the noise comes from ``generator``.
+    ``health`` adds a ``"_health"`` entry of raw per-interval telemetry
+    for the health observatory ((A, T) reward, SLO-miss rate and arrival
+    rate, (A, T, K) action marginals); every other output is unchanged."""
     params = astate.policy.params()
     est = astate.env_state
     # env params are read in float32 once an episode; the stepped env state
@@ -82,19 +85,26 @@ def run_episode(cfg: FCPOConfig, ep: env_mod.EnvParams, astate: AgentState,
                       values_old=ys["values"])
     metrics = {"reward": ys["rewards"].mean(-1),
                **{k: ys[k].mean(-1) for k in INFO_METRICS}}
+    if health:
+        thr = ys["throughput"]
+        miss = (thr - ys["effective_throughput"]) / torch.clamp_min(thr, 1e-9)
+        metrics["_health"] = {"reward": ys["rewards"], "miss": miss,
+                              "probs": ys["probs"], "rate": rates}
     new_state = AgentState(astate.policy, astate.opt, buffer, est)
     return new_state, rollout, metrics
 
 
 def crl_episode(cfg: FCPOConfig, ep: env_mod.EnvParams, astate: AgentState,
                 rates: torch.Tensor, mask: ActionMask, learn: bool = True,
-                backend=FLUID, gumbel=None, generator=None
+                backend=FLUID, gumbel=None, generator=None,
+                health: bool = False
                 ) -> Tuple[AgentState, Rollout, Dict[str, torch.Tensor]]:
     """Episode + gated online update (the CRL inner loop). Metrics are
-    (A,) tensors."""
+    (A,) tensors (``health``: plus ``run_episode``'s telemetry)."""
     astate, rollout, metrics = run_episode(cfg, ep, astate, rates, mask,
                                            backend=backend, gumbel=gumbel,
-                                           generator=generator)
+                                           generator=generator,
+                                           health=health)
     a = rates.shape[0]
     if learn:
         params, opt, lm = agent_update(cfg, astate.policy.params(),

@@ -67,17 +67,25 @@ def total_utility(stats: ClientStats) -> torch.Tensor:
     return util * torch.sqrt(torch.clamp_min(stats.bandwidth, 1e-3) / 10.0)
 
 
-def select_clients(cfg: FCPOConfig, stats: ClientStats) -> torch.Tensor:
-    """Top-⌈frac·A⌉ by TotalUtil among available clients -> (A,) bool."""
+def select_clients(cfg: FCPOConfig, stats: ClientStats, suspicion=None,
+                   susp_threshold: float = 0.0) -> torch.Tensor:
+    """Top-⌈frac·A⌉ by TotalUtil among available clients -> (A,) bool.
+    ``suspicion`` ((A,) in [0, 1], the health observatory's EMA from the
+    previous round) with ``susp_threshold`` > 0 takes the suspects out of
+    the pool before the top-k, so that an excluded client frees its slot
+    for the next candidate instead of shrinking the round."""
     a = stats.available.shape[0]
     k = max(1, int(round(cfg.clients_per_round * a)))
-    utils = torch.where(stats.available, total_utility(stats), -torch.inf)
+    available = stats.available
+    if suspicion is not None and susp_threshold > 0.0:
+        available = available & (suspicion <= susp_threshold)
+    utils = torch.where(available, total_utility(stats), -torch.inf)
     order = torch.argsort(-utils, stable=True)
     # index_fill_ keeps the value on the host side of the launch (an
     # indexed assignment would copy it to the device: no CUDA graph capture)
     sel = torch.zeros(a, dtype=torch.bool, device=utils.device).index_fill_(
         0, order[:k], True)
-    return sel & stats.available
+    return sel & available
 
 
 def _segment_sum(x, seg, n):

@@ -43,9 +43,20 @@ float32 and stores back at each leaf's dtype. Both drivers take
 ``episode_offset`` / ``total_episodes``, so that a run resumed from a
 checkpoint (``training/checkpoint.py``) draws the uninterrupted run's
 stragglers, faults and merge cadence.
+
+Health (``fleet_init(..., health=...)``, the drivers' ``health=``): the
+observatory's state (``repro_torch.health``) rides in the fleet and is
+advanced inside the episode and FL-round bodies; its per-episode summaries
+join the history. A ``metrics_sink`` (anything with ``.append(record)``)
+gets one record per episode from either driver; the graph driver copies
+each episode's history row to pinned host memory behind the replays and
+writes the record once the copy has landed, so that the stream adds no
+host sync per episode. Without health and sink both drivers run exactly
+as before.
 """
 from __future__ import annotations
 
+from collections import deque
 from dataclasses import dataclass, fields, is_dataclass, replace
 from typing import Dict, Optional
 
@@ -72,6 +83,12 @@ from repro_torch.fl import staleness as fl_stale
 from repro_torch.fl import transport as fl_transport
 from repro_torch.fl.codec import codec_roundtrip, residuals_init
 from repro_torch.fl.transport import DEFAULT_TRANSPORT, TransportConfig
+from repro_torch.health import (HEALTH_METRIC_KEYS, HealthConfig,
+                                HealthState, attribution_scores,
+                                episode_summaries, health_init,
+                                update_episode, update_round)
+from repro_torch.health.drift import DriftState
+from repro_torch.health.sketch import P2State
 from repro_torch.resilience import faults as rfaults
 from repro_torch.resilience.faults import FaultConfig
 from repro_torch.resilience.guards import (DEFAULT_GUARDS, GuardConfig,
@@ -101,6 +118,7 @@ class Fleet:
     rng: np.ndarray                   # (A, 2) uint32 JAX keys, host, opaque
     episode: int = 0
     fault_generator: Optional[torch.Generator] = None   # byzantine noise
+    health: Optional[HealthState] = None   # the observatory's state, (A, ...)
 
     def replace(self, **kw) -> "Fleet":
         return replace(self, **kw)
@@ -115,8 +133,8 @@ def agent_keys(seed: int, n_agents: int) -> np.ndarray:
 
 def _assemble(cfg, policy, opt, buffer, env_state, base, env_params, masks,
               speeds, bandwidth, residuals, generator, rng, episode=0,
-              pending=None, crash_timer=None, partition_timer=None
-              ) -> Fleet:
+              pending=None, crash_timer=None, partition_timer=None,
+              health=None) -> Fleet:
     n_agents, n_pods = speeds.shape[0], next(base.parameters()).shape[0]
     dev = speeds.device
     group_ids, group_counts = fed.head_group_ids(masks, dev)
@@ -132,19 +150,23 @@ def _assemble(cfg, policy, opt, buffer, env_state, base, env_params, masks,
         crash_timer=zeros(n_agents) if crash_timer is None else crash_timer,
         partition_timer=(zeros(n_pods) if partition_timer is None
                          else partition_timer),
-        generator=generator, n_pods=n_pods, rng=rng, episode=episode)
+        generator=generator, n_pods=n_pods, rng=rng, episode=episode,
+        health=health)
 
 
 def fleet_init(cfg: FCPOConfig, n_agents: int, seed: int = 0, *,
                n_pods: int = 1, device="cuda", env_backend=None,
-               slo_s: Optional[float] = None, state_policy=None) -> Fleet:
+               slo_s: Optional[float] = None, state_policy=None,
+               health: Optional[HealthConfig] = None) -> Fleet:
     """A fresh fleet: random agents and pod base networks from ``seed``,
     the heterogeneous device mix and link bandwidths drawn from the same
     numpy streams as the reference (``default_rng(0)`` / ``(1)``).
     ``env_backend`` (``"fluid"``, the default, ``"twin"`` or a backend)
     builds ``astate.env_state``: pass the same backend to the drivers.
     ``state_policy``: a ``core/dtypes.py`` policy name or ``StatePolicy``
-    (``fleet_cast``); None keeps every float leaf float32."""
+    (``fleet_cast``); None keeps every float leaf float32. ``health``: a
+    ``HealthConfig`` attaches the observatory's state (float32 under
+    every policy); None keeps the fleet without it."""
     dev = resolve_device(device)
     backend = get_backend(env_backend)
     gen = torch.Generator(device=dev)
@@ -168,6 +190,7 @@ def fleet_init(cfg: FCPOConfig, n_agents: int, seed: int = 0, *,
         pod_base, env_params, full_mask(cfg, n_agents, dev), speeds,
         bandwidth, residuals_init(policy.params()), gen,
         agent_keys(seed, n_agents))
+    fleet = _ensure_health(cfg, fleet, health)
     return fleet if state_policy is None else fleet_cast(fleet, state_policy)
 
 
@@ -176,7 +199,8 @@ def fleet_cast(fleet: Fleet, state_policy) -> Fleet:
     name, a ``StatePolicy`` or None for float32): params and base networks
     (``model``), Adam moments (``opt``), the buffer payload (``buffer``),
     env state and params (``env``), residuals and parked deltas
-    (``transport``). Leaves already at their dtype are kept as they are;
+    (``transport``); the health state stays float32, as in the reference.
+    Leaves already at their dtype are kept as they are;
     casting a lean fleet to ``"float32"`` widens it (int8 slots
     dequantized). Build the drivers after casting: their graphs hold the
     fleet's tensors."""
@@ -209,7 +233,7 @@ def fleet_state_bytes(fleet: Fleet) -> Dict[str, float]:
         "buffer": a.buffer,
         "env": (a.env_state, fleet.env_params),
         "transport": (fleet.residuals, fleet.pending),
-        "health": (),
+        "health": () if fleet.health is None else fleet.health,
         "misc": (fleet.masks, fleet.group_ids, fleet.pod_ids,
                  fleet.bandwidth, fleet.speeds, fleet.crash_timer,
                  fleet.partition_timer),
@@ -219,6 +243,23 @@ def fleet_state_bytes(fleet: Fleet) -> Dict[str, float]:
     out["total"] = float(sum(out.values()))
     out["per_agent"] = out["total"] / max(int(fleet.pod_ids.shape[0]), 1)
     return out
+
+
+def fleet_device_bytes(fleet: Fleet) -> Dict[int, float]:
+    """Bytes of the fleet's tensors by device index (the reference's
+    per-device placement; the port runs on one device, index 0 on the
+    CPU). The carried keys are host data and not counted."""
+    per: Dict[int, float] = {}
+
+    def add(x):
+        d = x.device.index or 0
+        per[d] = per.get(d, 0.0) + float(x.numel() * x.element_size())
+    a = fleet.astate
+    dtp.tree_map(add, (a.policy.params(), a.opt, a.buffer, a.env_state,
+                       fleet.base.params(),
+                       *(getattr(fleet, f.name) for f in fields(fleet)
+                         if f.name not in ("astate", "base"))))
+    return per
 
 
 def _numpy_fields(obj):
@@ -260,8 +301,9 @@ def fleet_from_numpy(cfg: FCPOConfig, tree, device="cuda", seed: int = 0
     ``env_params`` (field dicts), ``base_params``,
     ``masks`` (``res``/``bs``/``mt``), ``speeds``, ``bandwidth``, and
     optionally ``residuals``, ``pending`` (``delta`` tree, ``staleness``,
-    ``has``), ``crash_timer``, ``partition_timer``, ``episode`` and
-    ``rng`` (the (A, 2) uint32 keys, else made from ``seed``). Every leaf
+    ``has``), ``crash_timer``, ``partition_timer``, ``episode``, ``rng``
+    (the (A, 2) uint32 keys, else made from ``seed``) and ``health`` (the
+    ``HealthState``'s fields, P² and drift states nested). Every leaf
     keeps its dtype (bf16 from raw ``|V2`` or ``uint16`` arrays, int8 buffer
     slots); the index leaves become ``long``. ``seed`` seeds the fleet's
     generator. ``fleet_to_numpy`` is the reverse."""
@@ -292,6 +334,11 @@ def fleet_from_numpy(cfg: FCPOConfig, tree, device="cuda", seed: int = 0
             has=torch.tensor(np.asarray(pending["has"]), dtype=torch.bool,
                              device=dev))
     timer = lambda k: i32(tree[k]) if k in tree else None
+    health = tree.get("health")
+    if health is not None:
+        health = _from_fields(HealthState, health, dev, nested={
+            "reward_p2": P2State, "drift_reward": DriftState,
+            "drift_rate": DriftState})
     n_agents = masks.res.shape[0]
     rng = (np.array(tree["rng"], dtype=np.uint32) if "rng" in tree
            else agent_keys(seed, n_agents))
@@ -303,7 +350,7 @@ def fleet_from_numpy(cfg: FCPOConfig, tree, device="cuda", seed: int = 0
         masks, f32(tree["speeds"]), f32(tree["bandwidth"]), residuals, gen,
         rng, episode=int(tree.get("episode", 0)), pending=pending,
         crash_timer=timer("crash_timer"),
-        partition_timer=timer("partition_timer"))
+        partition_timer=timer("partition_timer"), health=health)
 
 
 def fleet_to_numpy(fleet: Fleet):
@@ -332,27 +379,44 @@ def fleet_to_numpy(fleet: Fleet):
         "crash_timer": np_(fleet.crash_timer),
         "partition_timer": np_(fleet.partition_timer),
         "episode": fleet.episode,
+        **({} if fleet.health is None
+           else {"health": _numpy_fields(fleet.health)}),
     }
 
 
 def fleet_episode(cfg: FCPOConfig, fleet: Fleet, rates: torch.Tensor,
-                  learn: bool = True, gumbel=None, backend=FLUID):
+                  learn: bool = True, gumbel=None, backend=FLUID,
+                  health: Optional[HealthConfig] = None):
     """One CRL episode for all agents. rates: (A, n_steps); gumbel:
     optional pre-drawn (A, n_steps, n_res+n_bs+n_mt) action noise;
     ``backend``: the environment, the one the fleet was built with.
-    Returns (fleet, rollouts, per-agent metrics)."""
+    ``health``: advance the fleet's health state through the episode's
+    per-interval telemetry and add its summaries to the metrics
+    (``HEALTH_METRIC_KEYS``). Returns (fleet, rollouts, per-agent
+    metrics)."""
+    if health is not None and fleet.health is None:
+        raise ValueError("fleet_episode(health=...) needs a fleet with "
+                         "health state (fleet_init(..., health=...))")
     astate, rollouts, metrics = crl_episode(
         cfg, fleet.env_params, fleet.astate, rates, fleet.masks, learn,
-        backend=backend, gumbel=gumbel, generator=fleet.generator)
-    return fleet.replace(astate=astate, episode=fleet.episode + 1), \
-        rollouts, metrics
+        backend=backend, gumbel=gumbel, generator=fleet.generator,
+        health=health is not None)
+    hstate = fleet.health
+    if health is not None:
+        tele = metrics.pop("_health")
+        hstate = update_episode(health, hstate, tele["reward"],
+                                tele["miss"], tele["probs"], tele["rate"])
+        metrics.update(episode_summaries(health, hstate))
+    return fleet.replace(astate=astate, episode=fleet.episode + 1,
+                         health=hstate), rollouts, metrics
 
 
 def fl_round(cfg: FCPOConfig, fleet: Fleet, rollouts, available=None,
              transport: Optional[TransportConfig] = None,
              guards: Optional[GuardConfig] = None,
              faults: Optional[FaultConfig] = None, byzantine=None,
-             byz_noise=None, generator=None):
+             byz_noise=None, generator=None,
+             health: Optional[HealthConfig] = None):
     """One federated round: uplink model -> Eq. 7 selection -> (lossy codec)
     -> Alg. 1 aggregation -> Alg. 2 head fine-tuning -> buffer moment
     resync.
@@ -368,11 +432,20 @@ def fl_round(cfg: FCPOConfig, fleet: Fleet, rollouts, available=None,
     per-leaf delta clip and the non-finite rejection (``fl_rejected``).
     ``faults`` with ``byzantine`` ((A,) bool) corrupts those agents'
     decoded deltas after the codec; the ``noise`` mode reads ``byz_noise``
-    ({name: leaf-shaped noise}) or draws from ``generator``. Returns
+    ({name: leaf-shaped noise}) or draws from ``generator``. ``health``
+    scores every aggregated client's delta (``attribution_scores``: on
+    the wire contributions before the clip, or, on the plain path, on
+    ``params - base`` read on the side, which leaves the plain numerics
+    alone) into the fleet's suspicion EMA, a rejected contribution at
+    suspicion 1; with ``guards.susp_threshold`` > 0 the previous round's
+    EMA also gates Eq. 7 selection. Returns
     (fleet, sel (A,) bool aggregation mask, fl_metrics of 0-dim tensors,
     ``FL_METRIC_KEYS``)."""
     transport = DEFAULT_TRANSPORT if transport is None else transport
     guards = DEFAULT_GUARDS if guards is None else guards
+    if health is not None and fleet.health is None:
+        raise ValueError("fl_round(health=...) needs a fleet with health "
+                         "state (fleet_init(..., health=...))")
     byz_on = faults is not None and faults.byzantine_active
     policy, astate = fleet.astate.policy, fleet.astate
     params = {k: v.detach() for k, v in policy.params().items()}
@@ -410,7 +483,11 @@ def fl_round(cfg: FCPOConfig, fleet: Fleet, rollouts, available=None,
         bandwidth=fleet.bandwidth,
         available=(available | pending.has if transport.async_rounds
                    else fresh_ok))
-    sel = fed.select_clients(cfg, stats)
+    # clients the previous round scored suspect lose their slot to the next
+    # candidate
+    sel = fed.select_clients(
+        cfg, stats, suspicion=None if health is None else fleet.health.susp,
+        susp_threshold=guards.susp_threshold)
     with torch.no_grad():
         head_losses = fed.per_head_losses(cfg, params, rollouts, fleet.masks)
 
@@ -422,10 +499,11 @@ def fl_round(cfg: FCPOConfig, fleet: Fleet, rollouts, available=None,
     if plain:
         recon = contrib = params
         sel_agg = sel
-    else:
+    if not plain or health is not None:
         # deltas are formed in float32 against float32 base networks,
         # whatever the stored dtypes
         base_g = {k: b[fleet.pod_ids].float() for k, b in base.items()}
+    if not plain:
         delta = {k: params[k].float() - base_g[k] for k in params}
         decoded, res_next = codec_roundtrip(delta, fleet.residuals, transport)
         if byz_on:
@@ -449,13 +527,22 @@ def fl_round(cfg: FCPOConfig, fleet: Fleet, rollouts, available=None,
             stale_used = consumed.sum().to(torch.float32)
         else:
             contrib, sel_agg = decoded, sel  # selection required on-time
+    health_rej = None            # rejected contributions: suspicion 1
     if guards.reject_nonfinite:
         # a client NaN'd by its own training, or garbage on the wire, is
         # dropped from aggregation
         ok = finite_mask(contrib)
-        n_bad = (sel_agg & ~ok).sum().to(torch.float32)
+        health_rej = sel_agg & ~ok
+        n_bad = health_rej.sum().to(torch.float32)
         rejected = n_bad if rejected is None else rejected + n_bad
         sel_agg = sel_agg & ok
+    if health is not None:
+        # scored before the clip, which would erase the magnitude evidence;
+        # on the plain path the deltas against the downlinked base exist
+        # only to be scored
+        scored = contrib if not plain else \
+            {k: params[k].float() - base_g[k] for k in params}
+        susp_new = attribution_scores(scored, sel_agg)["susp"]
     if not plain:
         if guards.clip_factor > 0:
             contrib, clipped = clip_deltas(contrib, sel_agg,
@@ -499,8 +586,16 @@ def fl_round(cfg: FCPOConfig, fleet: Fleet, rollouts, available=None,
         "fl_rejected": zero() if rejected is None else rejected,
         "fl_clipped": zero() if clipped is None else clipped,
     }
+    new_health = fleet.health
+    if health is not None:
+        scored_sel = sel_agg
+        if health_rej is not None:   # garbage shipped: maximal evidence
+            susp_new = torch.where(health_rej, 1.0, susp_new)
+            scored_sel = sel_agg | health_rej
+        new_health = update_round(health, fleet.health, susp_new, scored_sel)
     return fleet.replace(astate=astate, residuals=residuals,
-                         pending=pending), sel_agg, fl_metrics
+                         pending=pending, health=new_health), sel_agg, \
+        fl_metrics
 
 
 def pod_merge(cfg: FCPOConfig, fleet: Fleet, partition=None,
@@ -526,6 +621,25 @@ def _normalize_chaos(faults, guards):
     if faults is not None and not faults.active:
         faults = None
     return faults, DEFAULT_GUARDS if guards is None else guards
+
+
+def _ensure_health(cfg: FCPOConfig, fleet: Fleet,
+                   health: Optional[HealthConfig]) -> Fleet:
+    """Fresh health state for a fleet without it (one restored from a
+    checkpoint taken without health) when ``health`` is given, attached in
+    place; a fleet that carries state keeps it."""
+    if health is not None and fleet.health is None:
+        fleet.health = health_init(health, int(fleet.pod_ids.shape[0]),
+                                   cfg.n_res + cfg.n_bs + cfg.n_mt,
+                                   fleet.pod_ids.device)
+    return fleet
+
+
+def _split_health(metrics):
+    """(the episode metrics, the health summaries) of ``fleet_episode``'s
+    metrics, each in its own order."""
+    return ({k: v for k, v in metrics.items() if k not in HEALTH_METRIC_KEYS},
+            {k: metrics[k] for k in HEALTH_METRIC_KEYS if k in metrics})
 
 
 def _episode_means(metrics, ran):
@@ -583,7 +697,9 @@ def train_fleet_reference(cfg: FCPOConfig, fleet: Fleet, traces, *,
                           faults: Optional[FaultConfig] = None,
                           gumbel=None, byz_noise=None,
                           episode_offset: int = 0,
-                          total_episodes: Optional[int] = None):
+                          total_episodes: Optional[int] = None,
+                          metrics_sink=None,
+                          health: Optional[HealthConfig] = None):
     """The Python-loop driver: episodes over ``traces`` (A, total_steps),
     an FL round every ``fl_every`` episodes (stragglers from
     ``draw_availability(seed)``, the reference's stream), a pod merge every
@@ -598,11 +714,16 @@ def train_fleet_reference(cfg: FCPOConfig, fleet: Fleet, traces, *,
     pre-drawn action noise (n_episodes, A, n_steps, n_res+n_bs+n_mt);
     ``byz_noise``: optional byzantine noise, {name: (n_episodes, A, ...)},
     both over this call's episodes. ``env_backend``: ``"fluid"`` (default)
-    / ``"twin"`` / a backend, the one the fleet was built with. Returns
+    / ``"twin"`` / a backend, the one the fleet was built with.
+    ``health``: a ``HealthConfig``; the fleet's health state (fresh if it
+    has none) is advanced every episode and round, and its summaries join
+    the history. ``metrics_sink``: gets ``{"episode": absolute episode,
+    **the episode's history values}`` as each episode ends. Returns
     (fleet, history) with one fleet-mean value per episode and metric
     (with crashes, the mean over the agents that ran)."""
     backend = get_backend(env_backend)
     faults, guards = _normalize_chaos(faults, guards)
+    fleet = _ensure_health(cfg, fleet, health)
     dev = fleet.pod_ids.device
     traces = traces.to(dev)
     n_eps = traces.shape[1] // cfg.n_steps
@@ -619,7 +740,8 @@ def train_fleet_reference(cfg: FCPOConfig, fleet: Fleet, traces, *,
         prev = rfaults.snapshot_astate(fleet.astate) if crash_on else None
         fleet, rollouts, metrics = fleet_episode(
             cfg, fleet, rates, learn=learn,
-            gumbel=None if gumbel is None else gumbel[e], backend=backend)
+            gumbel=None if gumbel is None else gumbel[e], backend=backend,
+            health=health)
         ran = None
         if crash_on:
             fleet, ran, down = rfaults.apply_crashes(faults, prev, fleet,
@@ -636,7 +758,7 @@ def train_fleet_reference(cfg: FCPOConfig, fleet: Fleet, traces, *,
                 byzantine=bits(plan.byzantine[e]) if byz_on else None,
                 byz_noise=(None if byz_noise is None
                            else {k: v[e] for k, v in byz_noise.items()}),
-                generator=fault_gen)
+                generator=fault_gen, health=health)
             if crash_on:
                 # a down agent is offline: it does not receive the round's
                 # model (it rejoins later by the step-① warm start)
@@ -646,21 +768,86 @@ def train_fleet_reference(cfg: FCPOConfig, fleet: Fleet, traces, *,
             if rounds % cfg.hierarchical_period == 0 and fleet.n_pods > 1:
                 fleet = pod_merge(cfg, fleet, bits(plan.partition[e]),
                                   faults)
-        names = [*metrics, *fl_metrics]
-        vals = torch.stack([*_episode_means(metrics, ran),
-                            *fl_metrics.values()])
-        for k, v in zip(names, vals.tolist()):   # one transfer per episode
+        ep_m, health_m = _split_health(metrics)
+        names = [*ep_m, *fl_metrics, *health_m]
+        vals = torch.stack([*_episode_means(ep_m, ran), *fl_metrics.values(),
+                            *_episode_means(health_m, ran)]).tolist()
+        for k, v in zip(names, vals):            # one transfer per episode
             history.setdefault(k, []).append(v)
+        if metrics_sink is not None:
+            metrics_sink.append({"episode": episode_offset + e,
+                                 **dict(zip(names, vals))})
     return fleet, {k: np.asarray(v) for k, v in history.items()}
+
+
+# episodes the graph driver's stream may hold in flight (``SinkTap``)
+SINK_DEPTH = 64
+
+
+class SinkTap:
+    """The graph driver's stream: after each episode, its rows of the
+    device-side history (``rows``, each (n_eps, width)) are copied to a
+    ring of pinned host buffers behind the replays, with a CUDA event
+    after them; a record goes to ``sink`` once its event has completed
+    (checked at each ``push``), in episode order, each exactly once.
+    ``drain()`` waits for and writes every record still in flight. On the
+    CPU each record is written at its ``push``. A full ring (the host
+    ``SINK_DEPTH`` episodes ahead of the device) waits for its oldest
+    copy; ``waits`` counts those waits."""
+
+    def __init__(self, sink, names, rows, device, offset: int):
+        self.sink, self.names, self.rows = sink, tuple(names), rows
+        self.offset, self.depth, self.waits = offset, SINK_DEPTH, 0
+        self.cuda = torch.device(device).type == "cuda"
+        self.queue = deque()          # (episode, slot) in flight, in order
+        if self.cuda:
+            self.ring = [torch.empty((self.depth, r.shape[1]),
+                                     dtype=r.dtype, pin_memory=True)
+                         for r in rows]
+            self.events = [torch.cuda.Event() for _ in range(self.depth)]
+
+    def push(self, e: int) -> None:
+        """Episode ``e`` (of this run) has been issued: stream its rows."""
+        if not self.cuda:
+            self._write(e, [r[e] for r in self.rows])
+            return
+        if len(self.queue) == self.depth:
+            self.events[self.queue[0][1]].synchronize()
+            self.waits += 1
+        self.poll()
+        slot = e % self.depth
+        for buf, r in zip(self.ring, self.rows):
+            buf[slot].copy_(r[e], non_blocking=True)
+        self.events[slot].record()
+        self.queue.append((e, slot))
+
+    def poll(self) -> None:
+        while self.queue and self.events[self.queue[0][1]].query():
+            self._pop()
+
+    def drain(self) -> None:
+        while self.queue:
+            self.events[self.queue[0][1]].synchronize()
+            self._pop()
+
+    def _pop(self) -> None:
+        e, slot = self.queue.popleft()
+        self._write(e, [buf[slot] for buf in self.ring])
+
+    def _write(self, e: int, rows) -> None:
+        vals = torch.cat(rows).tolist()
+        self.sink.append({"episode": self.offset + e,
+                          **dict(zip(self.names, vals))})
 
 
 class FleetScan:
     """The graph driver of one run (``train_fleet_scan``): the arguments
     are ``train_fleet_scan``'s. ``run()`` trains ``fleet`` in place and
-    returns (fleet, history); ``step()`` runs the next episode alone and
-    ``history()`` fetches the history so far. ``capture_s`` is the wall
-    time of the graphs' captures and ``graph_launches`` the host's graph
-    launches (0 on the CPU)."""
+    returns (fleet, history); ``step()`` runs the next episode alone,
+    ``history()`` fetches the history so far and ``drain()`` writes every
+    streamed record still in flight. ``capture_s`` is the wall time of the
+    graphs' captures and ``graph_launches`` the host's graph launches (0 on
+    the CPU)."""
 
     def __init__(self, cfg: FCPOConfig, fleet: Fleet, traces, *,
                  learn: bool = True, federated: bool = True,
@@ -670,8 +857,11 @@ class FleetScan:
                  guards: Optional[GuardConfig] = None,
                  faults: Optional[FaultConfig] = None, gumbel=None,
                  byz_noise=None, episode_offset: int = 0,
-                 total_episodes: Optional[int] = None):
+                 total_episodes: Optional[int] = None, metrics_sink=None,
+                 health: Optional[HealthConfig] = None):
         self.cfg, self.fleet, self.learn = cfg, fleet, learn
+        self.health = health
+        _ensure_health(cfg, fleet, health)
         self.backend = get_backend(env_backend)
         self.transport = DEFAULT_TRANSPORT if transport is None else transport
         self.faults, self.guards = _normalize_chaos(faults, guards)
@@ -703,6 +893,14 @@ class FleetScan:
         f32 = lambda *s: torch.zeros(s, dtype=torch.float32, device=dev)
         self.ep_hist = f32(self.n_eps, len(EPISODE_METRICS))
         self.fl_hist = f32(self.n_eps, len(fl_transport.FL_METRIC_KEYS))
+        self.names = (*EPISODE_METRICS, *fl_transport.FL_METRIC_KEYS)
+        self.rows = [self.ep_hist, self.fl_hist]
+        if health is not None:
+            self.h_hist = f32(self.n_eps, len(HEALTH_METRIC_KEYS))
+            self.names += HEALTH_METRIC_KEYS
+            self.rows.append(self.h_hist)
+        self.tap = None if metrics_sink is None else SinkTap(
+            metrics_sink, self.names, self.rows, dev, episode_offset)
         # the FL round reads the last episode's rollout from here
         self.rollout = Rollout(
             states=f32(a, n, cfg.state_dim),
@@ -729,7 +927,9 @@ class FleetScan:
             self.cfg, self.fleet, self.rates.index_select(0, e)[0],
             learn=self.learn, backend=self.backend,
             gumbel=(None if self.gumbel is None
-                    else self.gumbel.index_select(0, e)[0]))
+                    else self.gumbel.index_select(0, e)[0]),
+            health=self.health)
+        metrics, health_m = _split_health(metrics)
         if set(metrics) != set(EPISODE_METRICS):
             raise KeyError(f"episode metrics {sorted(metrics)} are not "
                            f"{sorted(EPISODE_METRICS)}")
@@ -744,6 +944,10 @@ class FleetScan:
         copy_into(self.rollout, rollout)
         self.ep_hist.index_copy_(0, e, torch.stack(_episode_means(
             {k: metrics[k] for k in EPISODE_METRICS}, ran))[None])
+        if self.health is not None:
+            copy_into(self.fleet.health, out.health)
+            self.h_hist.index_copy_(0, e, torch.stack(_episode_means(
+                health_m, ran))[None])
         self.fl_hist.index_copy_(0, e, torch.stack(
             list(fl_transport.fl_zero_metrics(self.dev).values()))[None])
         self.counter.add_(1)
@@ -761,13 +965,14 @@ class FleetScan:
             byzantine=pick(self.plan.byzantine) if self.byz_on else None,
             byz_noise=(None if self.byz_noise is None else
                        {k: pick(v) for k, v in self.byz_noise.items()}),
-            generator=self.fault_gen)
+            generator=self.fault_gen, health=self.health)
         if self.crash_on:
             out = out.replace(astate=rfaults.freeze_astate(
                 self.down, self.pre_round, out.astate))
         copy_into(self.fleet.astate, out.astate)
         copy_into(self.fleet.residuals, out.residuals)
         copy_into(self.fleet.pending, out.pending)
+        copy_into(self.fleet.health, out.health)
         self.fl_hist.index_copy_(0, e, torch.stack(
             [flm[k] for k in fl_transport.FL_METRIC_KEYS])[None])
 
@@ -803,19 +1008,27 @@ class FleetScan:
             if (self.rounds % self.cfg.hierarchical_period == 0
                     and self.fleet.n_pods > 1):
                 merge()
+        if self.tap is not None:
+            self.tap.push(e)
+
+    def drain(self) -> None:
+        """Write every streamed record still in flight."""
+        if self.tap is not None:
+            self.tap.drain()
 
     def history(self) -> Dict[str, np.ndarray]:
         """The per-episode history of the episodes run so far, in one
         device->host transfer."""
-        names = (*EPISODE_METRICS, *fl_transport.FL_METRIC_KEYS)
-        hist = torch.cat([self.ep_hist, self.fl_hist], 1)[:self.episodes]
-        hist = hist.cpu().numpy()
-        return {k: hist[:, i] for i, k in enumerate(names)}
+        hist = torch.cat(self.rows, 1)[:self.episodes].cpu().numpy()
+        return {k: hist[:, i] for i, k in enumerate(self.names)}
 
     def run(self):
-        with full_float32():
-            while self.episodes < self.n_eps:
-                self.step()
+        try:
+            with full_float32():
+                while self.episodes < self.n_eps:
+                    self.step()
+        finally:
+            self.drain()
         return self.fleet, self.history()
 
 
@@ -827,7 +1040,9 @@ def train_fleet_scan(cfg: FCPOConfig, fleet: Fleet, traces, *,
                      guards: Optional[GuardConfig] = None,
                      faults: Optional[FaultConfig] = None,
                      gumbel=None, byz_noise=None, episode_offset: int = 0,
-                     total_episodes: Optional[int] = None):
+                     total_episodes: Optional[int] = None,
+                     metrics_sink=None,
+                     health: Optional[HealthConfig] = None):
     """The graph driver: episodes over ``traces`` (A, total_steps), an FL
     round every ``fl_every`` episodes (stragglers from
     ``draw_availability(seed)``), a pod merge every ``hierarchical_period``
@@ -846,7 +1061,12 @@ def train_fleet_scan(cfg: FCPOConfig, fleet: Fleet, traces, *,
     ``byz_noise``: optional byzantine noise, {name: (n_episodes, A, ...)}.
     ``episode_offset`` / ``total_episodes``: as in
     ``train_fleet_reference`` (a resumed run's absolute episodes).
-    ``env_backend``: the backend the fleet was built with. Float32 products
+    ``env_backend``: the backend the fleet was built with. ``health``: the
+    health observatory in the episode and FL-round graphs (the fleet's
+    state, fresh if it has none, is part of their static state; the
+    summaries join the history). ``metrics_sink``: one record per episode,
+    streamed behind the replays (``SinkTap``), all written before the call
+    returns. Float32 products
     run without TF32 for the run. Returns (fleet, history) with one
     fleet-mean float32 value per episode and metric (FL metrics 0 on
     episodes without a round), fetched in one transfer."""
@@ -855,7 +1075,8 @@ def train_fleet_scan(cfg: FCPOConfig, fleet: Fleet, traces, *,
                      env_backend=env_backend, transport=transport,
                      guards=guards, faults=faults, gumbel=gumbel,
                      byz_noise=byz_noise, episode_offset=episode_offset,
-                     total_episodes=total_episodes).run()
+                     total_episodes=total_episodes, metrics_sink=metrics_sink,
+                     health=health).run()
 
 
 def train_fleet(cfg: FCPOConfig, fleet: Fleet, traces, *, learn: bool = True,
@@ -865,7 +1086,8 @@ def train_fleet(cfg: FCPOConfig, fleet: Fleet, traces, *, learn: bool = True,
                 guards: Optional[GuardConfig] = None,
                 faults: Optional[FaultConfig] = None, gumbel=None,
                 byz_noise=None, episode_offset: int = 0,
-                total_episodes: Optional[int] = None):
+                total_episodes: Optional[int] = None, metrics_sink=None,
+                health: Optional[HealthConfig] = None):
     """The default entry point: delegates to ``train_fleet_scan``, as the
     JAX package's ``train_fleet`` does."""
     return train_fleet_scan(cfg, fleet, traces, learn=learn,
@@ -875,4 +1097,5 @@ def train_fleet(cfg: FCPOConfig, fleet: Fleet, traces, *, learn: bool = True,
                             guards=guards, faults=faults, gumbel=gumbel,
                             byz_noise=byz_noise,
                             episode_offset=episode_offset,
-                            total_episodes=total_episodes)
+                            total_episodes=total_episodes,
+                            metrics_sink=metrics_sink, health=health)

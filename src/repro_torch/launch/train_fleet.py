@@ -18,8 +18,17 @@ transport and chaos layers take the JAX CLI's flags: ``--fl-async``
 (deadline-missed uploads park and join later rounds), ``--robust-agg``,
 ``--trim-frac``, ``--clip-factor``, ``--no-reject-nonfinite`` and the
 ``--fault-*`` family (crashes, byzantine uploads, pod partitions).
-``--susp-threshold`` waits for the health observatory (ROADMAP queue 1,
-item 5).
+
+``--health`` attaches the fleet health observatory
+(``repro_torch.health``: telemetry sketches and drift detectors advanced
+in the episode graph, FL contribution attribution in the round graph);
+``--health-bins`` sets its histogram resolution and ``--susp-threshold``
+gates Eq. 7 selection on the attribution's suspicion EMA.
+``--metrics-out`` streams one JSONL record per episode while the run goes
+(``python -m repro_torch.launch.watch <file> --follow`` tails it), plus a
+trailing scaling record; ``--alerts-out`` evaluates the alert rules over
+the stream into an alerts file. The flags, defaults and errors are the
+JAX CLI's.
 
 ``--state-dtype {float32,bf16,lean}`` stores the fleet's state families
 narrower (``repro_torch.core.dtypes``); the math stays float32.
@@ -45,6 +54,9 @@ Examples:
       --fault-partition-prob 0.3
   PYTHONPATH=src python -m repro_torch.launch.train_fleet --state-dtype \\
       lean --ckpt-dir /tmp/run1 --ckpt-every 5 --stop-after 7  # then rerun
+  PYTHONPATH=src python -m repro_torch.launch.train_fleet --health \\
+      --metrics-out run.jsonl --alerts-out alerts.jsonl \\
+      --fault-byzantine-frac 0.25 --fl-codec int8 --susp-threshold 0.5
 """
 from __future__ import annotations
 
@@ -59,9 +71,13 @@ from repro_torch.configs.fcpo import FCPOConfig
 from repro_torch.core.backends import BACKENDS, get_backend
 from repro_torch.core.dtypes import POLICIES
 from repro_torch.core.graphs import full_float32
-from repro_torch.core.fleet import (FleetScan, fleet_init,
-                                    fleet_state_bytes, train_fleet_reference)
+from repro_torch.core.fleet import (FleetScan, fleet_device_bytes,
+                                    fleet_init, fleet_state_bytes,
+                                    train_fleet_reference)
+from repro_torch.eval.stream import MetricsSink
 from repro_torch.fl.transport import CODECS, TransportConfig
+from repro_torch.health import HealthConfig
+from repro_torch.health.alerts import AlertEngine
 from repro_torch.kernels import build
 from repro_torch.resilience.faults import BYZANTINE_MODES, FaultConfig
 from repro_torch.resilience.guards import AGG_METHODS, GuardConfig
@@ -98,7 +114,8 @@ def run_with_checkpoints(args, driver: FleetScan, start: int) -> None:
     """The graph driver over ``[start, --episodes)`` with a checkpoint
     every ``--ckpt-every`` episodes of this invocation and at its end, read
     from the fleet's own tensors between episodes (the JAX CLI's chunk
-    boundaries, without restarting the driver); ``--stop-after`` ends the
+    boundaries, without restarting the driver); the streamed records are
+    written before each save, and on the way out. ``--stop-after`` ends the
     invocation early."""
     every = args.ckpt_every or (args.episodes - start)
     e, since = start, 0
@@ -106,19 +123,24 @@ def run_with_checkpoints(args, driver: FleetScan, start: int) -> None:
                  pods=args.pods, seed=args.seed, scenario=args.scenario,
                  state_dtype=args.state_dtype)
     with full_float32():
-        while e < args.episodes:
-            driver.step()
-            e, since = e + 1, since + 1
-            stop = bool(args.stop_after) and e - start >= args.stop_after
-            if since == every or e == args.episodes or stop:
-                ckpt_mod.save(args.ckpt_dir, e, driver.fleet, extra=extra)
-                ckpt_mod.keep_last(args.ckpt_dir, args.keep_last)
-                since = 0
-            if stop:
-                print(f"--stop-after {args.stop_after}: stopping at episode "
-                      f"{e}/{args.episodes} (rerun the same command to "
-                      f"resume)")
-                return
+        try:
+            while e < args.episodes:
+                driver.step()
+                e, since = e + 1, since + 1
+                stop = bool(args.stop_after) and e - start >= args.stop_after
+                if since == every or e == args.episodes or stop:
+                    driver.drain()
+                    ckpt_mod.save(args.ckpt_dir, e, driver.fleet,
+                                  extra=extra)
+                    ckpt_mod.keep_last(args.ckpt_dir, args.keep_last)
+                    since = 0
+                if stop:
+                    print(f"--stop-after {args.stop_after}: stopping at "
+                          f"episode {e}/{args.episodes} (rerun the same "
+                          f"command to resume)")
+                    return
+        finally:
+            driver.drain()
 
 
 def main(argv=None):
@@ -191,6 +213,31 @@ def main(argv=None):
     ap.add_argument("--no-reject-nonfinite", action="store_true",
                     help="disable the NaN/Inf contribution rejection (on "
                          "by default)")
+    # --- fleet health observatory and the metrics stream ---
+    ap.add_argument("--health", action="store_true",
+                    help="attach the fleet health observatory: per-agent "
+                         "telemetry sketches + drift detectors advanced in "
+                         "the episode, FL contribution attribution per "
+                         "round; per-episode health_* summaries join the "
+                         "history and the --metrics-out stream")
+    ap.add_argument("--health-bins", type=int, default=16,
+                    help="histogram sketch resolution (quantile error is "
+                         "bounded by one bin width)")
+    ap.add_argument("--susp-threshold", type=float, default=0.0,
+                    help="act on the attribution evidence: clients whose "
+                         "suspicion EMA exceeds this are dropped from Eq. 7 "
+                         "selection (one round behind by construction). "
+                         "0 observes without acting; requires --health")
+    ap.add_argument("--alerts-out", type=str, default=None,
+                    help="evaluate the declarative health alert rules "
+                         "(repro_torch.health.alerts.DEFAULT_RULES) over the "
+                         "metrics stream and write fire/resolve lines to "
+                         "this ALERTS.jsonl; requires --health")
+    ap.add_argument("--metrics-out", type=str, default=None,
+                    help="stream per-episode metrics (reward, "
+                         "fl_payload_bytes, health_*, ...) to this JSONL "
+                         "file while training runs; tail it live with "
+                         "python -m repro_torch.launch.watch <file> --follow")
     ap.add_argument("--env-backend", choices=BACKENDS, default="fluid",
                     help="environment the CRL episodes run in: the fluid "
                          "MDP or the request-level digital twin")
@@ -276,6 +323,14 @@ def main(argv=None):
                  "driver; drop --driver reference")
     if args.ckpt_every < 0 or args.stop_after < 0 or args.keep_last < 1:
         ap.error("--ckpt-every/--stop-after must be >= 0, --keep-last >= 1")
+    if args.susp_threshold and not args.health:
+        ap.error("--susp-threshold gates selection on the suspicion EMA "
+                 "the observatory maintains; add --health")
+    if args.alerts_out and not args.health:
+        ap.error("--alerts-out evaluates rules over the health_* metrics; "
+                 "add --health")
+    if args.health_bins != 16 and not args.health:
+        ap.error("--health-bins only affects the observatory; add --health")
 
     dev = resolve_device(args.device)
     # full float32 on the card, as on the CPU (no TF32 rounding)
@@ -301,14 +356,17 @@ def main(argv=None):
         seed=args.fault_seed)
     guards = GuardConfig(agg=args.robust_agg, trim_frac=args.trim_frac,
                          clip_factor=args.clip_factor,
-                         reject_nonfinite=not args.no_reject_nonfinite)
+                         reject_nonfinite=not args.no_reject_nonfinite,
+                         susp_threshold=args.susp_threshold)
+    health = HealthConfig(bins=args.health_bins) if args.health else None
     backend = get_backend(args.env_backend, sim_params=SimParams(
         dt=args.dt, k_ticks=args.k_ticks, ring=args.ring))
     fleet = fleet_init(cfg, args.agents, args.seed, n_pods=args.pods,
                        device=dev, env_backend=backend,
                        state_policy=(args.state_dtype
                                      if args.state_dtype != "float32"
-                                     else None))
+                                     else None),
+                       health=health)
     gen = torch.Generator()
     gen.manual_seed(args.seed + 1)
     traces = make_scenario(args.scenario, gen, args.agents,
@@ -324,7 +382,8 @@ def main(argv=None):
     kw = dict(learn=not args.no_learn, federated=not args.no_federated,
               straggler_prob=args.straggler_prob, seed=args.seed,
               env_backend=backend, transport=transport,
-              faults=faults if faults.active else None, guards=guards)
+              faults=faults if faults.active else None, guards=guards,
+              health=health)
     start = (ckpt_mod.latest_step(args.ckpt_dir) or 0) \
         if args.ckpt_dir else 0
     if start >= args.episodes:
@@ -333,21 +392,59 @@ def main(argv=None):
         return fleet, {}
     if start > 0:
         fleet = resume(args, cfg, fleet, start, faults)
+    # the sink opens after the resume is known: a resumed run appends to
+    # the metrics file instead of truncating the episodes before the kill
+    sink = engine = None
+    if args.metrics_out:
+        sink = MetricsSink(args.metrics_out, meta=dict(
+            agents=args.agents, pods=args.pods, episodes=args.episodes,
+            driver=args.driver, env_backend=backend.name,
+            scenario=args.scenario, fl_codec=args.fl_codec,
+            robust_agg=args.robust_agg, seed=args.seed),
+            resume=start > 0)
+        if start > 0 and sink.n_records:
+            print(f"metrics resume: appending to {args.metrics_out} "
+                  f"({sink.n_records} episodes already recorded)")
+        kw["metrics_sink"] = sink
+    if args.alerts_out:
+        # the engine tees in front of the JSONL sink (or runs alone
+        # without --metrics-out): each record is forwarded and evaluated
+        engine = AlertEngine(args.alerts_out, forward=sink)
+        kw["metrics_sink"] = engine
     t0 = time.time()
-    if args.driver == "scan":
-        driver = FleetScan(cfg, fleet, traces[:, start * cfg.n_steps:],
-                           episode_offset=start,
-                           total_episodes=args.episodes, **kw)
-        if args.ckpt_dir:
-            run_with_checkpoints(args, driver, start)
+    try:
+        if args.driver == "scan":
+            driver = FleetScan(cfg, fleet, traces[:, start * cfg.n_steps:],
+                               episode_offset=start,
+                               total_episodes=args.episodes, **kw)
+            if args.ckpt_dir:
+                run_with_checkpoints(args, driver, start)
+            else:
+                driver.run()
+            fleet, hist = driver.fleet, driver.history()
+            capture = driver.capture_s
         else:
-            driver.run()
-        fleet, hist = driver.fleet, driver.history()
-        capture = driver.capture_s
-    else:
-        fleet, hist = train_fleet_reference(cfg, fleet, traces, **kw)
-        capture = 0.0
-    wall = time.time() - t0
+            fleet, hist = train_fleet_reference(cfg, fleet, traces, **kw)
+            capture = 0.0
+        wall = time.time() - t0
+        if sink is not None:
+            # one trailing scaling record in the same stream: step time and
+            # where the fleet state lives (watch renders the scaling row)
+            n_rec = len(hist["reward"])
+            row = {"devices": 1.0, "agents": float(args.agents),
+                   "step_time_s": wall / max(n_rec, 1),
+                   "step_time_per_agent_s":
+                       wall / max(n_rec, 1) / max(args.agents, 1),
+                   "state_bytes_per_agent":
+                       fleet_state_bytes(fleet)["per_agent"]}
+            for d, b in sorted(fleet_device_bytes(fleet).items()):
+                row[f"dev{d}_bytes"] = b
+            sink.append(row)
+    finally:
+        if engine is not None:
+            engine.close()              # closes the forwarded sink too
+        elif sink is not None:
+            sink.close()
 
     n_run = len(hist["reward"])
     k = max(n_run // 10, 1)
@@ -375,6 +472,15 @@ def main(argv=None):
               f"stale joins {hist['fl_stale_used'][fl_eps].mean():.2f}/round, "
               f"rejected {hist['fl_rejected'].sum():.0f}, "
               f"clipped {hist['fl_clipped'].sum():.0f}")
+    if health is not None and "health_drift_score" in hist:
+        flags = np.asarray(hist["health_drift_flag"])
+        print(f"\nhealth: drift flags on {np.count_nonzero(flags)} of "
+              f"{flags.size} episodes, "
+              f"drift score last {hist['health_drift_score'][-1]:.2f}, "
+              f"reward p50 last {hist['health_reward_p50'][-1]:.3f}, "
+              f"susp last {hist['health_susp'][-1]:.3f}"
+              + (f"; {engine.n_alerts} alerts -> {args.alerts_out}"
+                 if engine is not None else ""))
     if faults.active:
         print(f"\nchaos: crash_prob={faults.crash_prob}, "
               f"byzantine={faults.byzantine_frac} "

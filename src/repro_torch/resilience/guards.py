@@ -11,9 +11,11 @@ threaded through ``fl_round`` and the fleet drivers:
 * ``reject_nonfinite`` — drop contributions holding a NaN or Inf from the
   aggregation mask before they touch any pod member (on by default; the
   identity on a healthy round).
-* ``susp_threshold`` — the suspicion gate reads the health observatory's
-  attribution EMA, which the port does not have yet: a value above 0
-  raises (ROADMAP queue 1, item 5).
+* ``susp_threshold`` — with the health observatory on, clients whose
+  attribution suspicion EMA from the previous round exceeds the threshold
+  leave the Eq. 7 candidate pool before the top-k (``fl_round``;
+  ``suspicion_gate`` is the same rule on a finished selection). 0
+  disables; attribution then still scores the clients without acting.
 """
 from __future__ import annotations
 
@@ -43,11 +45,6 @@ class GuardConfig:
             raise ValueError("clip_factor must be >= 0")
         if not (0.0 <= self.susp_threshold <= 1.0):
             raise ValueError("susp_threshold must be in [0, 1]")
-        if self.susp_threshold > 0.0:
-            raise NotImplementedError(
-                "susp_threshold > 0 gates selection on the health "
-                "observatory's suspicion EMA, which is not ported yet "
-                "(ROADMAP queue 1, item 5)")
 
 
 DEFAULT_GUARDS = GuardConfig()
@@ -71,6 +68,15 @@ def _masked_median_1d(x, mask):
         torch.div(n - 1, 2, rounding_mode="floor"), 0).view(1))
     hi = srt.gather(0, torch.div(n, 2, rounding_mode="floor").view(1))
     return (0.5 * (lo + hi))[0]
+
+
+def suspicion_gate(sel, suspicion, threshold: float):
+    """Drop clients whose suspicion exceeds ``threshold`` from the
+    selection mask. Returns ``(gated_sel, n_gated)``. The suspicion is the
+    previous round's EMA (this round's scores exist only after
+    aggregation), so the gate reacts one round late by construction."""
+    hit = sel & (suspicion > threshold)
+    return sel & ~hit, hit.sum().to(torch.float32)
 
 
 def clip_deltas(contrib: Dict[str, torch.Tensor], sel, clip_factor: float):

@@ -7,7 +7,11 @@ JSON manifest with ``step``, ``arrays``, ``keys``, ``dtypes`` and
 ``extra``. bf16 leaves are stored as raw 2-byte ``|V2`` values with
 ``"bfloat16"`` in ``dtypes`` (what ``np.savez`` writes for a bfloat16
 array), index leaves as int32 and the carried threefry keys as ``0/.rng``,
-so either package restores the other's checkpoints. The port adds its
+so either package restores the other's checkpoints. A fleet with health
+state saves it under the JAX ``Fleet``'s 14th field (``13/.reward_hist``,
+``13/.reward_p2/.q``, ``13/.drift_rate/.flag``, ...); a checkpoint without
+it restores into a health fleet with the health state left out, for the
+drivers to attach fresh state. The port adds its
 generators' states under keys of its own (``torch/generator``,
 ``torch/fault_generator``), which the JAX package's ``restore`` ignores.
 
@@ -58,7 +62,9 @@ _LAYOUT = (
     (("pending", "has"), "10/.has", None),
     (("crash_timer",), "11", None),
     (("partition_timer",), "12", None),
+    (("health",), "13", "attr"),        # only a fleet with health state
 )
+HEALTH_KEY = "13/"
 
 
 def _jax_dtype(x: np.ndarray) -> np.ndarray:
@@ -86,8 +92,9 @@ def fleet_flat(fleet: Fleet) -> Dict[str, np.ndarray]:
     for path, key, style in _LAYOUT:
         node = tree
         for p in path:
-            node = node[p]
-        put(node, key, style)
+            node = node.get(p) if isinstance(node, dict) else None
+        if node is not None:
+            put(node, key, style)
     for key, attr in GENERATORS.items():
         gen = getattr(fleet, attr)
         if gen is not None:
@@ -99,6 +106,9 @@ def _unflatten(flat: Mapping[str, np.ndarray]):
     """The ``fleet_to_numpy`` tree of a ``{JAX key: array}`` dict."""
     tree: Dict[str, Any] = {}
     for path, key, style in _LAYOUT:
+        if key + "/" == HEALTH_KEY and not any(
+                k.startswith(HEALTH_KEY) for k in flat):
+            continue
         parent = tree
         for p in path[:-1]:
             parent = parent.setdefault(p, {})
@@ -258,11 +268,15 @@ def restore(ckpt_dir: str, step: int, like: Fleet, cfg, seed: int = 0):
     converted to ``like``'s dtype (bf16 widens exactly). The generators
     take the states the checkpoint holds for them when they fit this
     device's generator; otherwise the fleet's generator is seeded by
-    ``seed``. Returns (fleet, manifest); the manifest's
-    ``restored_generators`` lists the generator keys restored."""
+    ``seed``. A checkpoint without health state restores a health ``like``
+    without it (``fleet.health`` None; the drivers attach fresh state).
+    Returns (fleet, manifest); the manifest's ``restored_generators`` lists
+    the generator keys restored."""
     manifest, data = load(ckpt_dir, step)
+    has_health = any(k.startswith(HEALTH_KEY) for k in data.files)
     target = {k: v for k, v in fleet_flat(like).items()
-              if k not in GENERATORS}
+              if k not in GENERATORS
+              and (has_health or not k.startswith(HEALTH_KEY))}
     missing = [k for k in target if k not in data]
     if missing:
         raise ValueError(

@@ -12,7 +12,10 @@ graph driver (CUDA graphs of the episode, FL round and pod merge) and the
 graphed twin harness are held bit for bit against the eager runs, also
 under the bf16 and lean state policies (every leaf at its stored dtype,
 the generators' states equal), and a run resumed from a checkpoint is the
-straight run bit for bit.
+straight run bit for bit. With the health observatory and a metrics sink
+the graph driver is the reference driver bit for bit (streamed records
+included), and a health run on the card stays within rtol 1e-3 / atol
+1e-4 of the same run on the CPU.
 """
 import os
 import subprocess
@@ -906,3 +909,140 @@ def test_resume_on_the_card_is_the_straight_run(cuda_device, tmp_path,
     assert manifest["restored_generators"] == []   # the card's generators
     assert_raw_equal(tfleet.fleet_to_numpy(on_cpu),
                      tfleet.fleet_to_numpy(f_1))
+
+
+# ---------------------------------------------------------------------------
+# the health observatory and the metrics stream on the card
+# ---------------------------------------------------------------------------
+def health_kwargs(threshold=0.5):
+    """The health slice: int8 with a deadline, byzantine sign_flip 0.25,
+    the observatory on and the suspicion gate at ``threshold``."""
+    from repro_torch.fl.transport import TransportConfig
+    from repro_torch.health import HealthConfig
+    from repro_torch.resilience.faults import FaultConfig
+    from repro_torch.resilience.guards import GuardConfig
+    return dict(transport=TransportConfig(codec="int8", deadline_s=0.002),
+                faults=FaultConfig(byzantine_frac=0.25),
+                guards=GuardConfig(susp_threshold=threshold),
+                health=HealthConfig())
+
+
+class ListSink:
+    def __init__(self):
+        self.records = []
+
+    def append(self, record):
+        self.records.append(record)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("backend", ["fluid", "twin"])
+def test_graph_driver_matches_reference_with_health_on_the_card(
+        cuda_device, monkeypatch, backend):
+    """The health slice with the gate (A=8, P=2, ``fl_every=1``, eight
+    episodes): the graph driver takes the reference driver's actions; its
+    histories, final state (health included), launch counts and streamed
+    records are the reference's bit for bit; every record equals its
+    history row."""
+    from repro_torch.core import fleet as tfleet
+    cfg = FCPOConfig(fl_every=1)
+    a, n_eps = 8, 8
+    traces = torch.tensor(np.random.default_rng(5).uniform(
+        5.0, 160.0, (a, n_eps * cfg.n_steps)).astype(np.float32),
+        device=cuda_device)
+    runs = []
+    for drive in (tfleet.train_fleet_reference, tfleet.train_fleet_scan):
+        rec = recorded_actions(monkeypatch, n_eps * cfg.n_steps, a,
+                               cuda_device)
+        fleet = tfleet.fleet_init(cfg, a, 11, n_pods=2, device=cuda_device,
+                                  env_backend=backend)
+        diversity_insert.launches = delta_codec.launches = 0
+        queue_advance.launches = 0
+        sink = ListSink()
+        fleet, hist = drive(cfg, fleet, traces, straggler_prob=0.25, seed=3,
+                            env_backend=backend, metrics_sink=sink,
+                            **health_kwargs())
+        runs.append((rec.cpu(), hist, tfleet.fleet_to_numpy(fleet),
+                     (diversity_insert.launches, delta_codec.launches,
+                      queue_advance.launches), sink.records))
+    (act_r, hist_r, state_r, n_r, rec_r), (act_s, hist_s, state_s, n_s,
+                                           rec_s) = runs
+    assert (act_r >= 0).all() and torch.equal(act_s, act_r)
+    for k, v in hist_r.items():
+        np.testing.assert_array_equal(hist_s[k], v, err_msg=k)
+    assert_trees_equal(state_s, state_r)
+    assert "health" in state_s
+    assert n_s == n_r == (n_eps, n_eps,
+                          n_eps * cfg.n_steps if backend == "twin" else 0)
+    assert rec_s == rec_r and len(rec_s) == n_eps
+    for i, r in enumerate(rec_s):
+        assert r["episode"] == i
+        for k, v in hist_s.items():
+            assert np.float32(r[k]) == v[i], k
+
+
+@pytest.mark.cuda
+def test_sink_ring_full_keeps_every_record_in_order(cuda_device,
+                                                    monkeypatch):
+    """The graph driver's stream with a ring of two pinned slots (the
+    host runs ahead of the device and waits for its oldest copy): twelve
+    episodes give twelve records, in order, each exactly once, equal to
+    the history rows and to the records of the default ring."""
+    from repro_torch.core import fleet as tfleet
+    cfg = FCPOConfig()
+    traces = torch.tensor(np.random.default_rng(6).uniform(
+        5.0, 160.0, (8, 12 * cfg.n_steps)).astype(np.float32),
+        device=cuda_device)
+    runs = []
+    for depth in (2, tfleet.SINK_DEPTH):
+        monkeypatch.setattr(tfleet, "SINK_DEPTH", depth)
+        sink = ListSink()
+        driver = tfleet.FleetScan(
+            cfg, tfleet.fleet_init(cfg, 8, 0, n_pods=2, device=cuda_device),
+            traces, metrics_sink=sink, **health_kwargs())
+        _, hist = driver.run()
+        runs.append((sink.records, hist, driver.tap.waits))
+    (rec, hist, waits), (rec_default, _, _) = runs
+    assert waits > 0
+    assert [r["episode"] for r in rec] == list(range(12))
+    for i, r in enumerate(rec):
+        for k, v in hist.items():
+            assert np.float32(r[k]) == v[i], k
+    assert rec == rec_default
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("backend", ["fluid", "twin"])
+def test_health_card_run_matches_cpu_run(cuda_device, backend):
+    """The health slice from one numpy fleet state with one set of action
+    noise, on the card and on the CPU: histories within rtol 1e-3 / atol
+    1e-4, the health state's counts (histograms, observations, marker
+    positions) identical while the actions agree."""
+    from repro_torch.core import fleet as tfleet
+    cfg = FCPOConfig(fl_every=1)
+    a, n_eps = 4, 8
+    tree = tfleet.fleet_to_numpy(tfleet.fleet_init(
+        cfg, a, 7, n_pods=2, device="cpu", env_backend=backend))
+    rng = np.random.default_rng(7)
+    traces = rng.uniform(5.0, 120.0, (a, n_eps * cfg.n_steps)).astype(
+        np.float32)
+    gumbel = (-np.log(-np.log(rng.uniform(
+        1e-6, 1.0, (n_eps, a, cfg.n_steps, 15))))).astype(np.float32)
+    out = []
+    for dev in (cuda_device, "cpu"):
+        fleet = tfleet.fleet_from_numpy(cfg, tree, device=dev)
+        fleet, hist = tfleet.train_fleet_scan(
+            cfg, fleet, torch.as_tensor(traces, device=dev),
+            gumbel=torch.as_tensor(gumbel, device=dev), env_backend=backend,
+            **health_kwargs())
+        out.append((hist, tfleet.fleet_to_numpy(fleet)))
+    (hist_k, st_k), (hist_c, st_c) = out
+    for k, v in hist_c.items():
+        np.testing.assert_allclose(hist_k[k], v, rtol=1e-3, atol=1e-4,
+                                   err_msg=k)
+    if np.array_equal(st_k["buffer"]["actions"], st_c["buffer"]["actions"]):
+        for k in ("reward_hist", "miss_hist", "n_obs", "sel_last"):
+            np.testing.assert_array_equal(st_k["health"][k],
+                                          st_c["health"][k], err_msg=k)
+        np.testing.assert_array_equal(st_k["health"]["reward_p2"]["n"],
+                                      st_c["health"]["reward_p2"]["n"])

@@ -607,9 +607,10 @@ def test_cli_config_errors_match_jax(argv, exc):
 
 
 def test_cli_has_no_suspicion_gate_yet(capsys):
-    """``--susp-threshold`` needs the health observatory (ROADMAP queue 1,
-    item 5): the port's CLI does not take it."""
+    """``--susp-threshold`` needs the health observatory: without
+    ``--health`` the port's CLI refuses it with the JAX CLI's message (the
+    gate itself: ``tests/test_torch_health.py``)."""
     with pytest.raises(SystemExit):
         train_cli.main(["--device", "cpu", "--susp-threshold", "0.5"])
-    assert "unrecognized arguments: --susp-threshold" in \
-        capsys.readouterr().err
+    assert "--susp-threshold gates selection on the suspicion EMA the " \
+        "observatory maintains; add --health" in capsys.readouterr().err

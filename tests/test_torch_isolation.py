@@ -25,9 +25,14 @@ def test_importing_every_module_pulls_in_no_jax_and_no_repro():
         "bad = sorted(k for k in sys.modules if k == 'jax' or "
         "k.startswith(('jax.', 'jaxlib', 'ml_dtypes')) or k == 'repro' or "
         "k.startswith('repro.'))\n"
-        "assert len(mods) >= 49, mods\n"
+        "assert len(mods) >= 57, mods\n"
         "assert {'repro_torch.core.dtypes', 'repro_torch.training', "
-        "'repro_torch.training.checkpoint'} <= set(mods), mods\n"
+        "'repro_torch.training.checkpoint', 'repro_torch.eval', "
+        "'repro_torch.eval.stream', 'repro_torch.eval.leaderboard', "
+        "'repro_torch.launch.watch', 'repro_torch.health', "
+        "'repro_torch.health.sketch', 'repro_torch.health.drift', "
+        "'repro_torch.health.attribution', 'repro_torch.health.alerts'} "
+        "<= set(mods), mods\n"
         "assert not bad, bad\n"
         "print(len(mods))\n")
     out = subprocess.run([sys.executable, "-c", code], capture_output=True,

@@ -81,11 +81,10 @@ def test_guard_config_validation_matches_jax(kw):
 
 
 def test_suspicion_gate_waits_for_the_health_observatory():
-    """The JAX package accepts a threshold; the port has no suspicion EMA
-    yet and says where it is queued."""
-    jguards.GuardConfig(susp_threshold=0.5)
-    with pytest.raises(NotImplementedError, match="item 5"):
-        tguards.GuardConfig(susp_threshold=0.5)
+    """Both packages accept a threshold, which gates selection once the
+    health observatory is on (``tests/test_torch_health.py``)."""
+    assert tguards.GuardConfig(susp_threshold=0.5) == \
+        tguards.GuardConfig(**vars(jguards.GuardConfig(susp_threshold=0.5)))
     assert tguards.GuardConfig() == tguards.DEFAULT_GUARDS
     assert tguards.AGG_METHODS == jguards.AGG_METHODS
     assert tfed.AGG_METHODS == jfed.AGG_METHODS

@@ -23,8 +23,11 @@ In order, it:
   5. holds K3 ``queue_advance`` against its plain version bit for bit at
      A=8 and A=2048 (R=512, H=64, K=20), ten intervals chained from empty
      pipelines in three regimes (idle, nominal, overload with drops and a
-     full post queue), with conservation checked; then reads the stamped
-     K3's cycles per phase on the nominal regime's loaded state;
+     full post queue), with conservation checked, and its recording
+     instantiation (``record=True``: the counters after every tick) bit
+     for bit against the plain version's, its state equal to the
+     unrecorded kernel's; then reads the stamped K3's cycles per phase on
+     the nominal regime's loaded state;
   6. times each kernel, its plain version and (K2 topk) ``torch.topk`` at
      the main path's shapes: device time by CUDA-graph replay (CUDA
      events; K1, K2 and K3 the median of five readings at 1 and at 20
@@ -117,6 +120,21 @@ In order, it:
      its end, loaded with ``load_fleet`` and scored on {steady, burst} ×
      {fluid, twin} × {float32, int8} (one replicate) twice: finite rows,
      equal between the calls;
+ 11i. the flight recorder. ``[stamp]``: ``span_stamp`` writes exactly its
+     plain version's slots (only sampled episodes), monotone stamps, the
+     clock's resolution from 2,000 stamps in one graph, its time;
+     ``[trace]``: ``train_fleet --trace-out`` at the CLI default, fluid
+     and twin, both drivers, ``--trace-sample`` 1 and 2 (valid traces,
+     span counts and nesting, histories bit for bit against untraced,
+     graph launches per episode unchanged, the graph driver's stamp
+     launches equal at either sampling), then 200 replayed episodes
+     traced against 200 untraced in eight alternating turns, a profiled
+     window of each (kernels per episode up by the stamp nodes, the stamp
+     kernels' device time) and the episode spans against the wall; ``[attribution]``: ``simulate --attribution --trace-out`` (K3
+     once per interval, conservation exact for every agent), the recorded
+     run card against CPU exactly on one noise, ms per interval recorded
+     against not; ``[obs profile]``: ``fleet_memory_report`` at A=2048,
+     P=8 (peak memory, the in-place audit);
  12. holds K5 ``decode_attention`` and K4 ``flash_attention`` against their
      plain versions (the JAX tests' sweeps, K4's bf16 tensor-core path on
      every shape of the sweep, K5 with several splits and the combine, the
@@ -139,7 +157,8 @@ In order, it:
      tokens: prefill ms, decode ms per step, tokens/s); then a reduced
      model on the card against the CPU (identical tokens up to a near-tie,
      logits within rtol 1e-3 / atol 1e-4);
- 15. prints the kernel table as one JSON line, then
+ 15. prints the kernel table as one JSON line (with the recording K3 and
+     the span stamp as rows of their own), then
      ``{"ok": true, "device": {...}}`` as the last line.
 Any failure raises and exits non-zero.
 """
@@ -316,10 +335,6 @@ def median_ms(fn, iters=50, samples=5, per_graph=1, graphs=1):
                   for _ in range(samples))[samples // 2]
 
 
-def nbytes(*xs):
-    return sum(x.numel() * x.element_size() for x in xs)
-
-
 # ---------------------------------------------------------------------------
 # K1 diversity_insert
 # ---------------------------------------------------------------------------
@@ -397,6 +412,7 @@ def k1_compare(torch, cfg, args, out_k, out_p, label):
 
 
 def check_k1(torch, cfg, gen):
+    from repro_torch.obs import profile as prof
     from repro_torch.core.buffer import RIDGE
     from repro_torch.kernels.diversity import diversity_insert
     from repro_torch.kernels.ref import diversity_insert_ref
@@ -418,9 +434,14 @@ def check_k1(torch, cfg, gen):
                          per_graph=20)
         plain = device_ms(lambda: diversity_insert_ref(*args, **kw))
         eager = eager_ms(lambda: diversity_insert(*args, **kw))
-        outs = out_k
-        moved = nbytes(*args) + nbytes(*outs)
-        flops = a * cfg.n_steps * k1_flops_per_candidate(cfg)
+        cost = prof.kernel_cost(
+            "diversity_insert", a=a, n=cfg.buffer_size, d=cfg.state_dim,
+            na=cfg.n_res + cfg.n_bs + cfg.n_mt, t=cfg.n_steps,
+            flops_per_candidate=prof.k1_flops_per_candidate(cfg))
+        moved, flops = cost["bytes_accessed"], cost["flops"]
+        if moved != prof.nbytes(*args, *out_k):
+            raise AssertionError("K1: obs.profile's byte count is not the "
+                                 "arguments' and results' bytes")
         bound = max(moved / HBM_BYTES_PER_S, flops / FP32_FLOPS) * 1e3
         by = "bytes" if moved / HBM_BYTES_PER_S >= flops / FP32_FLOPS \
             else "operations"
@@ -575,16 +596,6 @@ def k1_phases(torch, cfg, gen, lib):
                 f"{cyc[w].sum():.0f} cycles in all")
 
 
-def k1_flops_per_candidate(cfg):
-    d, na, n = cfg.state_dim, cfg.n_res + cfg.n_bs + cfg.n_mt, \
-        cfg.buffer_size
-    chol = d ** 3 // 3 + 2 * d * d        # factor
-    return (3 * d * d + chol + d * d + 2 * d   # cov, factor, solve, norm
-            + 6 * na                           # clipped KL
-            + n                                # argmin
-            + 4 * d * d + 4 * d + 4 * na)      # rank-1 add/subtract
-
-
 # ---------------------------------------------------------------------------
 # K2 delta_codec
 # ---------------------------------------------------------------------------
@@ -615,6 +626,7 @@ def check_k2(torch, gen):
     included) against the plain version per leaf on the card; then the
     round timed (median of five, at 1 and at 20 rounds per graph) beside
     the plain version and ``torch.topk`` over the same leaves."""
+    from repro_torch.obs import profile as prof
     from repro_torch.fl.transport import topk_k
     from repro_torch.kernels.delta_codec import (delta_codec,
                                                  delta_codec_leaves)
@@ -648,7 +660,10 @@ def check_k2(torch, gen):
     for a in (8, 2048):
         rows = [k2_rows(torch, a, l, gen, "random") for l in LEAF_SIZES]
         ds, rs = [d for d, _ in rows], [r for _, r in rows]
-        moved = sum(nbytes(d, r) * 2 for d, r in rows)
+        moved = prof.kernel_cost("delta_codec", a=a,
+                                 lengths=LEAF_SIZES)["bytes_accessed"]
+        if moved != sum(prof.nbytes(d, r) * 2 for d, r in rows):
+            raise AssertionError("K2: obs.profile's byte count differs")
         bound = moved / HBM_BYTES_PER_S * 1e3
         for codec in ("int8", "topk"):
             def run_kernel():
@@ -720,6 +735,7 @@ def check_k3(torch, cfg, gen):
     regime; times it on the nominal regime's loaded state (median of five,
     at 1 and at 20 calls per graph). Returns (timing, {A: the loaded
     state's arguments})."""
+    from repro_torch.obs import profile as prof
     from repro_torch.core.env import default_env_params
     from repro_torch.data.workload import fleet_traces
     from repro_torch.kernels.queue_advance import queue_advance
@@ -745,9 +761,18 @@ def check_k3(torch, cfg, gen):
                     phase)
                 out_k = queue_advance(*state, arrivals, caps)
                 out_p = queue_advance_ref(*state, arrivals, caps)
+                rec_k = queue_advance(*state, arrivals, caps, record=True)
+                rec_p = queue_advance_ref(*state, arrivals, caps,
+                                          record=True)
                 torch.cuda.synchronize()
-                for name, k, p in zip(("arrive", "counters", "credits",
-                                       "lat_sum", "hist"), out_k, out_p):
+                names = ("arrive", "counters", "credits", "lat_sum", "hist",
+                         "ticks")
+                for name, k, p in [*zip(names, out_k, out_p),
+                                   *((f"recorded {n}", k, p) for n, k, p
+                                     in zip(names, rec_k, rec_p)),
+                                   *((f"recorded vs unrecorded {n}", k, p)
+                                     for n, k, p in zip(names, rec_k,
+                                                        out_k))]:
                     if not torch.equal(k, p):
                         raise AssertionError(
                             f"K3 A={a} {regime} interval {t}: {name} "
@@ -772,7 +797,9 @@ def check_k3(torch, cfg, gen):
             elif dropped or not completed:
                 raise AssertionError(f"K3 A={a} {regime}: {dropped} drops, "
                                      f"{completed} completions")
-            log(f"  K3 A={a} {regime}: bit-identical over 10 intervals, "
+            log(f"  K3 A={a} {regime}: bit-identical over 10 intervals "
+                f"(recording too: the tick series and the state; recorded "
+                f"state == unrecorded), "
                 f"arrived {int(arrived.sum())}, completed {completed}, "
                 f"dropped {dropped}")
             if regime == "nominal":
@@ -783,7 +810,11 @@ def check_k3(torch, cfg, gen):
         ms20 = median_ms(lambda: queue_advance(*args), 10, per_graph=20)
         plain = device_ms(lambda: queue_advance_ref(*args))
         eager = eager_ms(lambda: queue_advance(*args))
-        moved = nbytes(*args) + nbytes(*state)
+        moved = prof.kernel_cost("queue_advance", a=a, ring=sp.ring,
+                                 hist=sp.hist_n,
+                                 k=sp.k_ticks)["bytes_accessed"]
+        if moved != prof.nbytes(*args, *state):
+            raise AssertionError("K3: obs.profile's byte count differs")
         bound = moved / HBM_BYTES_PER_S * 1e3
         timing[a] = dict(ms=ms, plain_ms=plain, bound_ms=bound,
                          bound_by="bytes", library_ms=None)
@@ -791,6 +822,24 @@ def check_k3(torch, cfg, gen):
             f"{ms20:.4f} ms at 20 calls per graph; {eager:.4f} ms per eager "
             f"call), plain {plain:.4f} ms, bound {bound:.6f} ms (bytes, "
             f"{moved} B)")
+        # the recording instantiation, timed in turns with the unrecorded
+        rec = lambda: queue_advance(*args, record=True)
+        turns = [median_ms(rec) if i % 3 else median_ms(
+            lambda: queue_advance(*args)) for i in range(4)]
+        rec20 = median_ms(rec, 10, per_graph=20)
+        plain_rec = device_ms(lambda: queue_advance_ref(*args, record=True))
+        moved_rec = prof.kernel_cost(
+            "queue_advance", a=a, ring=sp.ring, hist=sp.hist_n,
+            k=sp.k_ticks, record=True)["bytes_accessed"]
+        bound_rec = moved_rec / HBM_BYTES_PER_S * 1e3
+        timing[("record", a)] = dict(
+            ms=(turns[1] + turns[2]) / 2, plain_ms=plain_rec,
+            bound_ms=bound_rec, bound_by="bytes", library_ms=None)
+        log(f"  K3 A={a} recording: kernel {turns[1]:.4f} / {turns[2]:.4f} "
+            f"ms against unrecorded {turns[0]:.4f} / {turns[3]:.4f} ms in "
+            f"turns (median of 5 each; {rec20:.4f} ms at 20 calls per "
+            f"graph), plain {plain_rec:.4f} ms, bound {bound_rec:.6f} ms "
+            f"(bytes, {moved_rec} B)")
         loads[a] = args
     return timing, loads
 
@@ -1366,7 +1415,9 @@ def profiled(torch, fn, n, label, unit, capture=None, alone=None):
     if any(counted[i] != seen[j] for j, (_, i) in enumerate(KERNEL_NAMES)):
         log("    (they differ: the profiler does not show every kernel "
             "inside a graph replay)")
+    stamp_us = sum(dev_us(e) for e in kernels if "span_stamp" in e.key)
     return dict(kernels=n_launch / n, device_ms=total / 1e3 / n,
+                stamp_ms=stamp_us / 1e3 / n,
                 wall_ms=wall / n * 1e3, graph_launches=graph_launches / n,
                 busy=(total / 1e6 / alone) if alone else None,
                 launches=counted[:3])
@@ -1466,6 +1517,411 @@ def graph_parity(torch, backend, chaos=False, policy=None,
         f"for bit; {len(g_s)} generator states equal; launches K1, K2, K3 "
         f"{n_s} under both drivers")
 
+
+# ---------------------------------------------------------------------------
+# The flight recorder: span stamps, traced runs, request attribution, profile
+# ---------------------------------------------------------------------------
+def stamp_phase(torch):
+    """``span_stamp`` against its plain version: for sampling periods 1-3,
+    bases 0 and 5 and deltas 0 and -1, twenty episodes each, the kernel
+    writes exactly the plain version's positions (only sampled rows) and
+    its stamps grow in launch order; then 2,000 stamps back to back in one
+    graph: the clock's resolution (the gcd of the differences) and the
+    gap between two stamp nodes; then its time (one stamp a graph and 20
+    a graph, median of five), the plain version's and the bound (24 B).
+    Returns the timing with ``max_abs_err`` (for this kernel: the slots,
+    over all 120 calls, that the kernel and the plain version write
+    differently; a stamp's value is the clock's, which the plain version
+    cannot know) and the resolution in ns."""
+    import numpy as np
+    from repro_torch.kernels.span_stamp import span_stamp, span_stamp_ref
+    from repro_torch.obs import profile as prof
+    i64 = dict(dtype=torch.int64, device=DEV)
+    differ = 0
+    for every in (1, 2, 3):
+        for base, delta in ((0, 0), (5, -1)):
+            got, want = (torch.zeros((8, 2), **i64) for _ in range(2))
+            period, clock = torch.tensor(every, **i64), torch.ones((), **i64)
+            for e in range(20):
+                ep = torch.tensor(e, **i64)
+                span_stamp(got, ep, period, 1, delta=delta, base=base)
+                span_stamp_ref(want, ep, period, 1, delta=delta, base=base,
+                               clock=clock)
+            torch.cuda.synchronize()
+            differ += int(((got != 0) != (want != 0)).sum())
+            if not torch.equal(got != 0, want != 0):
+                raise AssertionError(f"[stamp] every={every} base={base} "
+                                     f"delta={delta}: written slots "
+                                     f"{(got != 0).tolist()}, plain "
+                                     f"{(want != 0).tolist()}")
+            vals = got[:, 1][got[:, 1] != 0]
+            if not bool((vals.diff() > 0).all()):
+                raise AssertionError(f"[stamp] every={every}: stamps not "
+                                     f"monotone")
+    log("  span_stamp: the written slots equal the plain version's for "
+        "every in 1..3, base 0 / 5, delta 0 / -1 (only sampled rows), "
+        "stamps monotone")
+    n = 2000
+    s = torch.zeros((n, 1), **i64)
+    rows = torch.arange(n, **i64)
+    one = torch.ones((), **i64)
+    side = torch.cuda.Stream()
+    side.wait_stream(torch.cuda.current_stream())
+    with torch.cuda.stream(side):
+        span_stamp(s, rows[0], one, 0)
+    torch.cuda.current_stream().wait_stream(side)
+    graph = torch.cuda.CUDAGraph()
+    with torch.cuda.graph(graph):
+        for r in range(n):
+            span_stamp(s, rows[r], one, 0)
+    graph.replay()
+    torch.cuda.synchronize()
+    v = s[:, 0].cpu().numpy().astype(np.int64)
+    d = np.diff(v)
+    if (d < 0).any() or (v == 0).any():
+        raise AssertionError("[stamp] back-to-back stamps not monotone")
+    res = int(np.gcd.reduce(d[d > 0]))
+    log(f"  %globaltimer: resolution {res} ns (gcd of {n - 1} differences); "
+        f"two stamp nodes back to back in a graph are {d.min()} / "
+        f"{float(np.median(d)):.0f} / {d.max()} ns apart (min / median / "
+        f"max); {len(np.unique(v))} distinct values")
+    st, st2 = torch.zeros((1, 2), **i64), torch.zeros((1, 2), **i64)
+    zero = torch.zeros((), **i64)
+    ms = median_ms(lambda: span_stamp(st, zero, one, 0))
+    ms20 = median_ms(lambda: span_stamp(st, zero, one, 0), 10, per_graph=20)
+    plain = median_ms(lambda: span_stamp_ref(st2, zero, one, 0, clock=one))
+    bound = prof.kernel_cost("span_stamp")["bytes_accessed"] \
+        / HBM_BYTES_PER_S * 1e3
+    log(f"  span_stamp: {ms:.4f} ms a graph of one stamp, {ms20:.4f} ms a "
+        f"stamp at 20 per graph; plain {plain:.4f} ms; bound {bound:.2e} "
+        f"ms (bytes, 24 B)")
+    return dict(max_abs_err=float(differ), ms=ms, plain_ms=plain,
+                bound_ms=bound, bound_by="bytes", library_ms=None), res
+
+
+def check_trace(torch, path, n_eps, every, driver, label):
+    """A ``--trace-out`` file of the CLI default (``fl_every`` 2, two pods,
+    a merge every fourth round): valid; the sampled episodes' spans, each
+    round's phases nested in it, episodes in order; no open or unmatched
+    span. Returns the events."""
+    import collections
+    from repro_torch.obs.trace import validate_chrome_trace
+    with open(path) as f:
+        trace = json.load(f)
+    bad = validate_chrome_trace(trace)
+    if bad:
+        raise AssertionError(f"{label}: invalid trace: {bad[:3]}")
+    ev = trace["traceEvents"]
+    if any(e["ph"] != "X" for e in ev):
+        raise AssertionError(f"{label}: open or unmatched spans")
+    counts = collections.Counter(e["name"] for e in ev)
+    sampled = range(0, n_eps, every)
+    rounds = sum(e % 2 == 1 for e in sampled)
+    merges = sum(e in (7, 15) for e in sampled)
+    want = {"episode": len(sampled)}
+    if rounds:
+        want["fl_round"] = rounds
+        if driver == "scan":
+            want.update({p: rounds for p in ("fl/uplink", "fl/aggregate",
+                                             "fl/finetune")})
+    if merges:
+        want["pod_merge"] = merges
+    if dict(counts) != want:
+        raise AssertionError(f"{label}: spans {dict(counts)}, expected "
+                             f"{want}")
+    eps = sorted((e for e in ev if e["name"] == "episode"),
+                 key=lambda e: e["ts"])
+    for prev, nxt in zip(eps, eps[1:]):
+        if nxt["ts"] < prev["ts"] + prev["dur"]:
+            raise AssertionError(f"{label}: episodes overlap")
+    rnds = [e for e in ev if e["name"] == "fl_round"]
+    for e in ev:
+        if e["name"].startswith("fl/") and not any(
+                r["ts"] <= e["ts"] and e["ts"] + e["dur"] <= r["ts"] + r["dur"]
+                for r in rnds):
+            raise AssertionError(f"{label}: {e['name']} outside its round")
+    return ev
+
+
+def trace_phase(torch, cfg):
+    """``train_fleet --trace-out`` at the CLI default, fluid and twin,
+    under both drivers, at ``--trace-sample`` 1 and 2, beside the same run
+    untraced: valid traces with the expected spans (``check_trace``),
+    histories bit for bit, graph launches per episode unchanged, and under
+    the graph driver the same ``span_stamp`` launches at either sampling
+    (the stamps run on every episode and write only on sampled ones: one
+    capture serves any sampling), calibration and stamp nodes counted.
+    Then, per backend, 200 replayed episodes traced against 200 untraced
+    in eight alternating turns, a profiled window of each
+    (kernels per episode: up by the stamp nodes), and the traced window's
+    episode spans against its wall per episode. Returns the fluid graph
+    driver's stamp launches at sample 1 (the kernels line)."""
+    import shutil
+    import tempfile
+    import numpy as np
+    from repro_torch.core import fleet as fleet_mod
+    from repro_torch.kernels.span_stamp import span_stamp
+    from repro_torch.launch import train_fleet
+    tmp = Path(tempfile.mkdtemp(prefix="chip_smoke_trace_"))
+    n_eps, rounds, merges = 20, 10, 2
+    # calibration (3) + episode (2 each) + round: fl_round, uplink,
+    # aggregate, finetune (8 each) + merge (2 each)
+    want_stamps = 3 + 2 * n_eps + 8 * rounds + 2 * merges
+    main_launches = None
+    try:
+        for backend in ("fluid", "twin"):
+            argv = ["--episodes", str(n_eps), "--device", DEV,
+                    *(["--env-backend", "twin"] if backend == "twin" else [])]
+            for driver in ("scan", "reference"):
+                hists, stamps, per_ep = {}, {}, {}
+                for every in (None, 1, 2):
+                    extra = [] if every is None else [
+                        "--trace-out", str(tmp / f"{backend}{driver}{every}"
+                                           ".json"),
+                        "--trace-sample", str(every)]
+                    reset_launches()
+                    span_stamp.launches = 0
+                    with graph_spy(fleet_mod) as graphs:
+                        _, hists[every] = train_fleet.main(
+                            [*argv, "--driver", driver, *extra])
+                    torch.cuda.synchronize()
+                    stamps[every] = span_stamp.launches
+                    per_ep[every] = sum(g.replays for g in graphs) / n_eps
+                    if every is not None:
+                        check_trace(torch, extra[1], n_eps, every, driver,
+                                    f"[trace] {backend} {driver} "
+                                    f"sample {every}")
+                for every in (1, 2):
+                    for k, v in hists[None].items():
+                        if not np.array_equal(hists[every][k], v):
+                            raise AssertionError(
+                                f"[trace] {backend} {driver} sample {every}: "
+                                f"history {k} differs from the untraced run")
+                if len(set(per_ep.values())) != 1:
+                    raise AssertionError(f"[trace] {backend} {driver}: graph "
+                                         f"launches per episode {per_ep}")
+                want = {None: 0, 1: want_stamps if driver == "scan" else 0,
+                        2: want_stamps if driver == "scan" else 0}
+                if stamps != want:
+                    raise AssertionError(f"[trace] {backend} {driver}: "
+                                         f"span_stamp launches {stamps}, "
+                                         f"expected {want}")
+                if backend == "fluid" and driver == "scan":
+                    main_launches = stamps[1]
+                log(f"  train_fleet {backend} --driver {driver} "
+                    f"--trace-out: traces valid at --trace-sample 1 and 2, "
+                    f"histories bit for bit against untraced, "
+                    f"{per_ep[1]:.2f} graph launches/episode as untraced; "
+                    f"span_stamp launches {stamps[1]} / {stamps[2]}")
+            traced_windows(torch, cfg, backend)
+    finally:
+        shutil.rmtree(tmp, ignore_errors=True)
+    return main_launches
+
+
+def traced_windows(torch, cfg, backend, n_episodes=10, turn=50):
+    """The graph driver on the CLI default (A=8, P=2) traced and untraced,
+    each after eight episodes (eager first, captures): eight turns of
+    ``turn`` replayed episodes timed alone (untraced, traced, traced,
+    untraced, traced, untraced, untraced, traced: ``4 * turn`` episodes of
+    each, so that the host's drift falls on both alike), then a profiled
+    window of ``n_episodes`` of each: kernels and graph launches per
+    episode (the stamp nodes are the difference), the stamp kernels'
+    device time against the episode's, and, for the traced driver, its
+    episode spans against its wall per episode."""
+    import numpy as np
+    from repro_torch.core.fleet import FleetScan, fleet_init
+    from repro_torch.data.workload import fleet_traces
+    from repro_torch.kernels.span_stamp import span_stamp
+    from repro_torch.obs.trace import Tracer
+    warm, n, order = 8, cfg.n_steps, (False, True, True, False,
+                                       True, False, False, True)
+    gen = torch.Generator().manual_seed(1)
+    traces = fleet_traces(gen, 8, (warm + 4 * turn + 2 * n_episodes) * n,
+                          device=DEV)
+    tracer = Tracer()
+    drivers = {}
+    for traced in (False, True):
+        drivers[traced] = FleetScan(
+            cfg, fleet_init(cfg, 8, 0, n_pods=2, device=DEV,
+                            env_backend=backend), traces,
+            env_backend=backend, tracer=tracer if traced else None)
+        for _ in range(warm):
+            drivers[traced].step()
+    walls = {False: [], True: []}
+
+    def steps(traced):
+        def run():
+            for _ in range(turn):
+                drivers[traced].step()
+        return run
+
+    for traced in order:
+        walls[traced].append(timed(torch, steps(traced)) / turn * 1e3)
+    tracer.drain()
+    tracer.events.clear()
+    before = span_stamp.launches
+    wall_traced = timed(torch, lambda: [drivers[True].step()
+                                        for _ in range(n_episodes)])
+    stamps = span_stamp.launches - before
+    tracer.drain()
+    spans = [e["dur"] for e in tracer.events if e["name"] == "episode"]
+    off, on = np.mean(walls[False]), np.mean(walls[True])
+    # the spread of a turn's mean, over the turns of one condition, and
+    # the standard error of the difference of the two means
+    sd = np.sqrt((np.var(walls[False], ddof=1) + np.var(walls[True],
+                                                        ddof=1)) / 4)
+    log(f"  {backend} graph driver, eight turns of {turn} replayed "
+        f"episodes (U T T U T U U T): untraced "
+        f"{' / '.join(f'{w:.4f}' for w in walls[False])} ms/episode, "
+        f"traced {' / '.join(f'{w:.4f}' for w in walls[True])}; means "
+        f"{off:.4f} / {on:.4f} ms ({100 * (on - off) / off:+.3f} %, standard "
+        f"error {100 * sd / off:.3f} %); the next {n_episodes} traced: "
+        f"{stamps} stamp launches ({stamps / n_episodes:.2f}/episode), "
+        f"episode spans mean {np.mean(spans) / 1e3:.3f} ms against a wall "
+        f"of {wall_traced / n_episodes * 1e3:.3f} ms/episode")
+    got = {}
+    for traced in (False, True):
+        got[traced] = profiled(
+            torch, lambda: [drivers[traced].step()
+                            for _ in range(n_episodes)], n_episodes,
+            f"{backend} --driver scan{' traced' if traced else ''}: "
+            f"{n_episodes} episodes", "episode") or {}
+    if got[False] and got[True]:
+        st = got[True]["stamp_ms"]
+        log(f"  {backend}: kernels/episode {got[True]['kernels']:.1f} traced "
+            f"against {got[False]['kernels']:.1f} untraced "
+            f"({got[True]['kernels'] - got[False]['kernels']:+.1f}; the "
+            f"window's stamp nodes {stamps / n_episodes:.1f}); graph "
+            f"launches/episode {got[True]['graph_launches']:.2f} / "
+            f"{got[False]['graph_launches']:.2f}; device ms/episode "
+            f"{got[True]['device_ms']:.4f} traced against "
+            f"{got[False]['device_ms']:.4f} untraced, of which the stamp "
+            f"kernels {st * 1e3:.3f} us "
+            f"({100 * st / got[True]['device_ms']:.3f} % of the traced "
+            f"episode's device time)")
+    tracer.close()
+
+
+def attribution_phase(torch, cfg):
+    """``simulate --attribution --trace-out`` at its defaults (A=8, 60
+    intervals): K3 once per interval (the recording instantiation),
+    conservation exact for every agent, a valid trace; then the recorded
+    run on the card against the same run on the CPU (one fleet, one set of
+    traces and Gumbel noise): final state, tick series, caps and the
+    attribution's records exactly equal; then ms per replayed interval
+    recorded against unrecorded in turns. Returns the K3 launches."""
+    import shutil
+    import tempfile
+    import numpy as np
+    from repro_torch.core.fleet import (fleet_from_numpy, fleet_init,
+                                        fleet_to_numpy)
+    from repro_torch.launch import simulate
+    from repro_torch.obs import requests as obs_requests
+    from repro_torch.obs.trace import validate_chrome_trace
+    from repro_torch.sim import harness
+    from repro_torch.sim.scenarios import make_scenario
+    from repro_torch.sim.state import SimParams
+    tmp = Path(tempfile.mkdtemp(prefix="chip_smoke_attr_"))
+    try:
+        path = tmp / "req.json"
+        reset_launches()
+        summ = simulate.main(["--attribution", "--trace-out", str(path),
+                              "--device", DEV])
+        k3 = read_launches()[2]
+        with open(path) as f:
+            trace = json.load(f)
+    finally:
+        shutil.rmtree(tmp, ignore_errors=True)
+    if k3 != 60 or not summ["conservation_ok"].all() or \
+            validate_chrome_trace(trace):
+        raise AssertionError(f"[attribution] K3 {k3} launches, conservation "
+                             f"{summ['conservation_ok'].tolist()}")
+    log(f"  simulate --attribution --trace-out: K3 {k3} launches, "
+        f"conservation exact for all {len(summ['conservation_ok'])} agents, "
+        f"{len(trace['traceEvents'])} request slices, trace valid")
+    sp, a, t = SimParams(), 8, 60
+    tree = fleet_to_numpy(fleet_init(cfg, a, 0, device="cpu"))
+    traces = make_scenario("dynamic", torch.Generator().manual_seed(2), a,
+                           t + 1, device="cpu")
+    rng = np.random.default_rng(3)
+    u = rng.uniform(1e-6, 1.0, (t + 1, a, 15))
+    gumbel = torch.tensor((-np.log(-np.log(u))).astype(np.float32))
+    runs = {}
+    for dev in (DEV, "cpu"):
+        f = fleet_from_numpy(cfg, tree, device=dev)
+        args = (cfg, sp, f.astate.policy.params(), f.masks, f.env_params)
+        runs[dev] = harness.simulate_fleet(
+            *args, traces[:, :t].to(dev), gumbel=gumbel[:t].to(dev),
+            record_ticks=True)
+    (sk, hk, _), (sc, hc, _) = runs[DEV], runs["cpu"]
+    for name, x, y in zip(("arrive", "counters", "credits", "lat_sum",
+                           "hist"), sk.tensors(), sc.tensors()):
+        if not torch.equal(x.cpu(), y):
+            raise AssertionError(f"[attribution] card vs CPU: {name} differs")
+    for k in ("tick_counters", "caps"):
+        if not np.array_equal(hk[k], hc[k]):
+            raise AssertionError(f"[attribution] card vs CPU: {k} differs")
+    ak, ac = (obs_requests.attribute_run(h, s) for h, s in
+              ((hk, sk), (hc, sc)))
+    if ak["records"] != ac["records"] or \
+            not all(r["ok"] for r in ak["conservation"]):
+        raise AssertionError("[attribution] card vs CPU: records differ or "
+                             "conservation failed")
+    log(f"  recorded simulate_fleet card vs CPU (A={a}, {t} intervals, one "
+        f"noise): final twin state, {hk['tick_counters'].size} tick "
+        f"counters, caps and {len(ak['records'])} request records "
+        f"identical; conservation exact")
+    # ms per replayed interval, recorded against unrecorded, in turns
+    f = fleet_from_numpy(cfg, tree, device=DEV)
+    args = (cfg, sp, f.astate.policy.params(), f.masks, f.env_params)
+    tr_dev, g_dev = traces.to(DEV), gumbel.to(DEV)
+
+    def per_interval(record):
+        alone = {}
+        for n in (1, t + 1):
+            with graph_spy(harness) as graphs:
+                alone[n] = timed(torch, lambda: harness.simulate_fleet(
+                    *args, tr_dev[:, :n], gumbel=g_dev[:n],
+                    record_ticks=record)) - graphs[0].capture_s
+        return (alone[t + 1] - alone[1]) / t * 1e3
+
+    turns = [per_interval(r) for r in (False, True, True, False)]
+    off, on = (turns[0] + turns[3]) / 2, (turns[1] + turns[2]) / 2
+    log(f"  simulate graphed, ms per replayed interval: unrecorded "
+        f"{turns[0]:.4f} / {turns[3]:.4f}, recorded {turns[1]:.4f} / "
+        f"{turns[2]:.4f} ({on - off:+.4f} ms)")
+    return k3
+
+
+def obs_profile_phase(torch, cfg):
+    """``fleet_memory_report`` at A=2048, P=8 (float32 and lean): per
+    policy the graph driver's peak memory (``max_memory_allocated`` around
+    the run's capture and replays), arguments, outputs, temporaries, the
+    counted episode and round's operations and bytes, and the in-place
+    audit (every fleet leaf updated in place)."""
+    from repro_torch.obs.profile import fleet_memory_report
+    t0 = time.time()
+    rep = fleet_memory_report(cfg, 2048, n_pods=8, device=DEV)
+    for pol, row in rep.items():
+        if row["donation_ok"] != 1.0:
+            raise AssertionError(f"[obs profile] {pol}: {row['aliased_args']}"
+                                 f" of {row['donated_leaves']} leaves updated "
+                                 f"in place")
+        log(f"  A=2048 P=8 {pol}: peak {row['peak_bytes'] / 2**20:.2f} MiB "
+            f"({row['peak_bytes_per_agent']:.0f} B/agent; arguments "
+            f"{row['argument_size_in_bytes'] / 2**20:.2f} MiB, outputs "
+            f"{row['output_size_in_bytes']:.0f} B, temporaries "
+            f"{row['temp_size_in_bytes'] / 2**20:.2f} MiB), state "
+            f"{row['state_per_agent']:.0f} B/agent; one episode + one round: "
+            f"{row['ops']:.0f} ops, {row['flops'] / 1e9:.3f} GFLOP, "
+            f"{row['bytes_accessed'] / 2**20:.1f} MiB accessed (upper "
+            f"bound); {row['aliased_args']:.0f}/{row['donated_leaves']:.0f} "
+            f"leaves in place")
+    f32, lean = rep["float32"], rep["lean"]
+    log(f"  peak per agent float32 / lean: "
+        f"{f32['peak_bytes_per_agent'] / lean['peak_bytes_per_agent']:.3f}x;"
+        f" {time.time() - t0:.1f} s")
 
 # ---------------------------------------------------------------------------
 # State dtype policies, checkpoint resume, state bytes
@@ -1633,17 +2089,9 @@ def body_ops(torch, cfg, backend, **kw):
     episodes: the graphs capture exactly these). Each op is at most a
     kernel or a copy; the kernels K1–K3 launch through ``ctypes`` and are
     counted by their own counters."""
-    from torch.utils._python_dispatch import TorchDispatchMode
+    from repro_torch.obs.profile import OpBytes
     from repro_torch.core.fleet import FleetScan, fleet_init
     from repro_torch.data.workload import fleet_traces
-
-    class OpCount(TorchDispatchMode):
-        n = 0
-
-        def __torch_dispatch__(self, func, types, args=(), kwargs=None):
-            if not func.is_view and func is not torch.ops.aten.detach.default:
-                self.n += 1
-            return func(*args, **(kwargs or {}))
 
     gen = torch.Generator()
     gen.manual_seed(1)
@@ -1655,9 +2103,9 @@ def body_ops(torch, cfg, backend, **kw):
         driver.step()
     out = []
     for graph in driver.graphs[:2]:
-        with OpCount() as c:
+        with OpBytes() as c:
             graph.body()
-        out.append(c.n)
+        out.append(c.ops)
     torch.cuda.synchronize()
     return out
 
@@ -2015,6 +2463,7 @@ def k4_inputs(torch, gen, case):
 def check_k4(torch, gen):
     """K4 against its plain version over the sweep; times it at the
     prefill shape. Returns (max |err| at the prefill shape, timing)."""
+    from repro_torch.obs import profile as prof
     import torch.nn.functional as F
     from repro_torch.kernels.flash_attention import flash_attention
     from repro_torch.kernels.ref import (flash_attention_bf16p_ref,
@@ -2048,9 +2497,10 @@ def check_k4(torch, gen):
         lib = median_ms(lambda: F.scaled_dot_product_attention(
             q.transpose(1, 2), k.transpose(1, 2), v.transpose(1, 2),
             is_causal=causal, enable_gqa=True))
-        pairs = sq * (sq + 1) // 2 if causal else sq * sk
-        flops = 4 * b * hq * pairs * d
-        moved = 2 * nbytes(q) + nbytes(k, v)
+        cost = prof.kernel_cost("flash_attention", b=b, s=sq, hq=hq,
+                                hkv=hkv, d=d, causal=causal,
+                                itemsize=q.element_size())
+        flops, moved = cost["flops"], cost["bytes_accessed"]
         t_ops, t_bytes = flops / peak_flops(dtype), moved / HBM_BYTES_PER_S
         timing[dtype] = dict(
             ms=ms, plain_ms=plain, bound_ms=max(t_ops, t_bytes) * 1e3,
@@ -2077,6 +2527,7 @@ def check_k5(torch, gen):
     """K5 against its plain version over the sweep, garbage past kv_len
     ignored; times it at the serve path's shape and at the engine
     defaults. Returns (max |err| at the serve shape, timing)."""
+    from repro_torch.obs import profile as prof
     import torch.nn.functional as F
     from repro_torch.kernels.decode_attention import (decode_attention,
                                                       num_splits)
@@ -2112,8 +2563,10 @@ def check_k5(torch, gen):
         sdpa = lambda: F.scaled_dot_product_attention(
             q.transpose(1, 2), *kv, enable_gqa=True)
         lib = median_ms(sdpa)
-        moved = 2 * nbytes(q) + 2 * b * n * hkv * d * kc.element_size()
-        flops = 4 * b * hq * n * d
+        cost = prof.kernel_cost("decode_attention", b=b, hq=hq, hkv=hkv,
+                                d=d, kv_len=n, itemsize=kc.element_size(),
+                                q_itemsize=q.element_size())
+        flops, moved = cost["flops"], cost["bytes_accessed"]
         t_ops, t_bytes = flops / peak_flops(qt), moved / HBM_BYTES_PER_S
         timing[(b, s_max, n)] = dict(
             ms=ms, plain_ms=plain, bound_ms=max(t_ops, t_bytes) * 1e3,
@@ -2134,6 +2587,7 @@ def check_k5(torch, gen):
 def check_k6(torch, gen):
     """K6 bit for bit against its plain version: the JAX test's case in
     three types, then T=4096, D=896, N=8192 with ~10 % padding (timed)."""
+    from repro_torch.obs import profile as prof
     from repro_torch.kernels.packing import pack
     from repro_torch.kernels.ref import pack_ref
     bits = lambda x: x.view({1: torch.uint8, 2: torch.int16,
@@ -2195,7 +2649,8 @@ def check_k6(torch, gen):
     n_real = int((idx >= 0).sum())
     n_rows = int(torch.unique(idx[idx >= 0]).numel())
     row = big.shape[1] * big.element_size()
-    moved = idx.shape[0] * row + n_rows * row + nbytes(idx)
+    moved = prof.kernel_cost("pack", n=idx.shape[0], distinct=n_rows,
+                             row_bytes=row)["bytes_accessed"]
     bound = moved / HBM_BYTES_PER_S * 1e3
     log(f"  K6 T=4096 D=896 N=8192 ({8192 - n_real} padding rows, {n_rows} "
         f"distinct rows), cold tables, median of 5 graph replays: kernel "
@@ -2529,6 +2984,16 @@ def main():
     log("[leaderboard] a reduced grid from the [main path] run's "
         "checkpoint")
     leaderboard_phase(torch, cfg)
+    log("[stamp] span_stamp vs plain, the clock's resolution")
+    stamp_t, stamp_res = stamp_phase(torch)
+    log("[trace] train_fleet --trace-out, fluid and twin, both drivers, "
+        "--trace-sample 1 and 2")
+    stamp_n = trace_phase(torch, cfg)
+    log("[attribution] simulate --attribution --trace-out; the recording K3 "
+        "card vs CPU")
+    k3_rec_n = attribution_phase(torch, cfg)
+    log("[obs profile] fleet_memory_report at A=2048, P=8")
+    obs_profile_phase(torch, cfg)
 
     log("[K5] decode_attention vs plain")
     k5_err, k5_t = check_k5(torch, gen)
@@ -2562,6 +3027,16 @@ def main():
                      source="src/repro_torch/csrc/queue_advance.cu",
                      replaces="src/repro/kernels/queue_advance.py:50",
                      launches=k3_n, max_abs_err=0.0, **k3_t[8]))
+    rows.append(dict(name="queue_advance[record]", route="cuda",
+                     source="src/repro_torch/csrc/queue_advance.cu",
+                     replaces="src/repro/kernels/queue_advance.py:50",
+                     launches=k3_rec_n, max_abs_err=0.0,
+                     **k3_t[("record", 8)]))
+    rows.append(dict(name="span_stamp", route="cuda",
+                     source="src/repro_torch/csrc/span_stamp.cu",
+                     replaces="none (the span callbacks of "
+                              "src/repro/obs/trace.py:203)",
+                     launches=stamp_n, **stamp_t))
     rows.append(dict(name="flash_attention", route="cuda",
                      source="src/repro_torch/csrc/flash_attention.cu",
                      replaces="src/repro/kernels/flash_attention.py:112",
@@ -2578,7 +3053,9 @@ def main():
     log("[A=2048] " + json.dumps(
         {"diversity_insert": k1_t[2048],
          **{f"delta_codec[{c}]": k2_t[(c, 2048)] for c in ("int8", "topk")},
-         "queue_advance": k3_t[2048]}))
+         "queue_advance": k3_t[2048],
+         "queue_advance[record]": k3_t[("record", 2048)],
+         "span_stamp resolution ns": stamp_res}))
     log("[LM other shapes] " + json.dumps(
         {"flash_attention[float32]": k4_t["float32"],
          "decode_attention[B=64,kv_len=4096]":

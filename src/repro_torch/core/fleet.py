@@ -53,10 +53,20 @@ each episode's history row to pinned host memory behind the replays and
 writes the record once the copy has landed, so that the stream adds no
 host sync per episode. Without health and sink both drivers run exactly
 as before.
+
+Tracing (the drivers' ``tracer=``, a ``repro_torch.obs.trace.Tracer``):
+the reference driver takes host spans around its sampled episodes, rounds
+and merges; the graph driver's bodies open span sites (``episode``,
+``fl_round`` and ``fl_round``'s phases, ``pod_merge``), which on the card
+are ``span_stamp`` nodes of its graphs reading the episode counter and
+the sampling period from device memory, and on the CPU host spans. A
+traced run computes the untraced run's numbers bit for bit; without a
+tracer the bodies dispatch exactly the untraced ops.
 """
 from __future__ import annotations
 
 from collections import deque
+from contextlib import nullcontext
 from dataclasses import dataclass, fields, is_dataclass, replace
 from typing import Dict, Optional
 
@@ -89,6 +99,7 @@ from repro_torch.health import (HEALTH_METRIC_KEYS, HealthConfig,
                                 update_episode, update_round)
 from repro_torch.health.drift import DriftState
 from repro_torch.health.sketch import P2State
+from repro_torch.obs import trace as obs_trace
 from repro_torch.resilience import faults as rfaults
 from repro_torch.resilience.faults import FaultConfig
 from repro_torch.resilience.guards import (DEFAULT_GUARDS, GuardConfig,
@@ -416,7 +427,7 @@ def fl_round(cfg: FCPOConfig, fleet: Fleet, rollouts, available=None,
              guards: Optional[GuardConfig] = None,
              faults: Optional[FaultConfig] = None, byzantine=None,
              byz_noise=None, generator=None,
-             health: Optional[HealthConfig] = None):
+             health: Optional[HealthConfig] = None, trace=None):
     """One federated round: uplink model -> Eq. 7 selection -> (lossy codec)
     -> Alg. 1 aggregation -> Alg. 2 head fine-tuning -> buffer moment
     resync.
@@ -438,7 +449,11 @@ def fl_round(cfg: FCPOConfig, fleet: Fleet, rollouts, available=None,
     ``params - base`` read on the side, which leaves the plain numerics
     alone) into the fleet's suspicion EMA, a rejected contribution at
     suspicion 1; with ``guards.susp_threshold`` > 0 the previous round's
-    EMA also gates Eq. 7 selection. Returns
+    EMA also gates Eq. 7 selection. ``trace``: span sites
+    (``repro_torch.obs.trace``) of the round's phases ``fl/uplink``,
+    ``fl/encode`` (where the codec runs; the K2 wrapper's
+    ``kernel/delta_codec`` inside it), ``fl/aggregate`` and
+    ``fl/finetune``; None records nothing. Returns
     (fleet, sel (A,) bool aggregation mask, fl_metrics of 0-dim tensors,
     ``FL_METRIC_KEYS``)."""
     transport = DEFAULT_TRANSPORT if transport is None else transport
@@ -464,13 +479,15 @@ def fl_round(cfg: FCPOConfig, fleet: Fleet, rollouts, available=None,
         pending, rejected = fl_stale.validate_pending(pending)
 
     # --- communication model: static payload sizes, per-agent links
-    up_bytes = fl_transport.agent_payload_bytes(params.values(), transport)
-    full_bytes = fl_transport.full_param_bytes(params.values())
-    down_bytes = fl_transport.downlink_bytes(transport, a, fleet.n_pods,
-                                             up_bytes, full_bytes)
-    uplink_s = fl_transport.uplink_seconds(up_bytes, fleet.bandwidth)
-    on_time = fl_transport.on_time_mask(uplink_s, transport.deadline_s)
-    fresh_ok = available & on_time
+    with obs_trace.span_of(trace, "fl/uplink"):
+        up_bytes = fl_transport.agent_payload_bytes(params.values(),
+                                                    transport)
+        full_bytes = fl_transport.full_param_bytes(params.values())
+        down_bytes = fl_transport.downlink_bytes(transport, a, fleet.n_pods,
+                                                 up_bytes, full_bytes)
+        uplink_s = fl_transport.uplink_seconds(up_bytes, fleet.bandwidth)
+        on_time = fl_transport.on_time_mask(uplink_s, transport.deadline_s)
+        fresh_ok = available & on_time
 
     # --- Eq. 7 selection. Sync rounds: a slow link drops out. Async rounds:
     # slow but available clients stay selectable (they park), and so do
@@ -504,29 +521,33 @@ def fl_round(cfg: FCPOConfig, fleet: Fleet, rollouts, available=None,
         # whatever the stored dtypes
         base_g = {k: b[fleet.pod_ids].float() for k, b in base.items()}
     if not plain:
-        delta = {k: params[k].float() - base_g[k] for k in params}
-        decoded, res_next = codec_roundtrip(delta, fleet.residuals, transport)
-        if byz_on:
-            # corrupted in transit, after the client committed its error
-            # feedback: the server sees garbage, the client stays consistent
-            decoded = rfaults.corrupt_deltas(faults, decoded, byzantine,
-                                             noise=byz_noise,
-                                             generator=generator)
-        if transport.async_rounds:
-            w_stale = fl_stale.stale_weights(pending,
-                                             transport.staleness_decay)
-            contrib = fl_stale.merge_contributions(decoded, pending,
-                                                   fresh_ok, w_stale)
-            sel_agg = sel & (fresh_ok | pending.has)
-            parked = sel & available & ~on_time
-            consumed = sel & pending.has & ~fresh_ok
-            fresh_sent = sel & fresh_ok
-            transmitted = fresh_sent | parked
-            pending = fl_stale.update_pending(pending, decoded, parked,
-                                              consumed, fresh_sent)
-            stale_used = consumed.sum().to(torch.float32)
-        else:
-            contrib, sel_agg = decoded, sel  # selection required on-time
+        with obs_trace.span_of(trace, "fl/encode"):
+            delta = {k: params[k].float() - base_g[k] for k in params}
+            with obs_trace.bind(trace):     # K2's kernel/delta_codec span
+                decoded, res_next = codec_roundtrip(delta, fleet.residuals,
+                                                    transport)
+            if byz_on:
+                # corrupted in transit, after the client committed its
+                # error feedback: the server sees garbage, the client
+                # stays consistent
+                decoded = rfaults.corrupt_deltas(faults, decoded, byzantine,
+                                                 noise=byz_noise,
+                                                 generator=generator)
+            if transport.async_rounds:
+                w_stale = fl_stale.stale_weights(pending,
+                                                 transport.staleness_decay)
+                contrib = fl_stale.merge_contributions(decoded, pending,
+                                                       fresh_ok, w_stale)
+                sel_agg = sel & (fresh_ok | pending.has)
+                parked = sel & available & ~on_time
+                consumed = sel & pending.has & ~fresh_ok
+                fresh_sent = sel & fresh_ok
+                transmitted = fresh_sent | parked
+                pending = fl_stale.update_pending(pending, decoded, parked,
+                                                  consumed, fresh_sent)
+                stale_used = consumed.sum().to(torch.float32)
+            else:
+                contrib, sel_agg = decoded, sel  # selection needed on-time
     health_rej = None            # rejected contributions: suspicion 1
     if guards.reject_nonfinite:
         # a client NaN'd by its own training, or garbage on the wire, is
@@ -561,15 +582,17 @@ def fl_round(cfg: FCPOConfig, fleet: Fleet, rollouts, available=None,
 
     # Algorithm 1 in float32; the new params and base networks are stored
     # at their dtypes (identities under float32)
-    new_params, new_base = fed.aggregate(
-        cfg, dtp.tree_f32(recon), dtp.tree_f32(base), sel_agg, head_losses,
-        fleet.group_ids, fleet.group_counts, fleet.pod_ids, fleet.n_pods,
-        method=guards.agg, trim_frac=guards.trim_frac)
-    new_params = dtp.tree_cast_like(new_params, params)
-    new_base = dtp.tree_cast_like(new_base, base)
+    with obs_trace.span_of(trace, "fl/aggregate"):
+        new_params, new_base = fed.aggregate(
+            cfg, dtp.tree_f32(recon), dtp.tree_f32(base), sel_agg,
+            head_losses, fleet.group_ids, fleet.group_counts, fleet.pod_ids,
+            fleet.n_pods, method=guards.agg, trim_frac=guards.trim_frac)
+        new_params = dtp.tree_cast_like(new_params, params)
+        new_base = dtp.tree_cast_like(new_base, base)
     # Algorithm 2: local action-head fine-tuning on local experiences
-    new_params, opt = finetune_heads(cfg, new_params, astate.opt, rollouts,
-                                     fleet.masks)
+    with obs_trace.span_of(trace, "fl/finetune"):
+        new_params, opt = finetune_heads(cfg, new_params, astate.opt,
+                                         rollouts, fleet.masks)
     policy.assign(new_params)
     fleet.base.assign(new_base)
     # FL-round cadence resyncs the buffers' streaming moments
@@ -699,7 +722,8 @@ def train_fleet_reference(cfg: FCPOConfig, fleet: Fleet, traces, *,
                           episode_offset: int = 0,
                           total_episodes: Optional[int] = None,
                           metrics_sink=None,
-                          health: Optional[HealthConfig] = None):
+                          health: Optional[HealthConfig] = None,
+                          tracer=None):
     """The Python-loop driver: episodes over ``traces`` (A, total_steps),
     an FL round every ``fl_every`` episodes (stragglers from
     ``draw_availability(seed)``, the reference's stream), a pod merge every
@@ -718,7 +742,10 @@ def train_fleet_reference(cfg: FCPOConfig, fleet: Fleet, traces, *,
     ``health``: a ``HealthConfig``; the fleet's health state (fresh if it
     has none) is advanced every episode and round, and its summaries join
     the history. ``metrics_sink``: gets ``{"episode": absolute episode,
-    **the episode's history values}`` as each episode ends. Returns
+    **the episode's history values}`` as each episode ends. ``tracer``: a
+    ``repro_torch.obs.trace.Tracer``; host spans ``episode``, ``fl_round``
+    and ``pod_merge`` on every ``tracer.span_sample_every``-th absolute
+    episode, each ending when the card has finished its work. Returns
     (fleet, history) with one fleet-mean value per episode and metric
     (with crashes, the mean over the agents that ran)."""
     backend = get_backend(env_backend)
@@ -735,13 +762,20 @@ def train_fleet_reference(cfg: FCPOConfig, fleet: Fleet, traces, *,
     fault_gen = _fault_generator(fleet, faults, byz_noise)
     bits = lambda x: torch.as_tensor(x, device=dev)
     history: Dict[str, list] = {}
+
+    def hspan(name, e):     # a sampled host span, no-op without a tracer
+        if tracer is None or not tracer.sampled(episode_offset + e):
+            return nullcontext()
+        return obs_trace.host_span(tracer, name, dev)
+
     for e in range(n_eps):
         rates = traces[:, e * cfg.n_steps:(e + 1) * cfg.n_steps]
         prev = rfaults.snapshot_astate(fleet.astate) if crash_on else None
-        fleet, rollouts, metrics = fleet_episode(
-            cfg, fleet, rates, learn=learn,
-            gumbel=None if gumbel is None else gumbel[e], backend=backend,
-            health=health)
+        with hspan("episode", e):
+            fleet, rollouts, metrics = fleet_episode(
+                cfg, fleet, rates, learn=learn,
+                gumbel=None if gumbel is None else gumbel[e],
+                backend=backend, health=health)
         ran = None
         if crash_on:
             fleet, ran, down = rfaults.apply_crashes(faults, prev, fleet,
@@ -752,13 +786,14 @@ def train_fleet_reference(cfg: FCPOConfig, fleet: Fleet, traces, *,
             if crash_on:
                 av = av & ~down
                 pre_round = rfaults.snapshot_astate(fleet.astate)
-            fleet, _, fl_metrics = fl_round(
-                cfg, fleet, rollouts, av, transport=transport,
-                guards=guards, faults=faults,
-                byzantine=bits(plan.byzantine[e]) if byz_on else None,
-                byz_noise=(None if byz_noise is None
-                           else {k: v[e] for k, v in byz_noise.items()}),
-                generator=fault_gen, health=health)
+            with hspan("fl_round", e):
+                fleet, _, fl_metrics = fl_round(
+                    cfg, fleet, rollouts, av, transport=transport,
+                    guards=guards, faults=faults,
+                    byzantine=bits(plan.byzantine[e]) if byz_on else None,
+                    byz_noise=(None if byz_noise is None else
+                               {k: v[e] for k, v in byz_noise.items()}),
+                    generator=fault_gen, health=health)
             if crash_on:
                 # a down agent is offline: it does not receive the round's
                 # model (it rejoins later by the step-① warm start)
@@ -766,8 +801,9 @@ def train_fleet_reference(cfg: FCPOConfig, fleet: Fleet, traces, *,
                     down, pre_round, fleet.astate))
             rounds += 1
             if rounds % cfg.hierarchical_period == 0 and fleet.n_pods > 1:
-                fleet = pod_merge(cfg, fleet, bits(plan.partition[e]),
-                                  faults)
+                with hspan("pod_merge", e):
+                    fleet = pod_merge(cfg, fleet, bits(plan.partition[e]),
+                                      faults)
         ep_m, health_m = _split_health(metrics)
         names = [*ep_m, *fl_metrics, *health_m]
         vals = torch.stack([*_episode_means(ep_m, ran), *fl_metrics.values(),
@@ -782,6 +818,12 @@ def train_fleet_reference(cfg: FCPOConfig, fleet: Fleet, traces, *,
 
 # episodes the graph driver's stream may hold in flight (``SinkTap``)
 SINK_DEPTH = 64
+
+# the graph driver's span sites, (name, Chrome category)
+FLEET_SITES = (("episode", "phase"), ("fl_round", "phase"),
+               ("fl/uplink", "phase"), ("fl/encode", "phase"),
+               ("kernel/delta_codec", "kernel"), ("fl/aggregate", "phase"),
+               ("fl/finetune", "phase"), ("pod_merge", "phase"))
 
 
 class SinkTap:
@@ -845,9 +887,9 @@ class FleetScan:
     are ``train_fleet_scan``'s. ``run()`` trains ``fleet`` in place and
     returns (fleet, history); ``step()`` runs the next episode alone,
     ``history()`` fetches the history so far and ``drain()`` writes every
-    streamed record still in flight. ``capture_s`` is the wall time of the
-    graphs' captures and ``graph_launches`` the host's graph launches (0 on
-    the CPU)."""
+    streamed record still in flight and collects the tracer's device
+    stamps. ``capture_s`` is the wall time of the graphs' captures and
+    ``graph_launches`` the host's graph launches (0 on the CPU)."""
 
     def __init__(self, cfg: FCPOConfig, fleet: Fleet, traces, *,
                  learn: bool = True, federated: bool = True,
@@ -858,9 +900,10 @@ class FleetScan:
                  faults: Optional[FaultConfig] = None, gumbel=None,
                  byz_noise=None, episode_offset: int = 0,
                  total_episodes: Optional[int] = None, metrics_sink=None,
-                 health: Optional[HealthConfig] = None):
+                 health: Optional[HealthConfig] = None, tracer=None):
         self.cfg, self.fleet, self.learn = cfg, fleet, learn
-        self.health = health
+        self.health, self.tracer = health, tracer
+        self.offset = episode_offset
         _ensure_health(cfg, fleet, health)
         self.backend = get_backend(env_backend)
         self.transport = DEFAULT_TRANSPORT if transport is None else transport
@@ -901,6 +944,9 @@ class FleetScan:
             self.rows.append(self.h_hist)
         self.tap = None if metrics_sink is None else SinkTap(
             metrics_sink, self.names, self.rows, dev, episode_offset)
+        # the spans' device stamps: rows of sampled episodes of this run
+        self.stamps = None if tracer is None or dev.type != "cuda" else \
+            tracer.attach(dev, self.n_eps, FLEET_SITES, base=episode_offset)
         # the FL round reads the last episode's rollout from here
         self.rollout = Rollout(
             states=f32(a, n, cfg.state_dim),
@@ -919,72 +965,91 @@ class FleetScan:
                                    else (self.fault_gen,)),
                        GraphedBody(self._merge, dev))
 
+    def _sites(self, after: bool = False):
+        """The span sites of the current episode's bodies (``after``: the
+        round and the merge, which run after the episode counter moved
+        on): device stamps at the episode counter on the card, host spans
+        of the host's own count on the CPU; None without a tracer."""
+        if self.tracer is None:
+            return None
+        if self.stamps is not None:
+            return obs_trace.DeviceSites(self.stamps, self.counter,
+                                         self.offset - int(after))
+        e = self.offset + self.episodes - int(after)
+        return obs_trace.HostSites(self.tracer, self.tracer.sampled(e))
+
     def _episode(self):
         e = self.counter.view(1)
-        if self.crash_on:
-            rfaults.snapshot_astate(self.fleet.astate, into=self.prev)
-        out, rollout, metrics = fleet_episode(
-            self.cfg, self.fleet, self.rates.index_select(0, e)[0],
-            learn=self.learn, backend=self.backend,
-            gumbel=(None if self.gumbel is None
-                    else self.gumbel.index_select(0, e)[0]),
-            health=self.health)
-        metrics, health_m = _split_health(metrics)
-        if set(metrics) != set(EPISODE_METRICS):
-            raise KeyError(f"episode metrics {sorted(metrics)} are not "
-                           f"{sorted(EPISODE_METRICS)}")
-        ran = None
-        if self.crash_on:
-            out, ran, down = rfaults.apply_crashes(
-                self.faults, self.prev, out,
-                self.plan.crash.index_select(0, e)[0])
-            self.fleet.crash_timer.copy_(out.crash_timer)
-            self.down.copy_(down)
-        copy_into(self.fleet.astate, out.astate)
-        copy_into(self.rollout, rollout)
-        self.ep_hist.index_copy_(0, e, torch.stack(_episode_means(
-            {k: metrics[k] for k in EPISODE_METRICS}, ran))[None])
-        if self.health is not None:
-            copy_into(self.fleet.health, out.health)
-            self.h_hist.index_copy_(0, e, torch.stack(_episode_means(
-                health_m, ran))[None])
-        self.fl_hist.index_copy_(0, e, torch.stack(
-            list(fl_transport.fl_zero_metrics(self.dev).values()))[None])
+        with obs_trace.span_of(self._sites(), "episode"):
+            if self.crash_on:
+                rfaults.snapshot_astate(self.fleet.astate, into=self.prev)
+            out, rollout, metrics = fleet_episode(
+                self.cfg, self.fleet, self.rates.index_select(0, e)[0],
+                learn=self.learn, backend=self.backend,
+                gumbel=(None if self.gumbel is None
+                        else self.gumbel.index_select(0, e)[0]),
+                health=self.health)
+            metrics, health_m = _split_health(metrics)
+            if set(metrics) != set(EPISODE_METRICS):
+                raise KeyError(f"episode metrics {sorted(metrics)} are not "
+                               f"{sorted(EPISODE_METRICS)}")
+            ran = None
+            if self.crash_on:
+                out, ran, down = rfaults.apply_crashes(
+                    self.faults, self.prev, out,
+                    self.plan.crash.index_select(0, e)[0])
+                self.fleet.crash_timer.copy_(out.crash_timer)
+                self.down.copy_(down)
+            copy_into(self.fleet.astate, out.astate)
+            copy_into(self.rollout, rollout)
+            self.ep_hist.index_copy_(0, e, torch.stack(_episode_means(
+                {k: metrics[k] for k in EPISODE_METRICS}, ran))[None])
+            if self.health is not None:
+                copy_into(self.fleet.health, out.health)
+                self.h_hist.index_copy_(0, e, torch.stack(_episode_means(
+                    health_m, ran))[None])
+            self.fl_hist.index_copy_(0, e, torch.stack(
+                list(fl_transport.fl_zero_metrics(self.dev).values()))[None])
         self.counter.add_(1)
 
     def _round(self):
         e = (self.counter - 1).view(1)
         pick = lambda x: x.index_select(0, e)[0]
-        av = pick(self.avail)
-        if self.crash_on:
-            av = av & ~self.down
-            rfaults.snapshot_astate(self.fleet.astate, into=self.pre_round)
-        out, _, flm = fl_round(
-            self.cfg, self.fleet, self.rollout, av, transport=self.transport,
-            guards=self.guards, faults=self.faults,
-            byzantine=pick(self.plan.byzantine) if self.byz_on else None,
-            byz_noise=(None if self.byz_noise is None else
-                       {k: pick(v) for k, v in self.byz_noise.items()}),
-            generator=self.fault_gen, health=self.health)
-        if self.crash_on:
-            out = out.replace(astate=rfaults.freeze_astate(
-                self.down, self.pre_round, out.astate))
-        copy_into(self.fleet.astate, out.astate)
-        copy_into(self.fleet.residuals, out.residuals)
-        copy_into(self.fleet.pending, out.pending)
-        copy_into(self.fleet.health, out.health)
-        self.fl_hist.index_copy_(0, e, torch.stack(
-            [flm[k] for k in fl_transport.FL_METRIC_KEYS])[None])
+        sites = self._sites(after=True)
+        with obs_trace.span_of(sites, "fl_round"):
+            av = pick(self.avail)
+            if self.crash_on:
+                av = av & ~self.down
+                rfaults.snapshot_astate(self.fleet.astate,
+                                        into=self.pre_round)
+            out, _, flm = fl_round(
+                self.cfg, self.fleet, self.rollout, av,
+                transport=self.transport, guards=self.guards,
+                faults=self.faults,
+                byzantine=pick(self.plan.byzantine) if self.byz_on else None,
+                byz_noise=(None if self.byz_noise is None else
+                           {k: pick(v) for k, v in self.byz_noise.items()}),
+                generator=self.fault_gen, health=self.health, trace=sites)
+            if self.crash_on:
+                out = out.replace(astate=rfaults.freeze_astate(
+                    self.down, self.pre_round, out.astate))
+            copy_into(self.fleet.astate, out.astate)
+            copy_into(self.fleet.residuals, out.residuals)
+            copy_into(self.fleet.pending, out.pending)
+            copy_into(self.fleet.health, out.health)
+            self.fl_hist.index_copy_(0, e, torch.stack(
+                [flm[k] for k in fl_transport.FL_METRIC_KEYS])[None])
 
     def _merge(self):
-        if not self.part_on:
-            pod_merge(self.cfg, self.fleet)
-            return
-        e = (self.counter - 1).view(1)
-        out = pod_merge(self.cfg, self.fleet,
-                        self.plan.partition.index_select(0, e)[0],
-                        self.faults)
-        self.fleet.partition_timer.copy_(out.partition_timer)
+        with obs_trace.span_of(self._sites(after=True), "pod_merge"):
+            if not self.part_on:
+                pod_merge(self.cfg, self.fleet)
+                return
+            e = (self.counter - 1).view(1)
+            out = pod_merge(self.cfg, self.fleet,
+                            self.plan.partition.index_select(0, e)[0],
+                            self.faults)
+            self.fleet.partition_timer.copy_(out.partition_timer)
 
     @property
     def capture_s(self) -> float:
@@ -1012,9 +1077,12 @@ class FleetScan:
             self.tap.push(e)
 
     def drain(self) -> None:
-        """Write every streamed record still in flight."""
+        """Write every streamed record still in flight, and collect the
+        tracer's stamps (one transfer each)."""
         if self.tap is not None:
             self.tap.drain()
+        if self.tracer is not None:
+            self.tracer.drain()
 
     def history(self) -> Dict[str, np.ndarray]:
         """The per-episode history of the episodes run so far, in one
@@ -1042,7 +1110,7 @@ def train_fleet_scan(cfg: FCPOConfig, fleet: Fleet, traces, *,
                      gumbel=None, byz_noise=None, episode_offset: int = 0,
                      total_episodes: Optional[int] = None,
                      metrics_sink=None,
-                     health: Optional[HealthConfig] = None):
+                     health: Optional[HealthConfig] = None, tracer=None):
     """The graph driver: episodes over ``traces`` (A, total_steps), an FL
     round every ``fl_every`` episodes (stragglers from
     ``draw_availability(seed)``), a pod merge every ``hierarchical_period``
@@ -1066,7 +1134,15 @@ def train_fleet_scan(cfg: FCPOConfig, fleet: Fleet, traces, *,
     state, fresh if it has none, is part of their static state; the
     summaries join the history). ``metrics_sink``: one record per episode,
     streamed behind the replays (``SinkTap``), all written before the call
-    returns. Float32 products
+    returns. ``tracer``: a ``repro_torch.obs.trace.Tracer``: spans
+    ``episode``, ``fl_round`` (with its phases ``fl/uplink``,
+    ``fl/encode``, ``kernel/delta_codec``, ``fl/aggregate``,
+    ``fl/finetune``) and ``pod_merge`` on every
+    ``tracer.span_sample_every``-th absolute episode: on the card a
+    ``span_stamp`` node at each end inside the graphs (the episode and
+    the period read from device memory), on the CPU host spans; drained
+    before the call returns. Without it the bodies dispatch what they
+    dispatch untraced. Float32 products
     run without TF32 for the run. Returns (fleet, history) with one
     fleet-mean float32 value per episode and metric (FL metrics 0 on
     episodes without a round), fetched in one transfer."""
@@ -1076,7 +1152,7 @@ def train_fleet_scan(cfg: FCPOConfig, fleet: Fleet, traces, *,
                      guards=guards, faults=faults, gumbel=gumbel,
                      byz_noise=byz_noise, episode_offset=episode_offset,
                      total_episodes=total_episodes, metrics_sink=metrics_sink,
-                     health=health).run()
+                     health=health, tracer=tracer).run()
 
 
 def train_fleet(cfg: FCPOConfig, fleet: Fleet, traces, *, learn: bool = True,
@@ -1087,7 +1163,7 @@ def train_fleet(cfg: FCPOConfig, fleet: Fleet, traces, *, learn: bool = True,
                 faults: Optional[FaultConfig] = None, gumbel=None,
                 byz_noise=None, episode_offset: int = 0,
                 total_episodes: Optional[int] = None, metrics_sink=None,
-                health: Optional[HealthConfig] = None):
+                health: Optional[HealthConfig] = None, tracer=None):
     """The default entry point: delegates to ``train_fleet_scan``, as the
     JAX package's ``train_fleet`` does."""
     return train_fleet_scan(cfg, fleet, traces, learn=learn,
@@ -1098,4 +1174,5 @@ def train_fleet(cfg: FCPOConfig, fleet: Fleet, traces, *, learn: bool = True,
                             byz_noise=byz_noise,
                             episode_offset=episode_offset,
                             total_episodes=total_episodes,
-                            metrics_sink=metrics_sink, health=health)
+                            metrics_sink=metrics_sink, health=health,
+                            tracer=tracer)

@@ -17,7 +17,9 @@ garbage collector is off during a capture: a graph left in a reference
 cycle (a body bound to its driver) that the collector freed mid-capture
 would destroy its executable graph and memory pool, calls that invalidate
 the capture. A capture error (a host sync, an allocation the stream
-cannot record) raises: there is no fallback to eager execution.
+cannot record) raises: there is no fallback to eager execution. A body
+runs under ``obs.trace.quiet()``: the kernel wrappers it calls record a
+span only where the body binds its own span sites (a traced driver's).
 """
 from __future__ import annotations
 
@@ -32,9 +34,11 @@ import torch
 from repro_torch.kernels.delta_codec import delta_codec
 from repro_torch.kernels.diversity import diversity_insert
 from repro_torch.kernels.queue_advance import queue_advance
+from repro_torch.kernels.span_stamp import span_stamp
+from repro_torch.obs import trace as obs_trace
 
 # the kernel wrappers a captured body of this package may launch
-COUNTED = (diversity_insert, delta_codec, queue_advance)
+COUNTED = (diversity_insert, delta_codec, queue_advance, span_stamp)
 
 
 class GraphedBody:
@@ -54,7 +58,8 @@ class GraphedBody:
 
     def __call__(self) -> None:
         if self.device.type != "cuda":
-            self.body()
+            with obs_trace.quiet():
+                self.body()
         elif self.graph is None:
             self._warm_up_and_capture()
         else:
@@ -67,7 +72,7 @@ class GraphedBody:
         main = torch.cuda.current_stream(self.device)
         side = torch.cuda.Stream(self.device)
         side.wait_stream(main)
-        with torch.cuda.stream(side):
+        with torch.cuda.stream(side), obs_trace.quiet():
             self.body()
         main.wait_stream(side)
         t0 = time.perf_counter()
@@ -78,7 +83,8 @@ class GraphedBody:
         collecting = gc.isenabled()
         gc.disable()
         try:
-            with torch.cuda.graph(graph, capture_error_mode="global"):
+            with torch.cuda.graph(graph, capture_error_mode="global"), \
+                    obs_trace.quiet():
                 self.body()
             self.launches = {fn: fn.launches - n for fn, n in before.items()
                              if fn.launches != n}

@@ -36,6 +36,20 @@
 //            t = 0..K-1 in order, every tick included (-0 + 0 = +0), which
 //            is the plain version's float sequence. The histogram goes out.
 //
+// Recording (the request-attribution tap, repro/sim/step.py::
+// sim_interval_recorded): with o_ticks given, the kernel also writes the
+// counters after every tick, (A, K, NCOUNTERS) int32. Phase 1 writes each
+// tick's row as its chain computes it, three 16-byte stores (the rows are
+// 48 bytes; o_ticks is 16-byte aligned), EFFECTIVE with its stale value,
+// which phase 2 overwrites after the block's barrier. Phase 2 counts each
+// tick's completions within the SLO (lat <= slo at the request's
+// completion tick) by shared atomicAdd into the agent's column of the
+// arrivals rows, which phase 1 no longer reads, and a prefix over the K
+// ticks writes EFFECTIVE; its last value is the counter's output. The
+// recording is a second instantiation of the kernel (RECORD), so the
+// unrecorded kernel is the same code as before, and the shared memory the
+// same.
+//
 // Precondition (every state the twin reaches from sim_init under
 // action_caps and spread_arrivals): monotone counters head <= p_inf <=
 // launch <= p_pre <= tail with tail - head <= R (compared as int32
@@ -79,6 +93,7 @@ enum {
   EFFECTIVE, TICK, NCOUNTERS
 };
 enum { CAP_PRE, CAP_POST, CAP_BATCH, CAP_TBATCH, CAP_QCAP, CAP_SLO, NCAPS };
+static_assert(NCOUNTERS == 12, "a recorded tick row is three int4 stores");
 
 // jnp.minimum / torch.minimum: NaN propagates (fminf would drop it)
 __device__ __forceinline__ float nan_min(float a, float b) {
@@ -114,14 +129,15 @@ __host__ __device__ __forceinline__ int shared_words(int K) {
           AGENTS_PER_BLOCK * (NCOUNTERS + 2 + NCAPS) + 3) & ~3;
 }
 
+template <bool RECORD>
 __global__ void __launch_bounds__(LANES * (AGENTS_PER_BLOCK + 1)) queue_advance_kernel(
     const int* __restrict__ arrive, const int* __restrict__ counters,
     const float* __restrict__ credits, const float* __restrict__ lat_sum,
     const int* __restrict__ hist, const int* __restrict__ arrivals,
     const float* __restrict__ caps, int* __restrict__ o_arrive,
     int* __restrict__ o_counters, float* __restrict__ o_credits,
-    float* __restrict__ o_lat_sum, int* __restrict__ o_hist, int A, int R,
-    int H, int K) {
+    float* __restrict__ o_lat_sum, int* __restrict__ o_hist,
+    int* __restrict__ o_ticks, int A, int R, int H, int K) {
   // Warp 0 runs the scalar chains (lane i for the block's agent i); warp
   // 1 + i takes agent i's ring. Shared memory: first, agent-minor in rows
   // of an odd pitch P, the arrivals [K] and the schedule [K + 1] of head
@@ -233,6 +249,12 @@ __global__ void __launch_bounds__(LANES * (AGENTS_PER_BLOCK + 1)) queue_advance_
         c[TICK] = m + 1;
         cr_pre = pre_credit;
         cr_post = post_credit;
+        if (RECORD) {  // three 16-byte stores; EFFECTIVE is phase 2's
+          int4* row = reinterpret_cast<int4*>(o_ticks + (a * K + t) * NCOUNTERS);
+          row[0] = make_int4(c[0], c[1], c[2], c[3]);
+          row[1] = make_int4(c[4], c[5], c[6], c[7]);
+          row[2] = make_int4(c[8], c[9], c[10], c[11]);
+        }
       }
       s_head[K * P + lane] = c[HEAD];
       s_tail[K * P + lane] = c[TAIL];
@@ -298,6 +320,13 @@ __global__ void __launch_bounds__(LANES * (AGENTS_PER_BLOCK + 1)) queue_advance_
   // (the last tick whose segment starts at or before the request), all
   // three in the same steps so that their reads overlap.
   const int w0 = max(n_adm - R, 0);
+  // recording: this agent's column of the arrivals rows (free now) counts
+  // each tick's completions within the SLO
+  int* ecnt = arr + i;
+  if (RECORD) {
+    for (int t = lane; t < K; t += LANES) ecnt[t * P] = 0;
+    __syncwarp();
+  }
   int neff = 0;
   for (int j = lane; j < max(n_done, n_adm - w0); j += LANES) {
     const int jc = j, ja = j - n_in, jw = w0 + j;
@@ -319,6 +348,7 @@ __global__ void __launch_bounds__(LANES * (AGENTS_PER_BLOCK + 1)) queue_advance_
       const int lat = tick0 + tc + 1 - arrival;
       atomicAdd(&lsum[tc], lat);
       neff += lat <= slo;
+      if (RECORD && lat <= slo) atomicAdd(&ecnt[tc * P], 1);
       atomicAdd(&hs[lat < 0 ? 0 : (lat > H - 1 ? H - 1 : lat)], 1);
     }
     if (jw < n_adm)
@@ -341,6 +371,13 @@ __global__ void __launch_bounds__(LANES * (AGENTS_PER_BLOCK + 1)) queue_advance_
     o_lat_sum[agent] = ls;
     o_counters[agent * NCOUNTERS + EFFECTIVE] = eff0 + neff;
   }
+  if (RECORD) {  // EFFECTIVE after each tick: a prefix of the tick counts
+    for (int t = lane; t < K; t += LANES) {
+      int e = eff0;
+      for (int u = 0; u <= t; ++u) e += ecnt[u * P];
+      o_ticks[(agent * K + t) * NCOUNTERS + EFFECTIVE] = e;
+    }
+  }
   K3_MARK(FOLD);
   for (int h = lane; h < H; h += LANES) o_hist[agent * H + h] = hs[h];
   K3_MARK(STORE);
@@ -359,7 +396,8 @@ extern "C" int queue_advance_launch(
     const int* arrive, const int* counters, const float* credits,
     const float* lat_sum, const int* hist, const int* arrivals,
     const float* caps, int* o_arrive, int* o_counters, float* o_credits,
-    float* o_lat_sum, int* o_hist, int A, int R, int H, int K, void* stream) {
+    float* o_lat_sum, int* o_hist, int* o_ticks, int A, int R, int H, int K,
+    void* stream) {
   if (A <= 0 || R <= 0 || (R & (R - 1)) != 0 || H < 1 || K < 0)
     return static_cast<int>(cudaErrorInvalidValue);
   // as many agents a block as the shared memory holds, up to 8
@@ -367,16 +405,19 @@ extern "C" int queue_advance_launch(
   while (nb > 1 && smem_bytes(nb, R, H, K) > MAX_SMEM) --nb;
   const size_t smem = smem_bytes(nb, R, H, K);
   if (smem > MAX_SMEM) return static_cast<int>(cudaErrorInvalidValue);
+  // o_ticks (A, K, NCOUNTERS) picks the recording instantiation
+  auto kernel = o_ticks == nullptr ? queue_advance_kernel<false>
+                                   : queue_advance_kernel<true>;
   if (smem > 48 * 1024) {
     const cudaError_t err = cudaFuncSetAttribute(
-        queue_advance_kernel, cudaFuncAttributeMaxDynamicSharedMemorySize,
+        kernel, cudaFuncAttributeMaxDynamicSharedMemorySize,
         static_cast<int>(smem));
     if (err != cudaSuccess) return static_cast<int>(err);
   }
-  queue_advance_kernel<<<(A + nb - 1) / nb, LANES * (nb + 1), smem,
-                         static_cast<cudaStream_t>(stream)>>>(
+  kernel<<<(A + nb - 1) / nb, LANES * (nb + 1), smem,
+           static_cast<cudaStream_t>(stream)>>>(
       arrive, counters, credits, lat_sum, hist, arrivals, caps, o_arrive,
-      o_counters, o_credits, o_lat_sum, o_hist, A, R, H, K);
+      o_counters, o_credits, o_lat_sum, o_hist, o_ticks, A, R, H, K);
   return static_cast<int>(cudaGetLastError());
 }
 

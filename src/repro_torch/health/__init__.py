@@ -28,6 +28,8 @@ from typing import Dict
 import numpy as np
 import torch
 
+from repro_torch import resolve_device
+
 from repro_torch.health.attribution import attribution_scores
 from repro_torch.health.drift import (DriftState, drift_init,
                                       drift_reset_episode, drift_update)
@@ -110,7 +112,8 @@ class HealthState:
 
 
 def health_init(hcfg: HealthConfig, n_agents: int, n_actions: int,
-                device="cpu") -> HealthState:
+                device="cuda") -> HealthState:
+    device = resolve_device(device)
     zeros = lambda *s: torch.zeros((n_agents, *s), dtype=torch.float32,
                                    device=device)
     return HealthState(

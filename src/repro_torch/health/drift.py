@@ -24,6 +24,8 @@ from dataclasses import dataclass, fields
 import numpy as np
 import torch
 
+from repro_torch import resolve_device
+
 
 @dataclass
 class DriftState:
@@ -47,7 +49,8 @@ class DriftState:
     flag: torch.Tensor
 
 
-def drift_init(batch=(), device="cpu") -> DriftState:
+def drift_init(batch=(), device="cuda") -> DriftState:
+    device = resolve_device(device)
     return DriftState(**{f.name: torch.zeros(batch, dtype=torch.float32,
                                              device=device)
                          for f in fields(DriftState)})

@@ -28,6 +28,8 @@ from dataclasses import dataclass
 import numpy as np
 import torch
 
+from repro_torch import resolve_device
+
 
 def fma(x, y, z):
     """float32 ``x * y + z`` rounded once, as XLA's fused multiply-add: the
@@ -47,9 +49,10 @@ def _bin_scale(lo: float, hi: float, bins: int) -> float:
 # ---------------------------------------------------------------------------
 # Fixed-bin histogram sketch
 # ---------------------------------------------------------------------------
-def hist_init(bins: int, batch=(), device="cpu") -> torch.Tensor:
+def hist_init(bins: int, batch=(), device="cuda") -> torch.Tensor:
     """All-empty (*batch, bins) float32 count vector."""
-    return torch.zeros((*batch, bins), dtype=torch.float32, device=device)
+    return torch.zeros((*batch, bins), dtype=torch.float32,
+                       device=resolve_device(device))
 
 
 def bin_index(x: torch.Tensor, lo: float, hi: float, bins: int):
@@ -113,8 +116,8 @@ class P2State:
     count: torch.Tensor
 
 
-def p2_init(p: float, batch=(), device="cpu") -> P2State:
-    f32 = dict(dtype=torch.float32, device=device)
+def p2_init(p: float, batch=(), device="cuda") -> P2State:
+    f32 = dict(dtype=torch.float32, device=resolve_device(device))
     row = lambda v: torch.tensor(v, **f32).expand(*batch, 5).clone()
     return P2State(q=torch.full((*batch, 5), torch.inf, **f32),
                    n=row([0.0, 1.0, 2.0, 3.0, 4.0]),

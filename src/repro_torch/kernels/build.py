@@ -10,7 +10,8 @@ division, ``sqrtf``, ``expf`` and ``logf`` are IEEE-rounded), and for the
 kernels held bit for bit or within a float band against their plain
 versions (K1 ``diversity_insert``, K2 ``delta_codec``, K3 ``queue_advance``,
 K6 ``pack``) ``-fmad=false``, so that no ``a*b+c`` is contracted into an
-FMA the PyTorch reference does not perform. K4 ``flash_attention`` and K5
+FMA the PyTorch reference does not perform (and ``span_stamp``, which
+has no arithmetic to contract). K4 ``flash_attention`` and K5
 ``decode_attention`` are held within a tolerance and build without it, so
 their softmax rescaling contracts into FMAs. A build or load error raises.
 """
@@ -30,7 +31,7 @@ NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-O3",
               "-std=c++17", "-fmad=false", "-Xptxas", "-v", "-shared",
               "-Xcompiler", "-fPIC")
 KERNELS = ("diversity_insert", "delta_codec", "queue_advance",
-           "decode_attention", "flash_attention", "pack")
+           "decode_attention", "flash_attention", "pack", "span_stamp")
 CONTRACTED = ("decode_attention", "flash_attention")   # no -fmad=false
 
 _LIBS: Dict[str, ctypes.CDLL] = {}

@@ -29,6 +29,7 @@ import torch
 
 from repro_torch.kernels import build
 from repro_torch.kernels.ref import decode_attention_ref
+from repro_torch.obs.trace import traced_kernel
 
 HEAD_DIMS = (32, 64, 80, 128, 256)
 DTYPES = {torch.float32: 0, torch.bfloat16: 1}
@@ -63,6 +64,7 @@ def split_bounds(kv_len: int, n_split: int) -> list:
     return [(i * chunk, min(kv_len, (i + 1) * chunk)) for i in range(n_split)]
 
 
+@traced_kernel("decode_attention")
 def decode_attention(q, k_cache, v_cache, kv_len):
     """q (B, 1, Hq, D); k_cache, v_cache (B, S_max, Hkv, D); ``kv_len`` an
     int in [1, S_max]. Attention of the one query over cache slots

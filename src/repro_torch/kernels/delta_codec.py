@@ -30,6 +30,7 @@ import torch
 
 from repro_torch.kernels import build
 from repro_torch.kernels.ref import DELTA_CODECS, delta_codec_ref
+from repro_torch.obs.trace import traced_kernel
 
 MAX_LEAVES = 16      # leaves one launch takes (csrc/delta_codec.cu)
 _P, _I = ctypes.c_void_p, ctypes.c_int
@@ -42,6 +43,8 @@ def _check_codec(codec):
                          f"{DELTA_CODECS}")
 
 
+@traced_kernel("delta_codec",
+               lambda ds, *_, **__: ds[0].device if len(ds) else "cpu")
 def delta_codec_leaves(deltas: Sequence[torch.Tensor],
                        residuals: Sequence[torch.Tensor], *, codec: str,
                        ks: Sequence[int]
@@ -94,9 +97,6 @@ def delta_codec(delta, residual, *, codec: str, k: int = 1):
     """Error feedback + encode + decode of one leaf's (A, L) float32 rows.
     ``k`` is the top-k budget (topk codec). Returns (decoded,
     new_residual)."""
-    _check_codec(codec)
-    if delta.device.type == "cpu":
-        return delta_codec_ref(delta, residual, codec=codec, k=k)
     (dec,), (res,) = delta_codec_leaves([delta], [residual], codec=codec,
                                         ks=[k])
     return dec, res

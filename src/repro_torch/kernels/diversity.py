@@ -27,6 +27,7 @@ import torch
 
 from repro_torch.kernels import build
 from repro_torch.kernels.ref import diversity_insert_ref
+from repro_torch.obs.trace import traced_kernel
 
 _P, _I, _F = ctypes.c_void_p, ctypes.c_int, ctypes.c_float
 _ARGTYPES = [_P] * 21 + [_I] * 5 + [_F] * 3 + [_P]
@@ -43,6 +44,7 @@ def _check(x, name, shape, dtype):
         raise ValueError(f"diversity_insert: {name} must be contiguous")
 
 
+@traced_kernel("diversity_insert")
 def diversity_insert(states, probs, score, filled, s_sum, s_outer, p_sum,
                      n_filled, cand_states, cand_probs, *, alpha, beta,
                      ridge=0.1):

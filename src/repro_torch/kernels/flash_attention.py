@@ -27,11 +27,13 @@ import torch
 from repro_torch.kernels import build
 from repro_torch.kernels.decode_attention import DTYPES, HEAD_DIMS
 from repro_torch.kernels.ref import flash_attention_ref
+from repro_torch.obs.trace import traced_kernel
 
 _P, _I = ctypes.c_void_p, ctypes.c_int
 _ARGTYPES = [_P] * 4 + [_I] * 8 + [_P]
 
 
+@traced_kernel("flash_attention")
 def flash_attention(q, k, v, *, causal=True):
     """q (B, Sq, Hq, D); k, v (B, Sk, Hkv, D), one type (float32 or bf16).
     Returns (B, Sq, Hq, D) in that type; causal masking is aligned at

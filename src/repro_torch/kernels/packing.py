@@ -27,11 +27,13 @@ import torch
 
 from repro_torch.kernels import build
 from repro_torch.kernels.ref import pack_ref
+from repro_torch.obs.trace import traced_kernel
 
 _P, _I = ctypes.c_void_p, ctypes.c_int
 _ARGTYPES = [_P] * 3 + [_I] * 2 + [ctypes.c_longlong, _P]
 
 
+@traced_kernel("pack")
 def pack(tokens, indices):
     """tokens (T, D) of any type; indices (N,) int32, negative = padding.
     Returns (N, D) with out[i] = tokens[indices[i]] (an index past T - 1

@@ -8,7 +8,11 @@ both credits; none of them reads the ring) and writes each tick's schedule
 to shared memory, while the rings and histograms land by ``cp.async``;
 then each agent's warp takes its requests completed in the interval, each
 finding its completion tick and its arrival in the schedule, and rebuilds
-the ring from the last writer of each slot. Plain version:
+the ring from the last writer of each slot. ``record=True`` also returns
+the counters after every tick ((A, K, SIM_NCOUNTERS) int32, the request
+attribution's input): the kernel's recording instantiation writes them
+from the chains and a prefix of per-tick SLO counts; without it the
+unrecorded instantiation runs, the kernel of before. Plain version:
 ``kernels/ref.py::queue_advance_ref``; the two agree bit for bit.
 
 Precondition, met by every state the twin reaches from ``sim_init``:
@@ -17,7 +21,8 @@ head <= R, and credits, caps and arrivals >= 0.
 
 Bound on an H100 at R=512, H=64, K=20: 4,832 B per agent (each input read
 once, each output written once), 0.0115 µs at A=8 and 2.95 µs at A=2048 of
-HBM time (3.35 TB/s); the chain of K dependent ticks and the requests'
+HBM time (3.35 TB/s); recording writes 960 B more per agent (0.59 µs more
+at A=2048); the chain of K dependent ticks and the requests'
 searches of the schedule set the time.
 
 CPU tensors take the plain version; CUDA tensors launch the kernel (there
@@ -32,9 +37,10 @@ import torch
 from repro_torch.kernels import build
 from repro_torch.kernels.ref import (SIM_NCAPS, SIM_NCOUNTERS, check_ring,
                                      queue_advance_ref)
+from repro_torch.obs.trace import traced_kernel
 
 _P, _I = ctypes.c_void_p, ctypes.c_int
-_ARGTYPES = [_P] * 12 + [_I] * 4 + [_P]
+_ARGTYPES = [_P] * 13 + [_I] * 4 + [_P]
 # dynamic shared memory one block may take on sm_90 (227 KB)
 MAX_SMEM_BYTES = 232448
 AGENTS_PER_BLOCK = 8     # csrc/queue_advance.cu
@@ -51,19 +57,22 @@ def _check(x, name, shape, dtype, device):
         raise ValueError(f"queue_advance: {name} must be contiguous")
 
 
-def queue_advance(arrive, counters, credits, lat_sum, hist, arrivals, caps):
+@traced_kernel("queue_advance")
+def queue_advance(arrive, counters, credits, lat_sum, hist, arrivals, caps,
+                  record: bool = False):
     """Advance every agent's twin K microticks (the control interval).
 
     arrive (A, R) int32 with R a power of two, counters (A, SIM_NCOUNTERS)
     int32, credits (A, 2) float32, lat_sum (A,) float32, hist (A, H) int32,
     arrivals (A, K) int32, caps (A, SIM_NCAPS) float32. Returns new
-    (arrive, counters, credits, lat_sum, hist), as ``queue_advance_ref``;
-    the inputs are left as they were. The kernel assumes the twin's
-    invariant (module docstring): monotone counters with tail - head <= R,
-    and credits, caps and arrivals >= 0."""
+    (arrive, counters, credits, lat_sum, hist), as ``queue_advance_ref``,
+    and with ``record`` the counters after each tick, (A, K,
+    SIM_NCOUNTERS) int32, as a sixth; the inputs are left as they were.
+    The kernel assumes the twin's invariant (module docstring): monotone
+    counters with tail - head <= R, and credits, caps and arrivals >= 0."""
     if arrive.device.type == "cpu":
         return queue_advance_ref(arrive, counters, credits, lat_sum, hist,
-                                 arrivals, caps)
+                                 arrivals, caps, record=record)
     if arrive.device.type != "cuda" or arrive.dim() != 2:
         raise ValueError(f"queue_advance: arrive must be an (A, R) CUDA "
                          f"tensor, got {tuple(arrive.shape)} on "
@@ -95,11 +104,17 @@ def queue_advance(arrive, counters, credits, lat_sum, hist, arrivals, caps):
                          f"agent, more than the {MAX_SMEM_BYTES} B one block "
                          f"may take")
     outs = tuple(torch.empty_like(x) for x, *_ in ins[:5])
+    if record:   # its rows go out as 16-byte stores
+        outs += (torch.empty((a, k, SIM_NCOUNTERS), dtype=i32, device=dev),)
+        if outs[-1].data_ptr() % 16:
+            raise ValueError("queue_advance: the tick buffer is not 16-byte "
+                             "aligned")
     lib = build.load("queue_advance")
     fn = lib.queue_advance_launch
     fn.argtypes, fn.restype = _ARGTYPES, _I
     rc = fn(*(x.data_ptr() for x, *_ in ins), *(o.data_ptr() for o in outs),
-            a, ring, hist_n, k, torch.cuda.current_stream(dev).cuda_stream)
+            *(() if record else (None,)), a, ring, hist_n, k,
+            torch.cuda.current_stream(dev).cuda_stream)
     build.check(lib, "queue_advance", rc)
     queue_advance.launches += 1
     return outs

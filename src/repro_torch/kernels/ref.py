@@ -454,12 +454,19 @@ def sim_microtick(arrive, counters, credits, lat_sum, hist, n_arrive, caps):
 
 
 def queue_advance_ref(arrive, counters, credits, lat_sum, hist, arrivals,
-                      caps):
+                      caps, record: bool = False):
     """Plain version of the K3 ``queue_advance`` kernel: K microticks per
     agent, arrivals (A, K) int32 and one caps row (A, SIM_NCAPS) held for
     the whole control interval. Returns the new (arrive, counters, credits,
-    lat_sum, hist); the inputs are not modified."""
+    lat_sum, hist), and with ``record`` the counters after each microtick
+    stacked, (A, K, SIM_NCOUNTERS) int32, as a sixth; the inputs are not
+    modified."""
     state = (arrive, counters, credits, lat_sum, hist)
+    ticks = []
     for t in range(arrivals.shape[-1]):
         state = sim_microtick(*state, arrivals[:, t], caps)
-    return state
+        ticks.append(state[1])
+    if not record:
+        return state
+    return (*state, torch.stack(ticks, 1) if ticks else
+            counters.new_zeros((counters.shape[0], 0, SIM_NCOUNTERS)))

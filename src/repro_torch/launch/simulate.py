@@ -10,6 +10,11 @@ prints the fidelity gap. On the GPU (the default) each control interval is
 one K3 ``queue_advance`` launch for the fleet, inside the interval body's
 CUDA graph (captured once, replayed per interval); the warm-up training and
 the fluid comparison run through ``train_fleet``, the graph driver.
+``--attribution`` records the counters after every microtick (K3's
+recording instantiation on the card) and prints the per-request stage
+latency decomposition, with the conservation check against the twin's
+own counters; ``--trace-out`` (which implies it) writes the sampled
+request lifecycles as Chrome trace-event JSON.
 
 Examples:
   PYTHONPATH=src python -m repro_torch.launch.simulate
@@ -17,6 +22,8 @@ Examples:
       --scenario ood --train-episodes 40 --train-backend twin --compare-fluid
   PYTHONPATH=src python -m repro_torch.launch.simulate --device cpu \\
       --agents 4 --intervals 20
+  PYTHONPATH=src python -m repro_torch.launch.simulate --agents 4 \\
+      --intervals 30 --attribution --trace-out req.json
 """
 from __future__ import annotations
 
@@ -33,7 +40,10 @@ from repro_torch.core.crl import AgentState
 from repro_torch.core.fleet import fleet_init, train_fleet
 from repro_torch.data.workload import fleet_traces
 from repro_torch.kernels import build
+from repro_torch.obs import requests as obs_requests
+from repro_torch.obs.trace import Tracer
 from repro_torch.sim import SCENARIOS, SimParams, eval_fleet, make_scenario
+from repro_torch.sim.metrics import stage_breakdown_table
 
 ROWS = (("throughput", "req/s"), ("effective_throughput", "req/s"),
         ("mean_latency_s", "s"), ("p50_latency_s", "s"),
@@ -68,6 +78,17 @@ def main(argv=None):
                     help="latency histogram buckets (ticks)")
     ap.add_argument("--compare-fluid", action="store_true",
                     help="also evaluate on the fluid MDP and print the gap")
+    ap.add_argument("--attribution", action="store_true",
+                    help="record per-microtick counters and print the "
+                         "per-request stage latency decomposition (the "
+                         "recording K3 on the card)")
+    ap.add_argument("--attr-sample", type=int, default=16,
+                    help="keep every Nth request in the attribution "
+                         "records / Chrome trace")
+    ap.add_argument("--trace-out", metavar="PATH",
+                    help="write the sampled request lifecycles as Chrome "
+                         "trace-event JSON (open in Perfetto); implies "
+                         "--attribution")
     ap.add_argument("--seed", type=int, default=0)
     ap.add_argument("--device", choices=("cuda", "cpu"), default="cuda")
     args = ap.parse_args(argv)
@@ -77,6 +98,8 @@ def main(argv=None):
         ap.error("--ring must be a positive power of two")
     if args.k_ticks < 1 or args.hist < 2:
         ap.error("--k-ticks must be >= 1 and --hist >= 2")
+    if args.trace_out:
+        args.attribution = True
 
     dev = resolve_device(args.device)
     torch.backends.cuda.matmul.allow_tf32 = False
@@ -112,7 +135,8 @@ def main(argv=None):
     gen = torch.Generator(device=dev)
     gen.manual_seed(args.seed + 3)
     t0 = time.time()
-    _, _, summ = eval_fleet(cfg, sp, fleet, traces, generator=gen)
+    state, history, summ = eval_fleet(cfg, sp, fleet, traces, generator=gen,
+                                      record_ticks=args.attribution)
     summ = {k: v.cpu().numpy() for k, v in summ.items()}
     wall = time.time() - t0
     print(f"wall {wall:.3f}s ({wall / args.intervals * 1e3:.2f} ms per "
@@ -126,6 +150,25 @@ def main(argv=None):
     print(f"{'requests':24s}arrived={int(summ['arrived'].sum())} "
           f"completed={int(summ['completed'].sum())} "
           f"dropped={int(summ['dropped'].sum())}")
+
+    if args.attribution:
+        attr = obs_requests.attribute_run(history, state,
+                                          sample_every=args.attr_sample)
+        ok = [rep["ok"] for rep in attr["conservation"]]
+        bad = [i for i, good in enumerate(ok) if not good]
+        dec = obs_requests.stage_decomposition(attr["agents"], sp.dt)
+        print(f"\nrequest attribution ({len(attr['records'])} sampled "
+              f"records, 1/{args.attr_sample}; conservation "
+              f"{'FAILED for agents ' + str(bad) if bad else 'exact'})")
+        print(stage_breakdown_table(dec))
+        summ["conservation_ok"] = np.asarray(ok)
+        if args.trace_out:
+            with Tracer() as tr:
+                n = obs_requests.records_to_chrome(tr, attr["records"],
+                                                   sp.dt)
+                tr.export(args.trace_out)
+            print(f"wrote {n} request slices -> {args.trace_out} "
+                  f"(open in Perfetto / chrome://tracing)")
 
     if args.compare_fluid:
         hist = _fluid_eval(cfg, fleet, traces)

@@ -30,6 +30,14 @@ trailing scaling record; ``--alerts-out`` evaluates the alert rules over
 the stream into an alerts file. The flags, defaults and errors are the
 JAX CLI's.
 
+``--trace-out`` records the flight recorder's phase spans (episode,
+fl_round and its uplink / encode / aggregate / finetune phases, pod merge)
+on every ``--trace-sample``-th episode and writes them as Chrome
+trace-event JSON (open in Perfetto): under the graph driver on the card
+each span's ends are ``span_stamp`` nodes of the CUDA graphs, stamping
+the device's clock; under the reference driver and on the CPU they are
+host spans.
+
 ``--state-dtype {float32,bf16,lean}`` stores the fleet's state families
 narrower (``repro_torch.core.dtypes``); the math stays float32.
 ``--ckpt-dir`` + ``--ckpt-every`` write checkpoints in the JAX package's
@@ -79,6 +87,7 @@ from repro_torch.fl.transport import CODECS, TransportConfig
 from repro_torch.health import HealthConfig
 from repro_torch.health.alerts import AlertEngine
 from repro_torch.kernels import build
+from repro_torch.obs.trace import Tracer
 from repro_torch.resilience.faults import BYZANTINE_MODES, FaultConfig
 from repro_torch.resilience.guards import AGG_METHODS, GuardConfig
 from repro_torch.sim import SCENARIOS, SimParams, make_scenario
@@ -238,6 +247,15 @@ def main(argv=None):
                          "fl_payload_bytes, health_*, ...) to this JSONL "
                          "file while training runs; tail it live with "
                          "python -m repro_torch.launch.watch <file> --follow")
+    ap.add_argument("--trace-out", type=str, default=None,
+                    help="flight recorder: record phase spans (episode, "
+                         "fl_round uplink/encode/aggregate/finetune, pod "
+                         "merge) from inside the graphed run and write "
+                         "Chrome trace-event JSON here (open in Perfetto)")
+    ap.add_argument("--trace-sample", type=int, default=1,
+                    help="record spans only on every Nth episode (read "
+                         "from device memory by the span stamps: changing "
+                         "it never recaptures)")
     ap.add_argument("--env-backend", choices=BACKENDS, default="fluid",
                     help="environment the CRL episodes run in: the fluid "
                          "MDP or the request-level digital twin")
@@ -331,6 +349,8 @@ def main(argv=None):
                  "add --health")
     if args.health_bins != 16 and not args.health:
         ap.error("--health-bins only affects the observatory; add --health")
+    if args.trace_sample < 1:
+        ap.error("--trace-sample must be >= 1")
 
     dev = resolve_device(args.device)
     # full float32 on the card, as on the CPU (no TF32 rounding)
@@ -411,6 +431,10 @@ def main(argv=None):
         # without --metrics-out): each record is forwarded and evaluated
         engine = AlertEngine(args.alerts_out, forward=sink)
         kw["metrics_sink"] = engine
+    tracer = None
+    if args.trace_out:
+        tracer = Tracer(span_sample_every=args.trace_sample)
+        kw["tracer"] = tracer
     t0 = time.time()
     try:
         if args.driver == "scan":
@@ -445,6 +469,12 @@ def main(argv=None):
             engine.close()              # closes the forwarded sink too
         elif sink is not None:
             sink.close()
+        if tracer is not None:
+            tracer.export(args.trace_out)
+            print(f"flight recorder: "
+                  f"{len(tracer.chrome_events())} span events -> "
+                  f"{args.trace_out} (open in Perfetto)")
+            tracer.close()
 
     n_run = len(hist["reward"])
     k = max(n_run // 10, 1)

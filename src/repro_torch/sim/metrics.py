@@ -2,7 +2,8 @@
 drops, and latency percentiles from the on-device histogram.
 
 Port of ``repro.sim.metrics`` (``hist_percentile``, ``summarize``,
-``warn_if_censored``), batched over the fleet.
+``stage_breakdown_table``, ``warn_if_censored``), batched over the
+fleet.
 """
 from __future__ import annotations
 
@@ -56,6 +57,23 @@ def summarize(state: SimState, sp: SimParams) -> dict:
         "effective": state.effective,
         "in_flight": state.in_flight,
     }
+
+
+def stage_breakdown_table(decomposition: dict) -> str:
+    """Render a per-stage latency decomposition (the dict
+    ``repro_torch.obs.requests.stage_decomposition`` returns: stage ->
+    {mean_s, p50_s, p99_s, p99_tail_mean_s}) as an aligned table — the
+    "where does the tail go" block ``launch/simulate.py --attribution``
+    prints. The JAX package's text."""
+    lines = [f"{'stage':12s}{'mean':>10s}{'p50':>10s}{'p99':>10s}"
+             f"{'p99-tail':>10s}"]
+    for stage, row in decomposition.items():
+        lines.append(
+            f"{stage:12s}"
+            f"{row['mean_s'] * 1e3:9.1f}ms{row['p50_s'] * 1e3:9.1f}ms"
+            f"{row['p99_s'] * 1e3:9.1f}ms"
+            f"{row['p99_tail_mean_s'] * 1e3:9.1f}ms")
+    return "\n".join(lines)
 
 
 def warn_if_censored(summary: dict, sp: SimParams,

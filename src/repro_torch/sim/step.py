@@ -1,8 +1,11 @@
 """Interval advance: the twin's data plane for one K-microtick interval.
 
-Port of ``repro.sim.step.sim_interval``. One call advances the whole fleet
-one control interval through ``kernels.queue_advance``: one K3 launch for
-CUDA tensors, its plain version (``queue_advance_ref``) for CPU tensors.
+Port of ``repro.sim.step.sim_interval`` and ``sim_interval_recorded``.
+One call advances the whole fleet one control interval through
+``kernels.queue_advance``: one K3 launch for CUDA tensors, its plain
+version (``queue_advance_ref``) for CPU tensors. The recorded advance is
+K3's recording instantiation on the card (the JAX package records on its
+jnp path only; the port's card has one data plane, K3).
 """
 from __future__ import annotations
 
@@ -18,3 +21,16 @@ def sim_interval(state: SimState, arrivals: torch.Tensor,
     caps (A, SIM_NCAPS) float32 (one action decode held for the
     interval). Returns the new state; ``state`` is left as it was."""
     return SimState(*queue_advance(*state.tensors(), arrivals, caps))
+
+
+def sim_interval_recorded(state: SimState, arrivals: torch.Tensor,
+                          caps: torch.Tensor):
+    """``sim_interval`` that also returns the counters after every
+    microtick, (A, K, SIM_NCOUNTERS) int32 — the request-attribution tap
+    (``repro_torch.obs.requests`` rebuilds per-request stage stamps from
+    these monotone series). The state it returns is ``sim_interval``'s bit
+    for bit. Fleet-batched: the reference's single-agent function under
+    ``vmap``."""
+    *out, ticks = queue_advance(*state.tensors(), arrivals, caps,
+                                record=True)
+    return SimState(*out), ticks

@@ -15,7 +15,10 @@ the generators' states equal), and a run resumed from a checkpoint is the
 straight run bit for bit. With the health observatory and a metrics sink
 the graph driver is the reference driver bit for bit (streamed records
 included), and a health run on the card stays within rtol 1e-3 / atol
-1e-4 of the same run on the CPU.
+1e-4 of the same run on the CPU. The span stamp writes its plain
+version's slots, the recording K3 equals its plain version bit for bit
+(unrecorded results unchanged), and a traced graph run is the untraced
+run bit for bit.
 """
 import os
 import subprocess
@@ -1046,3 +1049,121 @@ def test_health_card_run_matches_cpu_run(cuda_device, backend):
                                           st_c["health"][k], err_msg=k)
         np.testing.assert_array_equal(st_k["health"]["reward_p2"]["n"],
                                       st_c["health"]["reward_p2"]["n"])
+
+
+# ---------------------------------------------------------------------------
+# The flight recorder: span stamps, the recording K3, traced graph runs
+# ---------------------------------------------------------------------------
+@pytest.mark.cuda
+@pytest.mark.parametrize("every,base,delta", [(1, 0, 0), (2, 0, -1),
+                                              (3, 5, 0)])
+def test_span_stamp_writes_the_plain_versions_slots(cuda_device, every, base,
+                                                    delta):
+    from repro_torch.kernels.span_stamp import span_stamp, span_stamp_ref
+    i64 = dict(dtype=torch.int64, device=cuda_device)
+    got, want = torch.zeros((8, 2), **i64), torch.zeros((8, 2), **i64)
+    period, clock = torch.tensor(every, **i64), torch.ones((), **i64)
+    before = span_stamp.launches
+    for e in range(20):
+        ep = torch.tensor(e, **i64)
+        span_stamp(got, ep, period, 0, delta=delta, base=base)
+        span_stamp_ref(want, ep, period, 0, delta=delta, base=base,
+                       clock=clock)
+    torch.cuda.synchronize()
+    assert span_stamp.launches - before == 20
+    assert torch.equal(got != 0, want != 0)
+    vals = got[:, 0][got[:, 0] != 0]
+    assert bool((vals.diff() > 0).all())
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("a", [8, 2048])
+def test_recording_k3_matches_plain_on_the_card(cuda_device, a):
+    from repro_torch.sim.state import SimParams, sim_init
+    sp = SimParams()
+    g = torch.Generator(device=cuda_device).manual_seed(a)
+    st = sim_init(sp, a, cuda_device).tensors()
+    u = lambda lo, hi: lo + (hi - lo) * torch.rand(a, generator=g,
+                                                   device=cuda_device)
+    for _ in range(8):
+        arrivals = torch.randint(0, 6, (a, sp.k_ticks), generator=g,
+                                 device=cuda_device, dtype=torch.int32)
+        caps = torch.stack([u(0.2, 4.0), u(0.2, 4.0), u(1, 7).floor(),
+                            u(1, 7).floor(), u(2, 13).floor(),
+                            u(1, 15).floor()], 1)
+        rec_k = queue_advance(*st, arrivals, caps, record=True)
+        rec_p = queue_advance_ref(*st, arrivals, caps, record=True)
+        plain_k = queue_advance(*st, arrivals, caps)
+        torch.cuda.synchronize()
+        for x, y in zip(rec_k, rec_p):
+            assert torch.equal(x, y)
+        for x, y in zip(plain_k, rec_k):
+            assert torch.equal(x, y)
+        st = plain_k
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("backend", ["fluid", "twin"])
+def test_traced_graph_run_is_the_untraced_run(cuda_device, backend):
+    """The graph driver traced (stamp nodes in its graphs) and untraced:
+    the same history bit for bit at sampling 1 and 2; the same stamp
+    launches at either sampling; the spans of the sampled episodes."""
+    from collections import Counter
+    from repro_torch.core.fleet import fleet_init, train_fleet_scan
+    from repro_torch.fl.transport import TransportConfig
+    from repro_torch.kernels.span_stamp import span_stamp
+    from repro_torch.obs.trace import Tracer, validate_chrome_trace
+    cfg = FCPOConfig(fl_every=1)
+    traces = torch.as_tensor(np.random.default_rng(0).uniform(
+        10, 50, (8, 6 * cfg.n_steps)).astype(np.float32), device=cuda_device)
+    runs, launches = [], []
+    for every in (None, 1, 2):
+        tr = None if every is None else Tracer(span_sample_every=every)
+        before = span_stamp.launches
+        _, hist = train_fleet_scan(
+            cfg, fleet_init(cfg, 8, 0, n_pods=2, device=cuda_device,
+                            env_backend=backend), traces,
+            env_backend=backend, transport=TransportConfig(codec="int8"),
+            tracer=tr)
+        launches.append(span_stamp.launches - before)
+        runs.append(hist)
+        if tr is not None:
+            trace = tr.chrome_trace()
+            assert validate_chrome_trace(trace) == []
+            counts = Counter(e["name"] for e in trace["traceEvents"]
+                             if e["ph"] == "X")
+            assert counts["episode"] == 6 // every
+            assert counts["kernel/delta_codec"] == counts["fl/encode"] == \
+                6 // every
+    for hist in runs[1:]:
+        for k, v in runs[0].items():
+            np.testing.assert_array_equal(hist[k], v, err_msg=k)
+    assert launches[0] == 0 and launches[1] == launches[2] > 0
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("every", [1, 2])
+def test_top_level_kernel_span_on_the_card(cuda_device, every):
+    """Under an active ``kernel_spans`` tracer every kernel called at the
+    top level gets its own span, named after it, whatever the tracer's
+    episode sampling; the results are the untraced calls'."""
+    from repro_torch.kernels.packing import pack
+    from repro_torch.obs.trace import Tracer, activate
+    tok = torch.randn((64, 128), device=cuda_device)
+    idx = torch.tensor([0, 63, -1, 5, 5, -1, 17, 2], dtype=torch.int32,
+                       device=cuda_device)
+    d = torch.randn((4, 96), device=cuda_device)
+    r = torch.zeros_like(d)
+    base = pack(tok, idx), delta_codec(d, r, codec="int8")
+    with Tracer(span_sample_every=every, kernel_spans=True) as tr, \
+            activate(tr):
+        out = [(pack(tok, idx), delta_codec(d, r, codec="int8"))
+               for _ in range(3)]
+    ev = tr.chrome_events()
+    assert [e["name"] for e in ev] == \
+        ["kernel/pack", "kernel/delta_codec"] * 3
+    assert all(e["ph"] == "X" and e["cat"] == "kernel" for e in ev)
+    assert all(a["ts"] + a["dur"] <= b["ts"] for a, b in zip(ev, ev[1:]))
+    for o in out:
+        assert torch.equal(o[0], base[0])
+        assert all(torch.equal(x, y) for x, y in zip(o[1], base[1]))

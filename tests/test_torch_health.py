@@ -100,7 +100,7 @@ def test_histogram_matches_jax(bins, lo, hi):
                                 np.nextafter(edges, -np.inf)]), (6, 1))], 1)
     upd = jax.jit(jax.vmap(lambda c, x: jsk.hist_update_batch(c, x, lo, hi)))
     want = upd(jnp.zeros((6, bins)), J(xs))
-    got = tsk.hist_update_batch(tsk.hist_init(bins, (6,)), T(xs), lo, hi)
+    got = tsk.hist_update_batch(tsk.hist_init(bins, (6,), "cpu"), T(xs), lo, hi)
     exact(got, want)
     for p in (0.1, 0.5, 0.9):
         q = jax.jit(jax.vmap(lambda c: jsk.hist_quantile(c, p, lo, hi)))
@@ -109,7 +109,7 @@ def test_histogram_matches_jax(bins, lo, hi):
     exact(tsk.hist_update(got[0], T(xs[0, 5]), lo, hi),
           one(want[0], J(xs[0, 5])))
     exact(tsk.hist_merge(got), jsk.hist_merge(want))
-    empty = tsk.hist_quantile(tsk.hist_init(bins, (2,)), 0.5, lo, hi)
+    empty = tsk.hist_quantile(tsk.hist_init(bins, (2,), "cpu"), 0.5, lo, hi)
     exact(empty, np.full(2, lo, np.float32))
 
 
@@ -123,7 +123,7 @@ def test_p2_matches_jax():
     step = jax.jit(jax.vmap(lambda s, x: jsk.p2_update(s, x, 0.5)))
     val = jax.jit(jax.vmap(jsk.p2_value))
     js = jax.vmap(lambda _: jsk.p2_init(0.5))(jnp.arange(6))
-    ts = tsk.p2_init(0.5, (6,))
+    ts = tsk.p2_init(0.5, (6,), "cpu")
     for t in range(30):
         js, ts = step(js, J(xs[t])), tsk.p2_update(ts, T(xs[t]), 0.5)
         exact(ts.n, js.n, f"n{t}")
@@ -137,7 +137,7 @@ def drift_run(xs, dk):
     """JAX's and the port's detector over the (steps, B) stream ``xs``."""
     upd = jax.jit(jax.vmap(lambda s, x: jdrift.drift_update(s, x, **dk)))
     js = jax.vmap(lambda _: jdrift.drift_init())(jnp.arange(xs.shape[1]))
-    ts = tdrift.drift_init((xs.shape[1],))
+    ts = tdrift.drift_init((xs.shape[1],), "cpu")
     out = []
     for t, x in enumerate(xs):
         if t % 10 == 0:
@@ -277,7 +277,7 @@ def test_update_episode_and_summaries_match_jax(bins, stride):
     upd = jax.jit(lambda s, *x: jh.update_episode(jc, s, *x))
     summ = jax.jit(lambda s: jh.episode_summaries(jc, s))
     rnd = jax.jit(lambda s, x, m: jh.update_round(jc, s, x, m))
-    js, ts = jh.health_init(jc, a, k), th.health_init(tc, a, k)
+    js, ts = jh.health_init(jc, a, k), th.health_init(tc, a, k, "cpu")
     alarms = 0
     for e in range(12):
         tele = telemetry(rng, a, t, k)
@@ -311,7 +311,7 @@ def test_update_episode_and_summaries_match_jax(bins, stride):
 
 def test_update_episode_rejects_an_indivisible_stride():
     tc = th.HealthConfig(stride=3)
-    st = th.health_init(tc, 2, 15)
+    st = th.health_init(tc, 2, 15, "cpu")
     x = torch.zeros(2, 10)
     with pytest.raises(ValueError, match="not a multiple of HealthConfig"):
         th.update_episode(tc, st, x, x, torch.zeros(2, 10, 15), x)

@@ -25,13 +25,16 @@ def test_importing_every_module_pulls_in_no_jax_and_no_repro():
         "bad = sorted(k for k in sys.modules if k == 'jax' or "
         "k.startswith(('jax.', 'jaxlib', 'ml_dtypes')) or k == 'repro' or "
         "k.startswith('repro.'))\n"
-        "assert len(mods) >= 57, mods\n"
+        "assert len(mods) >= 62, mods\n"
         "assert {'repro_torch.core.dtypes', 'repro_torch.training', "
         "'repro_torch.training.checkpoint', 'repro_torch.eval', "
         "'repro_torch.eval.stream', 'repro_torch.eval.leaderboard', "
         "'repro_torch.launch.watch', 'repro_torch.health', "
         "'repro_torch.health.sketch', 'repro_torch.health.drift', "
-        "'repro_torch.health.attribution', 'repro_torch.health.alerts'} "
+        "'repro_torch.health.attribution', 'repro_torch.health.alerts', "
+        "'repro_torch.obs', 'repro_torch.obs.trace', "
+        "'repro_torch.obs.requests', 'repro_torch.obs.profile', "
+        "'repro_torch.kernels.span_stamp'} "
         "<= set(mods), mods\n"
         "assert not bad, bad\n"
         "print(len(mods))\n")

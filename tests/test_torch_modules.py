@@ -115,6 +115,23 @@ def test_entry_points_default_to_cuda_and_raise_without_it():
         fleet_init(TCfg(), 2)
     with pytest.raises(RuntimeError, match="CUDA"):
         train_fleet.main(["--episodes", "1"])
+    # the health layer's constructors, and the flight recorder's entry
+    # points: the CLIs' --trace-out / --attribution and the profile layer
+    from repro_torch.health import HealthConfig, health_init
+    from repro_torch.health.drift import drift_init
+    from repro_torch.health.sketch import hist_init, p2_init
+    from repro_torch.launch import simulate
+    from repro_torch.obs.profile import fleet_memory_report
+    for call in (lambda: health_init(HealthConfig(), 2, 15),
+                 lambda: hist_init(16, (2,)), lambda: p2_init(0.5, (2,)),
+                 lambda: drift_init((2,)),
+                 lambda: train_fleet.main(["--episodes", "1", "--trace-out",
+                                           "unused.json"]),
+                 lambda: simulate.main(["--intervals", "2",
+                                        "--attribution"]),
+                 lambda: fleet_memory_report(TCfg(), 2, n_pods=1)):
+        with pytest.raises(RuntimeError, match="CUDA"):
+            call()
 
 
 # ---------------------------------------------------------------------------

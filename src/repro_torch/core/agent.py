@@ -14,7 +14,12 @@ friends) is functional over a ``{name: tensor}`` mapping, so the optimizer,
 Algorithm 1 and the codec work on plain dicts; the module is the container.
 
 Heterogeneous action spaces are per-agent boolean masks; masked logits are
-set to -1e30. The single-head ablation (Fig. 12) is not ported yet.
+set to -1e30. The single-head ablation (Fig. 12, ``cfg.single_head``) has
+one joint head ``head_res`` over n_res·n_bs·n_mt actions and no
+``head_bs`` / ``head_mt``; its forward returns the three marginals (so the
+buffer, the losses and Algorithm 1 see the same interface) plus
+``"joint"``, and one Gumbel-max draw over the joint picks all three
+actions (``noise_width``).
 """
 from __future__ import annotations
 
@@ -62,9 +67,6 @@ class AgentPolicy(nn.Module):
 
     def __init__(self, cfg: FCPOConfig, n: int, device="cuda"):
         super().__init__()
-        if cfg.single_head:
-            raise NotImplementedError("the single-head ablation is not "
-                                      "ported to repro_torch yet")
         dev = resolve_device(device)
         hd = cfg.hidden_dim * cfg.hidden_scale
         fd = cfg.feat_dim * cfg.hidden_scale
@@ -72,6 +74,10 @@ class AgentPolicy(nn.Module):
             "l1": StackedLinear(n, cfg.state_dim, hd, dev),
             "l2": StackedLinear(n, hd, fd, dev)})
         self.value = StackedLinear(n, fd, 1, dev)
+        if cfg.single_head:     # Fig. 12: one joint head, JAX's name for it
+            self.head_res = StackedLinear(
+                n, fd, cfg.n_res * cfg.n_bs * cfg.n_mt, dev)
+            return
         self.head_res = StackedLinear(n, fd, cfg.n_res, dev)
         self.head_bs = StackedLinear(n, fd + cfg.n_res, cfg.n_bs, dev)
         self.head_mt = StackedLinear(n, fd + cfg.n_res, cfg.n_mt, dev)
@@ -168,11 +174,29 @@ def _masked(mask, logits):
     return torch.where(m, logits, -1e30)
 
 
+def joint_mask(mask: ActionMask) -> torch.Tensor:
+    """(A, n_res·n_bs·n_mt) bool: the joint action allowed iff each of its
+    three parts is."""
+    m = (mask.res[:, :, None, None] & mask.bs[:, None, :, None]
+         & mask.mt[:, None, None, :])
+    return m.reshape(m.shape[0], -1)
+
+
 def agent_forward(cfg: FCPOConfig, params, state, mask: ActionMask):
-    """state: (A, ..., 8) -> dict of masked log-probs per head + value."""
+    """state: (A, ..., 8) -> dict of masked log-probs per head + value
+    (single head: the marginals of the joint, and ``"joint"``)."""
     h = torch.relu(_linear(params, "backbone.l1", state))
     feat = torch.relu(_linear(params, "backbone.l2", h))
     value = _linear(params, "value", feat)[..., 0]
+
+    if cfg.single_head:
+        logits = _masked(joint_mask(mask), _linear(params, "head_res", feat))
+        logp = torch.log_softmax(logits, dim=-1)
+        lp = logp.reshape(logp.shape[:-1] + (cfg.n_res, cfg.n_bs, cfg.n_mt))
+        return {"res": torch.logsumexp(lp, dim=(-2, -1)),
+                "bs": torch.logsumexp(lp, dim=(-3, -1)),
+                "mt": torch.logsumexp(lp, dim=(-3, -2)),
+                "joint": logp, "value": value}
 
     res_logits = _masked(mask.res, _linear(params, "head_res", feat))
     res_probs = torch.softmax(res_logits, dim=-1)
@@ -186,6 +210,14 @@ def agent_forward(cfg: FCPOConfig, params, state, mask: ActionMask):
         "mt": torch.log_softmax(mt_logits, dim=-1),
         "value": value,
     }
+
+
+def noise_width(cfg: FCPOConfig) -> int:
+    """Gumbel values one action draw takes: n_res+n_bs+n_mt (one per
+    option of each head), or n_res·n_bs·n_mt for the single joint head."""
+    if cfg.single_head:
+        return cfg.n_res * cfg.n_bs * cfg.n_mt
+    return cfg.n_res + cfg.n_bs + cfg.n_mt
 
 
 def sample_gumbel(shape, generator: torch.Generator) -> torch.Tensor:
@@ -202,13 +234,21 @@ def sample_actions(cfg: FCPOConfig, params, state, mask: ActionMask,
                    gumbel=None, generator=None):
     """Sample (res, bs, mt) per agent by Gumbel-max: ``argmax(logp + g)``.
 
-    ``gumbel`` ((A, n_res+n_bs+n_mt)) is pre-drawn noise; without it the
-    noise is drawn from ``generator``. Returns (actions (A, 3) long,
-    logp (A,), out-dict)."""
+    ``gumbel`` ((A, ``noise_width(cfg)``)) is pre-drawn noise; without it
+    the noise is drawn from ``generator``. The single head draws one joint
+    action and decodes it. Returns (actions (A, 3) long, logp (A,),
+    out-dict)."""
     out = agent_forward(cfg, params, state, mask)
     if gumbel is None:
-        gumbel = sample_gumbel(state.shape[:-1] + (cfg.n_res + cfg.n_bs
-                                                   + cfg.n_mt,), generator)
+        gumbel = sample_gumbel(state.shape[:-1] + (noise_width(cfg),),
+                               generator)
+    if cfg.single_head:
+        aj = torch.argmax(gumbel + out["joint"], dim=-1)
+        nbm = cfg.n_bs * cfg.n_mt
+        actions = torch.stack([torch.div(aj, nbm, rounding_mode="floor"),
+                               torch.div(aj, cfg.n_mt, rounding_mode="floor")
+                               % cfg.n_bs, aj % cfg.n_mt], dim=-1)
+        return actions, _take(out["joint"], aj), out
     g_res, g_bs, g_mt = torch.split(gumbel, [cfg.n_res, cfg.n_bs, cfg.n_mt],
                                     dim=-1)
     a = [torch.argmax(g + out[h], dim=-1)
@@ -223,8 +263,13 @@ def action_logp(cfg: FCPOConfig, params, state, actions, mask: ActionMask):
     value and the concatenated policy distribution."""
     out = agent_forward(cfg, params, state, mask)
     actions = actions.long()
-    logp = (_take(out["res"], actions[..., 0]) + _take(out["bs"], actions[..., 1])
-            + _take(out["mt"], actions[..., 2]))
+    if cfg.single_head:
+        logp = _take(out["joint"], actions[..., 0] * (cfg.n_bs * cfg.n_mt)
+                     + actions[..., 1] * cfg.n_mt + actions[..., 2])
+    else:
+        logp = (_take(out["res"], actions[..., 0])
+                + _take(out["bs"], actions[..., 1])
+                + _take(out["mt"], actions[..., 2]))
     probs = torch.cat([out["res"].exp(), out["bs"].exp(), out["mt"].exp()],
                       dim=-1)
     return logp, out["value"], probs

@@ -6,12 +6,22 @@ states plus the KL divergence of its policy from the buffer's mean policy.
 N fixed slots per agent; a new experience replaces the lowest-diversity
 slot iff it scores higher (until the buffer is full, it always inserts).
 
-The buffer carries running sufficient statistics (state sum, outer-product
-sum, probs sum, filled count), rank-1 updated on every insert/evict, so
-Eq. 6 is O(D²) per candidate. ``buffer_insert_batch`` ingests a whole
-episode through the K1 ``diversity_insert`` kernel for CUDA tensors and
-its plain version for CPU tensors, then scatters the non-scored payload by
-last writer per slot.
+Two scoring engines share those eviction semantics:
+
+  * **Streaming moments** (``buffer_insert_batch`` / ``buffer_insert``):
+    the buffer carries running sufficient statistics (state sum,
+    outer-product sum, probs sum, filled count), rank-1 updated on every
+    insert/evict, so Eq. 6 is O(D²) per candidate. A batch of T
+    candidates per agent goes through the K1 ``diversity_insert`` kernel
+    for CUDA tensors (``buffer_insert``: T=1) and its plain version for
+    CPU tensors; the non-scored payload is then scattered by last writer
+    per slot.
+  * **Recompute oracle** (``buffer_insert_reference``, with
+    ``diversity``, ``mahalanobis`` and ``kl_divergence``): one candidate
+    per agent, the covariance rebuilt from the N stored slots and solved
+    densely (``torch.linalg.solve``, an LU solve as the reference's
+    ``jnp.linalg.solve``). Its decisions equal the streaming engine's
+    except at near-ties (ROADMAP queue 3).
 
 Storage dtypes (``core/dtypes.py``, the policy's ``buffer`` family): the
 payload may be stored bf16, or int8 states/probs at fixed scales with bf16
@@ -121,6 +131,98 @@ def buffer_cast(buf: DiversityBuffer, dtype: str) -> DiversityBuffer:
     raise ValueError(f"unknown buffer storage dtype {dtype!r}")
 
 
+def mahalanobis(state, states, filled):
+    """Recompute-oracle D_M per agent: ``state`` (A, D) against the filled
+    subset of ``states`` (A, N, D) (``filled`` (A, N)), with a regularized
+    covariance (ε·I keeps it defined before the buffer fills). (A,)."""
+    w = filled.to(torch.float32)[..., None]
+    n = torch.clamp_min(w.sum(1), 1.0)                        # (A, 1)
+    mu = (states * w).sum(1) / n
+    diff_all = (states - mu[:, None]) * w
+    eye = torch.eye(state.shape[-1], device=state.device)
+    cov = diff_all.transpose(1, 2) @ diff_all / n[..., None] + RIDGE * eye
+    diff = state - mu
+    sol = torch.linalg.solve(cov, diff)
+    return torch.sqrt(torch.clamp_min((diff * sol).sum(-1), 0.0))
+
+
+def kl_divergence(p, q, eps=1e-8):
+    p = torch.clamp(p, eps, 1.0)
+    q = torch.clamp(q, eps, 1.0)
+    return (p * torch.log(p / q)).sum(-1)
+
+
+def diversity(cfg: FCPOConfig, buf: DiversityBuffer, state, probs):
+    """Eq. 6 per agent for one candidate each (``state`` (A, D), ``probs``
+    (A, NA)), recompute oracle: the covariance and the mean policy rebuilt
+    from the N stored slots (read up to float32). (A,)."""
+    buf = _payload_f32(buf)
+    d_m = mahalanobis(state, buf.states, buf.filled)
+    w = buf.filled.to(torch.float32)
+    cnt = w.sum(-1)
+    mean_probs = ((buf.probs * w[..., None]).sum(1)
+                  / torch.clamp_min(cnt, 1.0)[:, None])
+    mean_probs = torch.where((cnt > 0)[:, None], mean_probs, probs)
+    return cfg.alpha * d_m + cfg.beta * kl_divergence(probs, mean_probs)
+
+
+def buffer_insert(cfg: FCPOConfig, buf: DiversityBuffer, state, action,
+                  logp, reward, value, probs) -> DiversityBuffer:
+    """Streaming-moment insert of one candidate per agent (``state`` (A,
+    D), ``action`` (A, 3), ``logp`` / ``reward`` / ``value`` (A,),
+    ``probs`` (A, NA)): ``buffer_insert_batch`` at T=1, one K1 launch for
+    CUDA tensors."""
+    return buffer_insert_batch(cfg, buf, *(x[:, None] for x in (
+        state, action, logp, reward, value, probs)))
+
+
+def buffer_insert_reference(cfg: FCPOConfig, buf: DiversityBuffer, state,
+                            action, logp, reward, value, probs
+                            ) -> DiversityBuffer:
+    """The recompute-everything insert (the equivalence oracle) of one
+    candidate per agent, arguments as ``buffer_insert``'s: Eq. 6 from
+    ``diversity``, then the first empty slot, else the min-score slot iff
+    the candidate scores higher. Keeps the streaming moments too, so that
+    its buffers stay valid inputs of the streaming engine."""
+    stored, buf = buf, _payload_f32(buf)
+    state, probs = state.float(), probs.float()
+    d = diversity(cfg, buf, state, probs)
+    ar = torch.arange(d.shape[0], device=d.device)
+    has_empty = ~buf.filled.all(-1)
+    empty_idx = torch.argmin(buf.filled.to(torch.int32), dim=-1)
+    min_idx = torch.argmin(torch.where(buf.filled, buf.score, torch.inf),
+                           dim=-1)
+    idx = torch.where(has_empty, empty_idx, min_idx)
+    do = has_empty | (d > buf.score[ar, min_idx])
+
+    old_s, old_p = buf.states[ar, idx], buf.probs[ar, idx]
+    evict = do & buf.filled[ar, idx]
+    add = do.to(torch.float32)[:, None]
+    sub = evict.to(torch.float32)[:, None]
+    outer = lambda x: x[:, :, None] * x[:, None, :]
+
+    def set_at(arr, val):
+        out = arr.clone()
+        cur = arr[ar, idx]
+        m = do.reshape((-1,) + (1,) * (cur.dim() - 1))
+        out[ar, idx] = torch.where(m, val.to(arr.dtype), cur)
+        return out
+
+    return _payload_like(buf.replace(
+        states=set_at(buf.states, state), probs=set_at(buf.probs, probs),
+        score=set_at(buf.score, d),
+        filled=set_at(buf.filled, torch.ones_like(do)),
+        s_sum=buf.s_sum + add * state - sub * old_s,
+        s_outer=(buf.s_outer + add[..., None] * outer(state)
+                 - sub[..., None] * outer(old_s)),
+        p_sum=buf.p_sum + add * probs - sub * old_p,
+        n_filled=(buf.n_filled + do.to(buf.n_filled.dtype)
+                  - evict.to(buf.n_filled.dtype)),
+        actions=set_at(buf.actions, action.long()),
+        logp=set_at(buf.logp, logp), rewards=set_at(buf.rewards, reward),
+        values=set_at(buf.values, value), count=buf.count + 1), stored)
+
+
 def buffer_insert_batch(cfg: FCPOConfig, buf: DiversityBuffer, states,
                         actions, logp, rewards, values, probs
                         ) -> DiversityBuffer:
@@ -190,3 +292,12 @@ def buffer_clear(buf: DiversityBuffer) -> DiversityBuffer:
                        s_outer=torch.zeros_like(buf.s_outer),
                        p_sum=torch.zeros_like(buf.p_sum),
                        n_filled=torch.zeros_like(buf.n_filled))
+
+
+def buffer_memory_bytes(cfg: FCPOConfig) -> int:
+    """Bytes of one agent's float32 buffer, from shapes and dtypes (built
+    on the ``meta`` device: nothing is allocated). The port stores
+    ``actions`` int64, 12·N bytes more than the reference's int32."""
+    buf = buffer_init(cfg, 1, device="meta")
+    return sum(x.numel() * x.element_size()
+               for x in (getattr(buf, f.name) for f in fields(buf)))

@@ -47,6 +47,30 @@ def default_env_params(speed, slo_s=0.25, device="cuda") -> EnvParams:
         queue_cap=full(128.0), slo_s=full(slo_s), net_lat=full(0.015))
 
 
+# NVIDIA H100 SXM data sheet (dense, 700 W): 989 TFLOP/s bf16, 3.35 TB/s HBM3
+H100_BF16_FLOPS = 989e12
+H100_HBM_BYTES_PER_S = 3.35e12
+# the fixed cost of one serving step beyond streaming its weights: the
+# device time of a full-width qwen2-0.5b decode step at B=8 (chip_smoke.py
+# [generate]: 4.675 ms) less its weight-streaming term (1.976 GB of
+# float32 parameters at 3.35 TB/s: 0.590 ms), on an NVIDIA H100 80GB HBM3
+# at a 700 W power limit
+DECODE_OVERHEAD_S = 4.085e-3
+
+
+class LatencyModel:
+    """Calibrate (t0, t1) from roofline terms of a serving step."""
+
+    @staticmethod
+    def from_roofline(flops_per_item: float, bytes_per_step: float,
+                      peak_flops: float = H100_BF16_FLOPS,
+                      hbm_bw: float = H100_HBM_BYTES_PER_S,
+                      overhead_s: float = DECODE_OVERHEAD_S) -> tuple:
+        t0 = bytes_per_step / hbm_bw + overhead_s   # weight-streaming floor
+        t1 = flops_per_item / peak_flops            # compute per request
+        return t0, t1
+
+
 @dataclass
 class EnvState:
     pre_q: torch.Tensor        # (A,) requests waiting for pre-processing

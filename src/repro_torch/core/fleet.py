@@ -166,14 +166,18 @@ def _assemble(cfg, policy, opt, buffer, env_state, base, env_params, masks,
 
 
 def fleet_init(cfg: FCPOConfig, n_agents: int, seed: int = 0, *,
-               n_pods: int = 1, device="cuda", env_backend=None,
+               n_pods: int = 1, masks: Optional[ActionMask] = None,
+               speeds=None, bandwidth=None, device="cuda", env_backend=None,
                slo_s: Optional[float] = None, state_policy=None,
                health: Optional[HealthConfig] = None) -> Fleet:
     """A fresh fleet: random agents and pod base networks from ``seed``,
     the heterogeneous device mix and link bandwidths drawn from the same
     numpy streams as the reference (``default_rng(0)`` / ``(1)``).
-    ``env_backend`` (``"fluid"``, the default, ``"twin"`` or a backend)
-    builds ``astate.env_state``: pass the same backend to the drivers.
+    ``masks`` ((A, n_*) bool per head; default all allowed), ``speeds``
+    and ``bandwidth`` ((A,) each, any array) replace those defaults, as
+    the reference's keywords do. ``env_backend`` (``"fluid"``, the
+    default, ``"twin"`` or a backend) builds ``astate.env_state``: pass
+    the same backend to the drivers.
     ``state_policy``: a ``core/dtypes.py`` policy name or ``StatePolicy``
     (``fleet_cast``); None keeps every float leaf float32. ``health``: a
     ``HealthConfig`` attaches the observatory's state (float32 under
@@ -187,10 +191,16 @@ def fleet_init(cfg: FCPOConfig, n_agents: int, seed: int = 0, *,
     pod_base = AgentPolicy(cfg, n_pods, dev)
     pod_base.assign({k: v.expand((n_pods,) + v.shape[1:])
                      for k, v in base.params().items()})
-    speeds = torch.as_tensor(np.random.default_rng(0).choice(
-        [0.5, 0.75, 1.0, 2.0], n_agents), dtype=torch.float32, device=dev)
-    bandwidth = torch.as_tensor(np.random.default_rng(1).uniform(
-        2.0, 40.0, n_agents), dtype=torch.float32, device=dev)
+    if speeds is None:      # heterogeneous device mix (Orin/NX/AGX/server)
+        speeds = np.random.default_rng(0).choice([0.5, 0.75, 1.0, 2.0],
+                                                 n_agents)
+    if bandwidth is None:
+        bandwidth = np.random.default_rng(1).uniform(2.0, 40.0, n_agents)
+    speeds, bandwidth = (torch.as_tensor(x, dtype=torch.float32, device=dev)
+                         for x in (speeds, bandwidth))
+    masks = full_mask(cfg, n_agents, dev) if masks is None else ActionMask(
+        *(torch.as_tensor(m, dtype=torch.bool, device=dev)
+          for m in (masks.res, masks.bs, masks.mt)))
     # slo_s overrides cfg.slo_s, as the JAX fleet_init's slo_s does
     env_params = env_mod.default_env_params(
         speeds, cfg.slo_s if slo_s is None else slo_s, dev)
@@ -198,7 +208,7 @@ def fleet_init(cfg: FCPOConfig, n_agents: int, seed: int = 0, *,
     fleet = _assemble(
         cfg, policy, agent_opt_init(policy.params()),
         buffer_init(cfg, n_agents, dev), backend.init(cfg, n_agents, dev),
-        pod_base, env_params, full_mask(cfg, n_agents, dev), speeds,
+        pod_base, env_params, masks, speeds,
         bandwidth, residuals_init(policy.params()), gen,
         agent_keys(seed, n_agents))
     fleet = _ensure_health(cfg, fleet, health)
@@ -399,7 +409,7 @@ def fleet_episode(cfg: FCPOConfig, fleet: Fleet, rates: torch.Tensor,
                   learn: bool = True, gumbel=None, backend=FLUID,
                   health: Optional[HealthConfig] = None):
     """One CRL episode for all agents. rates: (A, n_steps); gumbel:
-    optional pre-drawn (A, n_steps, n_res+n_bs+n_mt) action noise;
+    optional pre-drawn (A, n_steps, ``noise_width(cfg)``) action noise;
     ``backend``: the environment, the one the fleet was built with.
     ``health``: advance the fleet's health state through the episode's
     per-interval telemetry and add its summaries to the metrics
@@ -735,7 +745,8 @@ def train_fleet_reference(cfg: FCPOConfig, fleet: Fleet, traces, *,
     ``episode_offset`` of a run of ``total_episodes`` (default: this
     call's end), so that the schedule, the straggler and fault draws and
     the merge cadence are the uninterrupted run's. ``gumbel``: optional
-    pre-drawn action noise (n_episodes, A, n_steps, n_res+n_bs+n_mt);
+    pre-drawn action noise (n_episodes, A, n_steps,
+    ``agent.noise_width(cfg)``);
     ``byz_noise``: optional byzantine noise, {name: (n_episodes, A, ...)},
     both over this call's episodes. ``env_backend``: ``"fluid"`` (default)
     / ``"twin"`` / a backend, the one the fleet was built with.
@@ -1124,8 +1135,9 @@ def train_fleet_scan(cfg: FCPOConfig, fleet: Fleet, traces, *,
     fault plan's bits are staged on the device with the other inputs, and
     the agent state before an episode and a round is copied into static
     tensors only when crashes are on. ``gumbel``: optional pre-drawn action
-    noise (n_episodes, A, n_steps, n_res+n_bs+n_mt); without it the noise
-    comes from ``fleet.generator`` in the reference driver's order.
+    noise (n_episodes, A, n_steps, ``agent.noise_width(cfg)``); without it
+    the noise comes from ``fleet.generator`` in the reference driver's
+    order.
     ``byz_noise``: optional byzantine noise, {name: (n_episodes, A, ...)}.
     ``episode_offset`` / ``total_episodes``: as in
     ``train_fleet_reference`` (a resumed run's absolute episodes).

@@ -9,11 +9,13 @@ from repro_torch.sim.scenarios import SCENARIOS, make_scenario
 from repro_torch.sim.state import (SimParams, SimState, action_caps,
                                    effective_queue_cap, sim_init,
                                    spread_arrivals)
-from repro_torch.sim.step import sim_interval
+from repro_torch.sim.step import (sim_interval, sim_interval_agent,
+                                  sim_interval_ref)
 
 __all__ = [
     "SCENARIOS", "SimParams", "SimState", "action_caps",
     "effective_queue_cap", "eval_fleet", "hist_percentile", "make_scenario",
-    "sim_init", "sim_interval", "sim_observe", "simulate_fleet",
-    "spread_arrivals", "summarize", "warn_if_censored",
+    "sim_init", "sim_interval", "sim_interval_agent", "sim_interval_ref",
+    "sim_observe", "simulate_fleet", "spread_arrivals", "summarize",
+    "warn_if_censored",
 ]

@@ -62,12 +62,12 @@ def simulate_fleet(cfg: FCPOConfig, sp: SimParams, params,
     params/masks/env_params: the agent-stacked (A, ...) policy parameters,
     action masks and device profiles (a ``Fleet``'s); traces: (A, T)
     control-interval arrival rates (requests/s), on the fleet's device.
-    ``gumbel``: optional pre-drawn (T, A, n_res+n_bs+n_mt) action noise;
-    without it the noise comes from ``generator``. On the GPU the interval
-    body is captured once and replayed for every later interval (a capture
-    error raises). Returns (final state, per-interval history of (T, A)
-    numpy arrays, per-agent request-grade summary of (A,) tensors incl.
-    p50/p99 latency).
+    ``gumbel``: optional pre-drawn (T, A, ``noise_width(cfg)``) action
+    noise; without it the noise comes from ``generator``. On the GPU the
+    interval body is captured once and replayed for every later interval
+    (a capture error raises). Returns (final state, per-interval history
+    of (T, A) numpy arrays, per-agent request-grade summary of (A,)
+    tensors incl. p50/p99 latency).
 
     ``record_ticks``: also return the per-microtick counter series
     (``history["tick_counters"]``: (T, A, K, SIM_NCOUNTERS) int32) and the

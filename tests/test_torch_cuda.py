@@ -19,6 +19,12 @@ included), and a health run on the card stays within rtol 1e-3 / atol
 version's slots, the recording K3 equals its plain version bit for bit
 (unrecorded results unchanged), and a traced graph run is the untraced
 run bit for bit.
+
+The paper's comparison set runs here too: K1 at BCEdge's N=700, NA=13;
+the single-head fleet's graph driver against its reference driver bit
+for bit; the single-agent K3 against the plain advance and the Python
+oracle; ``buffer_insert`` (K1 at T=1) against the CPU; and the static
+baselines card against CPU.
 """
 import os
 import subprocess
@@ -50,15 +56,16 @@ def cuda_device():
     return torch.device("cuda")
 
 
-def k1_inputs(rng, a, fill, t, n=64):
-    cfg = FCPOConfig(buffer_size=n)
+def k1_inputs(rng, a, fill, t, n=64, n_mt=4):
+    cfg = FCPOConfig(buffer_size=n, n_mt=n_mt)
+    na = cfg.n_res + cfg.n_bs + cfg.n_mt
     b = buffer_init(cfg, a, "cpu")
     state = [b.states, b.probs, b.score, b.filled, b.s_sum, b.s_outer,
              b.p_sum, b.n_filled]
 
     def cands(n):
         s = torch.tensor(rng.normal(size=(a, n, 8)) * 2.0, dtype=torch.float32)
-        p = torch.softmax(torch.tensor(rng.normal(size=(a, n, 15)),
+        p = torch.softmax(torch.tensor(rng.normal(size=(a, n, na)),
                                        dtype=torch.float32), -1)
         return s, p
 
@@ -1167,3 +1174,147 @@ def test_top_level_kernel_span_on_the_card(cuda_device, every):
     for o in out:
         assert torch.equal(o[0], base[0])
         assert all(torch.equal(x, y) for x, y in zip(o[1], base[1]))
+
+
+# ---------------------------------------------------------------------------
+# the paper's comparison set
+# ---------------------------------------------------------------------------
+@pytest.mark.cuda
+@pytest.mark.parametrize("a", [2, 64])
+@pytest.mark.parametrize("fill", [0, 350, 800])
+def test_k1_at_the_bcedge_shape_matches_plain(cuda_device, a, fill):
+    """N=700 slots, NA=13 (BCEdge's offline buffers): ~62 KB of shared
+    memory a block, the opt-in path above 48 KB."""
+    rng = np.random.default_rng(a + fill)
+    assert_k1_matches(k1_inputs(rng, a, fill, 10, n=700, n_mt=2),
+                      cuda_device)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("backend", ["fluid", "twin"])
+def test_single_head_graph_driver_matches_reference(cuda_device, backend):
+    """The Fig. 12 single head: the graph driver == the reference driver
+    bit for bit (histories, every state leaf), K1 once per episode, K2
+    once per round over its 8 leaves, K3 once per twin interval."""
+    from repro_torch.core.fleet import (fleet_init, fleet_to_numpy,
+                                        train_fleet_reference,
+                                        train_fleet_scan)
+    from repro_torch.fl.transport import TransportConfig
+    cfg = FCPOConfig(single_head=True, fl_every=1)
+    traces = torch.as_tensor(np.random.default_rng(1).uniform(
+        5, 160, (8, 6 * cfg.n_steps)).astype(np.float32), device=cuda_device)
+    runs = []
+    for drive in (train_fleet_reference, train_fleet_scan):
+        counts = (diversity_insert.launches, delta_codec.launches,
+                  queue_advance.launches)
+        fleet, hist = drive(cfg, fleet_init(cfg, 8, 3, n_pods=2,
+                                            device=cuda_device,
+                                            env_backend=backend),
+                            traces, env_backend=backend, straggler_prob=0.25,
+                            seed=2, transport=TransportConfig(codec="int8"))
+        counts = tuple(x.launches - c for x, c in zip(
+            (diversity_insert, delta_codec, queue_advance), counts))
+        assert counts == (6, 6, 60 if backend == "twin" else 0)
+        runs.append((hist, fleet_to_numpy(fleet)))
+    (h_r, st_r), (h_s, st_s) = runs
+    for k, v in h_r.items():
+        np.testing.assert_array_equal(h_s[k], v, err_msg=k)
+    assert set(st_r["params"]) == {"backbone", "value", "head_res"}
+
+    def flat(tree, prefix=""):
+        for k, v in tree.items():
+            if isinstance(v, dict):
+                yield from flat(v, f"{prefix}{k}.")
+            else:
+                yield f"{prefix}{k}", np.asarray(v)
+    got = dict(flat(st_s))
+    for k, v in flat(st_r):
+        np.testing.assert_array_equal(got[k], v, err_msg=k)
+
+
+@pytest.mark.cuda
+def test_sim_interval_agent_matches_plain_and_the_oracle(cuda_device):
+    """One agent's twin through K3 at A=1 (one launch an interval) == the
+    plain advance on the card bit for bit == ``sim/oracle.py`` request for
+    request."""
+    from repro_torch.sim import oracle
+    from repro_torch.sim.state import SimParams, SimState, sim_init
+    from repro_torch.sim.step import sim_interval_agent, sim_interval_ref
+    sp = SimParams(dt=0.05, k_ticks=8, ring=32, hist_n=16)
+    rng = np.random.default_rng(4)
+    t_int = 20
+    arrivals = rng.integers(0, 7, (t_int, sp.k_ticks)).astype(np.int32)
+    caps = np.stack([rng.choice([1.5, 2.0, 2.5, 3.0], t_int),
+                     rng.choice([2.0, 3.0, 4.0], t_int),
+                     rng.choice([2.0, 4.0, 8.0], t_int),
+                     rng.choice([1.0, 2.0, 3.0], t_int),
+                     np.full(t_int, 8.0), np.full(t_int, 5.0)],
+                    1).astype(np.float32)
+    st_k = st_p = SimState(*(x[0] for x in sim_init(
+        sp, 1, cuda_device).tensors()))
+    before = queue_advance.launches
+    for t in range(t_int):
+        args = (torch.as_tensor(arrivals[t], device=cuda_device),
+                torch.as_tensor(caps[t], device=cuda_device))
+        st_k = sim_interval_agent(st_k, *args)
+        st_p = sim_interval_ref(st_p, *args)
+        for x, y in zip(st_k.tensors(), st_p.tensors()):
+            assert torch.equal(x, y)
+    assert queue_advance.launches == before + t_int
+    py = oracle.simulate_python_agent(arrivals, caps, sp)
+    assert (int(st_k.arrived), int(st_k.dropped), int(st_k.completed),
+            int(st_k.effective), float(st_k.lat_sum),
+            int(st_k.in_flight)) == tuple(py[k] for k in (
+                "arrived", "dropped", "completed", "effective", "lat_sum",
+                "in_flight"))
+
+
+@pytest.mark.cuda
+def test_buffer_insert_on_the_card_matches_the_cpu(cuda_device):
+    """``buffer_insert`` (K1 at T=1, one launch a call) chained 40 times
+    on the card against the same calls on the CPU (plain version):
+    identical slots and counts, floats within rtol 1e-4 / atol 1e-5."""
+    from repro_torch.core.buffer import buffer_insert
+    cfg = FCPOConfig(buffer_size=16)
+    rng = np.random.default_rng(5)
+    bufs = {d: buffer_init(cfg, 8, d) for d in ("cpu", cuda_device)}
+    before = diversity_insert.launches
+    for _ in range(40):
+        s = rng.normal(size=(8, 8)) * 3.0
+        p = rng.dirichlet(np.ones(15), size=8)
+        pay = (rng.integers(0, 4, (8, 3)), rng.normal(size=8),
+               rng.normal(size=8), rng.normal(size=8))
+        for d in bufs:
+            f = lambda x, dt=torch.float32: torch.as_tensor(x, dtype=dt,
+                                                            device=d)
+            bufs[d] = buffer_insert(cfg, bufs[d], f(s), f(pay[0], torch.long),
+                                    f(pay[1]), f(pay[2]), f(pay[3]), f(p))
+    assert diversity_insert.launches == before + 40
+    cpu, card = bufs["cpu"], bufs[cuda_device]
+    for name in ("filled", "n_filled", "count", "actions"):
+        assert torch.equal(getattr(card, name).cpu(), getattr(cpu, name))
+    for name in ("states", "probs", "score", "s_sum", "s_outer", "p_sum",
+                 "logp", "rewards", "values"):
+        torch.testing.assert_close(getattr(card, name).cpu(),
+                                   getattr(cpu, name), rtol=1e-4, atol=1e-5)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("backend", ["fluid", "twin"])
+def test_static_baselines_on_the_card_match_the_cpu(cuda_device, backend):
+    """OctopInf and Distream at n=8: the card's episode histories within
+    rtol 1e-3 / atol 1e-4 of the CPU's; K3 once per twin interval."""
+    from repro_torch.core.baselines import run_distream, run_octopinf
+    traces = np.random.default_rng(6).uniform(5, 160, (8, 30)).astype(
+        np.float32)
+    for run in (lambda d: run_octopinf(8, traces, period=10,
+                                       env_backend=backend, device=d),
+                lambda d: run_distream(8, traces, env_backend=backend,
+                                       device=d)):
+        before = queue_advance.launches
+        card = run(cuda_device)
+        assert queue_advance.launches - before == (30 if backend == "twin"
+                                                   else 0)
+        for k, v in run("cpu").items():
+            np.testing.assert_allclose(card[k], v, rtol=1e-3, atol=1e-4,
+                                       err_msg=k)

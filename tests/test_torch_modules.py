@@ -132,6 +132,18 @@ def test_entry_points_default_to_cuda_and_raise_without_it():
                  lambda: fleet_memory_report(TCfg(), 2, n_pods=1)):
         with pytest.raises(RuntimeError, match="CUDA"):
             call()
+    # the comparison set: the baselines and the single-head fleet
+    from repro_torch.core import baselines
+    from repro_torch.core.agent import full_mask
+    rates = np.full((8, 10), 30.0, np.float32)
+    for call in (lambda: baselines.bcedge_masks(baselines.bcedge_config(), 2),
+                 lambda: baselines.run_bcedge(8, rates, offline_episodes=1),
+                 lambda: baselines.run_octopinf(8, rates),
+                 lambda: baselines.run_distream(8, rates),
+                 lambda: fleet_init(TCfg(single_head=True), 2),
+                 lambda: full_mask(TCfg(), 2)):
+        with pytest.raises(RuntimeError, match="CUDA"):
+            call()
 
 
 # ---------------------------------------------------------------------------

@@ -25,7 +25,7 @@ from repro.kernels.queue_advance import queue_advance as j_pallas_qa
 from repro.sim import harness as jharness
 from repro.sim import metrics as jmetrics
 from repro.sim import state as jstate
-from repro.sim.oracle import simulate_python_agent
+from repro.sim.oracle import simulate_python_agent as j_simulate_python_agent
 from repro_torch.configs.fcpo import FCPOConfig as TCfg
 from repro_torch.core import env as tenv
 from repro_torch.core.agent import ActionMask, tensors_from_numpy
@@ -34,6 +34,7 @@ from repro_torch.kernels import ref as tref
 from repro_torch.kernels.queue_advance import queue_advance
 from repro_torch.sim import harness as tharness
 from repro_torch.sim import metrics as tmetrics
+from repro_torch.sim.oracle import simulate_python_agent
 from repro_torch.sim import state as tstate
 from test_torch_support import (close, env_state_tree, exact, head_sizes,
                                 jax_sim_noise, np_tree)
@@ -323,12 +324,9 @@ def test_queue_advance_plain_keeps_its_inputs_and_checks_the_ring():
         queue_advance(*bad, torch.tensor(arrivals), torch.tensor(caps))
 
 
-def test_twin_matches_python_oracle_request_for_request():
-    """The port's twin == ``repro.sim.oracle`` (``serving/slo.py``'s data
-    plane) on one agent: completions, drops, effective count, summed
-    latency and requests in flight (integer caps entries => exact)."""
-    jsp, tsp = both_sp(**SMALL)
-    t_ints = 12
+def oracle_inputs(tsp, t_ints=12):
+    """One agent's arrivals (T, K) and caps (T, SIM_NCAPS) for the Python
+    oracle, with integer-representable capacities."""
     rng = np.random.default_rng(0)
     arrivals = rng.integers(0, 7, (t_ints, tsp.k_ticks)).astype(np.int32)
     caps = np.stack([
@@ -338,12 +336,15 @@ def test_twin_matches_python_oracle_request_for_request():
         rng.choice([1.0, 2.0, 3.0], t_ints),
         np.full(t_ints, 8.0),
         np.full(t_ints, 5.0)], axis=1).astype(np.float32)
+    return arrivals, caps
+
+
+def twin_against_oracle(tsp, arrivals, caps, py):
     s = tstate.sim_init(tsp, 1, "cpu")
-    for t in range(t_ints):
+    for t in range(len(arrivals)):
         s = tstate.SimState(*queue_advance(
             *s.tensors(), torch.tensor(arrivals[t:t + 1]),
             torch.tensor(caps[t:t + 1])))
-    py = simulate_python_agent(arrivals, caps, jsp)
     assert int(s.arrived[0]) == py["arrived"]
     assert int(s.dropped[0]) == py["dropped"]
     assert int(s.completed[0]) == py["completed"]
@@ -351,6 +352,24 @@ def test_twin_matches_python_oracle_request_for_request():
     assert float(s.lat_sum[0]) == py["lat_sum"]
     assert int(s.in_flight[0]) == py["in_flight"]
     assert py["dropped"] > 0 and py["completed"] > 0
+
+
+def test_twin_matches_python_oracle_request_for_request():
+    """The port's twin == the port's ``sim/oracle.py`` (``serving/slo.py``'s
+    data plane) on one agent: completions, drops, effective count, summed
+    latency and requests in flight (integer caps entries => exact)."""
+    tsp = tstate.SimParams(**SMALL)
+    arrivals, caps = oracle_inputs(tsp)
+    twin_against_oracle(tsp, arrivals, caps,
+                        simulate_python_agent(arrivals, caps, tsp))
+
+
+def test_twin_matches_the_jax_python_oracle_request_for_request():
+    """The same against the JAX package's ``repro.sim.oracle``."""
+    jsp, tsp = both_sp(**SMALL)
+    arrivals, caps = oracle_inputs(tsp)
+    twin_against_oracle(tsp, arrivals, caps,
+                        j_simulate_python_agent(arrivals, caps, jsp))
 
 
 # ---------------------------------------------------------------------------

@@ -170,6 +170,22 @@ def jax_episode_noise(rngs, n_steps, sizes):
     return jax.vmap(one)(rngs)
 
 
+@partial(jax.jit, static_argnums=(1, 2))
+def jax_joint_noise(rngs, n_steps, width):
+    """The Gumbel noise JAX's ``run_episode`` draws for the single joint
+    head (``FCPOConfig(single_head=True)``) from the fleet's (A, 2) keys:
+    ``rng, krng = split(rng)`` per step, then ``gumbel(krng, (width,))``
+    (the categorical's own draw on the step key). Returns ((A, n_steps,
+    width) noise, the advanced keys)."""
+    def one(rng):
+        def step(rng, _):
+            rng, krng = jax.random.split(rng)
+            return rng, jax.random.gumbel(krng, (width,))
+        rng, gs = jax.lax.scan(step, rng, None, length=n_steps)
+        return gs, rng
+    return jax.vmap(one)(rngs)
+
+
 def jax_leaf_noise(key, like):
     """JAX's ``corrupt_deltas`` noise for ``key``: ``split(key, n_leaves)``
     in the tree's leaf order, one standard normal draw per leaf; as

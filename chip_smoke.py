@@ -70,23 +70,25 @@ In order, it:
      ``train_fleet`` with ``--fl-codec int8 --fl-deadline-s 0.002
      --fl-async --robust-agg trimmed --clip-factor 3`` and crash (0.1),
      byzantine (0.25, sign_flip) and partition (0.3) faults, fluid and
-     twin, under both drivers (K1 once per episode, K2 once per round, K3
-     once per twin interval, equal histories); the graph driver against
-     the reference driver bit for bit (A=8, eight episodes); the card
-     against the CPU (A=4, eight episodes: histories within rtol 1e-3 /
-     atol 1e-4, actions, timers and parked-upload masks identical); ten
-     profiled episodes of each driver (ms per episode, busy share,
-     capture time, at most three graph launches per replayed episode);
+     twin, ten episodes under both drivers (K1 once per episode, K2 once
+     per round, K3 once per twin interval, equal histories); the graph
+     driver against the reference driver bit for bit (A=8, eight
+     episodes); the card against the CPU (A=4, eight episodes: histories
+     within rtol 1e-3 / atol 1e-4, actions, timers and parked-upload masks
+     identical); ten profiled episodes of the graph driver (ms per
+     episode, busy share, capture time, at most three graph launches per
+     replayed episode);
  11c. ``[state dtype]``: ``train_fleet --state-dtype bf16`` and ``lean``
-     with ``--fl-codec int8``, fluid and twin, 20 episodes under both
+     with ``--fl-codec int8``, fluid and twin, ten episodes under both
      drivers (K1 once per episode, K2 once per round, K3 once per twin
      interval, as without a policy; histories bit for bit between the
      drivers); the graph driver against the reference driver bit for bit
-     per policy, plain and under the chaos slice with byzantine noise
+     per policy over four episodes, plain and under the chaos slice with
+     byzantine noise
      (every leaf at its stored dtype, both generators' states equal); a
      float32-policy fleet against the default fleet bit for bit; the card
      against the CPU per policy (A=4, histories within rtol 1e-2 / atol
-     1e-3); ten profiled episodes per policy;
+     1e-3); ten profiled episodes of the graph driver per policy;
  11d. ``[resume]``: ``train_fleet --state-dtype lean`` with the chaos
      slice, byzantine noise, ``--health`` and ``--metrics-out``, 20
      episodes, straight through and killed by ``--stop-after 7`` at
@@ -98,17 +100,18 @@ In order, it:
      size per policy at A=8 and A=2048 (lean at least 2x smaller per agent
      than float32 at A=2048);
  11f. ``[health]``: ``train_fleet --health --metrics-out --alerts-out``,
-     fluid and twin, 20 episodes under both drivers (bit for bit), then
+     fluid and twin, ten episodes under both drivers (bit for bit), then
      with the chaos flags and ``--susp-threshold 0.5``: K1, K2 and K3
      launch as in the same runs without health; the graph driver against
-     the reference driver with health, plain and gated (bit for bit, equal
-     launches and streamed records); the card against the CPU at A=4
+     the reference driver with health, plain and gated (four episodes;
+     bit for bit, equal launches and streamed records); the card against the CPU at A=4
      (health counts identical; the suspicion per agent and round, an
      agent left out from a round whose leave-one-out reference is under
      ``LOO_SHARE`` of the reference); the ops the
      episode and round bodies dispatch without ``--health`` equal to the
      parent port's (``PARENT_BODY_OPS``), and with it; ten profiled
-     episodes with and without ``--health`` per backend;
+     episodes of the graph driver with and without ``--health`` per
+     backend;
  11g. ``[metrics]``: the CLI's JSONL records equal its returned history
      under both drivers, with the trailing scaling record; ``watch``
      renders the file; ms per replayed episode with the sink against
@@ -149,6 +152,19 @@ In order, it:
      ``[oracles]``: ``sim_interval_agent`` (K3 at A=1) against
      ``sim_interval_ref`` and ``sim/oracle.py``; ``buffer_insert`` (K1 at
      T=1) against ``buffer_insert_reference`` (near-tie rule);
+ 11k. ``[mesh]``: ``train_fleet --mesh fleet`` on one NCCL rank (the
+     CLI default, 20 episodes, fluid, twin and int8; the graph driver
+     captures the collectives) against ``--mesh none`` bit for bit
+     (histories, the whole final fleet, K1–K3 launches), ``--mesh debug``
+     likewise, ``--mesh production`` raising; ten replayed episodes meshed
+     and meshless in turns (ms per episode, at most three graph launches
+     an episode, the collectives of each graph, the profiler's NCCL
+     kernels, copies and kernels per episode); then two gloo ranks
+     spawned on the card (``chip_smoke.py --mesh-rank``: A=8, P=2, int8,
+     stragglers 0.3, eight episodes, the reference driver) against the
+     meshless card run within rtol/atol 1e-5, two balanced
+     ``fleet_device_bytes`` entries, K1 / K2 once per episode / round on
+     each rank, and the graph driver refusing the gloo mesh;
  12. holds K5 ``decode_attention`` and K4 ``flash_attention`` against their
      plain versions (the JAX tests' sweeps, K4's bf16 tensor-core path on
      every shape of the sweep, K5 with several splits and the combine, the
@@ -213,6 +229,9 @@ CHAOS_ARGV = ["--fl-codec", "int8", "--fl-deadline-s", "0.002", "--fl-async",
 # the same with byzantine noise (drawn from the fleet's fault generator)
 NOISE_ARGV = [*CHAOS_ARGV[:-3], "noise", *CHAOS_ARGV[-2:]]
 POLICIES = ("bf16", "lean")
+# the episodes of the CLI runs of [chaos], [state dtype] and [health] (the
+# launch and parity checks are per episode and per round)
+CUT_EPISODES = 10
 
 
 def chaos_kwargs(mode="sign_flip"):
@@ -1089,9 +1108,10 @@ def run_pair(torch, cfg, backend, chaos=False, policy=None, health=False):
     for dev in (DEV, "cpu"):
         record, rnd = [], []
 
-        def recording(cfg_, params, obs, mask, gumbel=None, generator=None):
+        def recording(cfg_, params, obs, mask, gumbel=None, generator=None,
+                      place=None):
             out = sample(cfg_, params, obs, mask, gumbel=gumbel,
-                         generator=generator)
+                         generator=generator, place=place)
             logp = out[2]["joint"] if cfg_.single_head else torch.cat(
                 [out[2][h] for h in ("res", "bs", "mt")], -1)
             scores = gumbel + logp
@@ -1181,8 +1201,8 @@ def record_rounds(torch, out):
     from repro_torch.health.attribution import robust_reference_weights
     score, update = tfleet.attribution_scores, tfleet.update_round
 
-    def scoring(deltas, sel):
-        got = score(deltas, sel)
+    def scoring(deltas, sel, place=None):
+        got = score(deltas, sel, place)
         w = robust_reference_weights(got["norm"], sel).cpu().double()
         leaves = [deltas[k].detach().cpu().double().reshape(len(w), -1)
                   for k in sorted(deltas)]
@@ -1279,7 +1299,7 @@ def timed(torch, fn):
 
 
 def profile_episodes(torch, cfg, backend="fluid", n_episodes=10,
-                     policy=None, **kw):
+                     policy=None, reference=True, **kw):
     """Where the time of the CLI default run goes (in ``backend``; ``kw``:
     the drivers' transport / guards / faults) under each driver: after
     eight episodes that warm up (the reference driver) or run eagerly and
@@ -1287,7 +1307,9 @@ def profile_episodes(torch, cfg, backend="fluid", n_episodes=10,
     follows the eighth), ``n_episodes`` timed alone, then ``n_episodes``
     under ``torch.profiler``. Every window holds five FL rounds and one
     pod merge. A replayed episode takes at most three graph launches.
-    ``policy``: the fleet stored at that state policy. Returns the graph
+    ``policy``: the fleet stored at that state policy. ``reference=False``
+    leaves out the reference driver's windows ([profile] takes them; the
+    later phases profile the graph driver). Returns the graph
     driver's window: ``profiled``'s numbers and ``alone_ms`` (ms per
     replayed episode without the profiler)."""
     from repro_torch.core.fleet import (FleetScan, fleet_init,
@@ -1304,17 +1326,18 @@ def profile_episodes(torch, cfg, backend="fluid", n_episodes=10,
         " --metrics-out" if kw.get("metrics_sink") else "")
     init = lambda: fleet_init(cfg, 8, 0, n_pods=2, device=DEV,
                               env_backend=backend, state_policy=policy)
-    fleet = init()
-    fleet, _ = train_fleet_reference(cfg, fleet, traces[:, :warm * n],
-                                     env_backend=backend, **kw)
-    wall = timed(torch, lambda: train_fleet_reference(
-        cfg, fleet, window(0), env_backend=backend, **kw))
-    log(f"  {name} --driver reference: {n_episodes} episodes alone: "
-        f"wall {wall / n_episodes * 1e3:.2f} ms/episode")
-    profiled(torch, lambda: train_fleet_reference(
-        cfg, fleet, window(1), env_backend=backend, **kw),
-        n_episodes, f"{name} --driver reference: {n_episodes} episodes",
-        "episode", alone=wall)
+    if reference:
+        fleet = init()
+        fleet, _ = train_fleet_reference(cfg, fleet, traces[:, :warm * n],
+                                         env_backend=backend, **kw)
+        wall = timed(torch, lambda: train_fleet_reference(
+            cfg, fleet, window(0), env_backend=backend, **kw))
+        log(f"  {name} --driver reference: {n_episodes} episodes alone: "
+            f"wall {wall / n_episodes * 1e3:.2f} ms/episode")
+        profiled(torch, lambda: train_fleet_reference(
+            cfg, fleet, window(1), env_backend=backend, **kw),
+            n_episodes, f"{name} --driver reference: {n_episodes} episodes",
+            "episode", alone=wall)
     driver = FleetScan(cfg, init(), traces, env_backend=backend, **kw)
     for _ in range(warm):
         driver.step()
@@ -1437,7 +1460,8 @@ def profiled(torch, fn, n, label, unit, capture=None, alone=None):
     counted = read_launches()
     cap = capture() if capture else 0.0
     wall -= cap
-    kernels = [e for e in prof.key_averages()
+    averages = prof.key_averages()      # one pass over the events
+    kernels = [e for e in averages
                if str(e.device_type).endswith("CUDA")]
     dev_us = lambda e: getattr(e, "self_device_time_total", None) \
         or getattr(e, "self_cuda_time_total", 0.0)
@@ -1446,7 +1470,7 @@ def profiled(torch, fn, n, label, unit, capture=None, alone=None):
     if not total:
         log("  device time: not measured (the profiler recorded no kernel)")
         return None
-    graph_launches = sum(e.count for e in prof.key_averages()
+    graph_launches = sum(e.count for e in averages
                          if e.key == "cudaGraphLaunch")
     log(f"  {label} under the profiler: wall {wall / n * 1e3:.2f} ms/{unit}"
         + (f" (capture {cap:.3f} s out)" if capture else "")
@@ -1477,9 +1501,11 @@ def profiled(torch, fn, n, label, unit, capture=None, alone=None):
 
 
 def graph_parity(torch, backend, chaos=False, policy=None,
-                 mode="sign_flip", health=False, single_head=False):
+                 mode="sign_flip", health=False, single_head=False,
+                 n_eps=8):
     """The graph driver against the reference driver on the card: A=8,
-    P=2, ``fl_every=1``, eight episodes (two pod merges), int8, Bernoulli
+    P=2, ``fl_every=1``, ``n_eps`` episodes (eight: two pod merges; four:
+    one), int8, Bernoulli
     stragglers (``chaos``: the chaos kwargs on top), noise from each
     fleet's generator (one seed): identical actions (recorded into a
     device buffer, which capture keeps), histories and final state bit for
@@ -1500,7 +1526,7 @@ def graph_parity(torch, backend, chaos=False, policy=None,
                                         train_fleet_reference,
                                         train_fleet_scan)
     from repro_torch.fl.transport import TransportConfig
-    cfg, a, n_eps = FCPOConfig(fl_every=1, single_head=single_head), 8, 8
+    cfg, a = FCPOConfig(fl_every=1, single_head=single_head), 8
     n = n_eps * cfg.n_steps
     kw = chaos_kwargs(mode) if chaos else dict(
         transport=TransportConfig(codec="int8"))
@@ -1983,32 +2009,33 @@ def obs_profile_phase(torch, cfg):
 # ---------------------------------------------------------------------------
 def state_dtype_phase(torch, cfg):
     """``train_fleet --state-dtype bf16 / lean --fl-codec int8``, fluid and
-    twin, 20 episodes under both drivers: the default run's launch counts
+    twin, ``CUT_EPISODES`` episodes under both drivers: the default run's launch counts
     (K1 once per episode, K2 once per round, K3 once per twin interval) and
     histories equal bit for bit between the drivers; the graph driver
     against the reference driver bit for bit per policy (every leaf at its
     stored dtype, generator states equal), plain and under the chaos slice
     with byzantine noise; a float32-policy fleet is the default fleet bit
     for bit; the card against the CPU per policy; ten profiled episodes per
-    policy. Returns {(policy, backend): (K1, K2, K3)}."""
+    policy under the graph driver (graph parity over four episodes).
+    Returns {(policy, backend): (K1, K2, K3)}."""
     from repro_torch.configs.fcpo import FCPOConfig
     n = cfg.n_steps
     counts = {}
     for policy in POLICIES:
         for backend in ("fluid", "twin"):
-            argv = ["--episodes", "20", "--state-dtype", policy,
+            argv = ["--episodes", str(CUT_EPISODES), "--state-dtype", policy,
                     "--fl-codec", "int8"]
             if backend == "twin":
                 argv += ["--env-backend", "twin"]
-            counts[policy, backend] = drive(torch, argv, 20, cfg.fl_every,
-                                            n, strict=True)
+            counts[policy, backend] = drive(torch, argv, CUT_EPISODES,
+                                            cfg.fl_every, n, strict=True)
     log("  launches of K1, K2, K3 per policy: " + json.dumps(
         {f"{p}/{b}": c for (p, b), c in counts.items()}))
     for policy in POLICIES:
         for backend in ("fluid", "twin"):
-            graph_parity(torch, backend, policy=policy)
+            graph_parity(torch, backend, policy=policy, n_eps=4)
             graph_parity(torch, backend, chaos=True, policy=policy,
-                         mode="noise")
+                         mode="noise", n_eps=4)
     float32_is_default(torch)
     for policy in POLICIES:
         for backend in ("fluid", "twin"):
@@ -2016,7 +2043,8 @@ def state_dtype_phase(torch, cfg):
     for policy in ("float32", *POLICIES):
         for backend in ("fluid", "twin") if policy != "float32" \
                 else ("fluid",):
-            profile_episodes(torch, cfg, backend, policy=policy)
+            profile_episodes(torch, cfg, backend, policy=policy,
+                             reference=False)
     return counts
 
 
@@ -2167,15 +2195,16 @@ def body_ops(torch, cfg, backend, **kw):
 
 def health_phase(torch, cfg, default, k_base):
     """``train_fleet --health --metrics-out --alerts-out`` fluid and twin,
-    20 episodes under both drivers (histories bit for bit), then with the
+    ``CUT_EPISODES`` episodes under both drivers (histories bit for bit), then with the
     chaos flags and ``--susp-threshold 0.5``: K1, K2 and K3 launch as in
     the same runs without health (``k_base``). The graph driver against
-    the reference driver with health (plain and gated chaos), bit for bit
+    the reference driver with health (plain and gated chaos; four
+    episodes), bit for bit
     with equal launch counts and streamed records; the card against the
     CPU at A=4; per backend, the ops the episode and round bodies
     dispatch without health exactly the parent port's
     (``PARENT_BODY_OPS``, ``body_ops``) and with it, and ten profiled
-    episodes with and without health (the profiler's kernel counts are
+    episodes of the graph driver with and without health (the profiler's kernel counts are
     reported beside ``default``, the default window profiled earlier in
     this call: they move by a few kernels between windows of one call).
     Returns the windows {(backend, health on): numbers}."""
@@ -2190,12 +2219,12 @@ def health_phase(torch, cfg, default, k_base):
             twin = ["--env-backend", "twin"] if backend == "twin" else []
             out = ["--health", "--metrics-out", str(tmp / "run.jsonl"),
                    "--alerts-out", str(tmp / "alerts.jsonl")]
-            counts[backend] = drive(torch, ["--episodes", "20", *out,
-                                            *twin], 20, cfg.fl_every, n,
-                                    strict=True)
+            counts[backend] = drive(torch, ["--episodes", str(CUT_EPISODES),
+                                            *out, *twin], CUT_EPISODES,
+                                    cfg.fl_every, n, strict=True)
             counts[backend + " chaos"] = drive(
-                torch, ["--episodes", "20", *CHAOS_ARGV, *out,
-                        "--susp-threshold", "0.5", *twin], 20,
+                torch, ["--episodes", str(CUT_EPISODES), *CHAOS_ARGV, *out,
+                        "--susp-threshold", "0.5", *twin], CUT_EPISODES,
                 cfg.fl_every, n)
     finally:
         shutil.rmtree(tmp, ignore_errors=True)
@@ -2204,8 +2233,8 @@ def health_phase(torch, cfg, default, k_base):
         raise AssertionError(f"[health]: K1, K2, K3 launched {counts}, "
                              f"without health {k_base}")
     for backend in ("fluid", "twin"):
-        graph_parity(torch, backend, health=True)
-        graph_parity(torch, backend, chaos=True, health=True)
+        graph_parity(torch, backend, health=True, n_eps=4)
+        graph_parity(torch, backend, chaos=True, health=True, n_eps=4)
     for backend in ("fluid", "twin"):
         run_pair(torch, FCPOConfig(fl_every=1), backend, health=True)
     run_pair(torch, FCPOConfig(fl_every=1), "twin", chaos=True, health=True)
@@ -2228,8 +2257,10 @@ def health_phase(torch, cfg, default, k_base):
             f"{ops_on[0] - ops_off[0]} / +{ops_on[1] - ops_off[1]})")
     windows = {}
     for backend in ("fluid", "twin"):
-        windows[backend, False] = profile_episodes(torch, cfg, backend)
+        windows[backend, False] = profile_episodes(torch, cfg, backend,
+                                                   reference=False)
         windows[backend, True] = profile_episodes(torch, cfg, backend,
+                                                  reference=False,
                                                   **health_kwargs())
         off, on, base = windows[backend, False], windows[backend, True], \
             default[backend]
@@ -2454,6 +2485,312 @@ BF16_FLOPS = 989e12           # H100 SXM dense bf16 tensor-core peak
 # The paper's comparison set: the single-head ablation (Fig. 12), the
 # BCEdge / OctopInf / Distream baselines, the reference oracles
 # ---------------------------------------------------------------------------
+# ---------------------------------------------------------------------------
+# The fleet mesh: one NCCL rank with the graph driver, two gloo ranks
+# ---------------------------------------------------------------------------
+MESH_RANKS = 2          # gloo ranks sharing the card
+
+
+def mesh_traces(torch, a, n_eps, n_steps):
+    """The two-rank run's traces, made alike in every process."""
+    import numpy as np
+    return torch.as_tensor(np.random.default_rng(9).uniform(
+        5.0, 160.0, (a, n_eps * n_steps)).astype(np.float32), device=DEV)
+
+
+def mesh_gloo_run(torch, mesh=None):
+    """``tests/test_mesh.py``'s settings at the size one card holds: A=8,
+    P=2, int8, ``fl_every=1``, stragglers 0.3, eight episodes, the
+    reference driver, on ``mesh`` (None: meshless). Returns (fleet,
+    history, (K1, K2, K3) launches)."""
+    from repro_torch.configs.fcpo import FCPOConfig
+    from repro_torch.core.fleet import fleet_init, train_fleet_reference
+    from repro_torch.fl.transport import TransportConfig
+    cfg = FCPOConfig(fl_every=1)
+    fleet = fleet_init(cfg, 8, 0, n_pods=2, device=DEV, mesh=mesh)
+    reset_launches()
+    fleet, hist = train_fleet_reference(
+        cfg, fleet, mesh_traces(torch, 8, 8, cfg.n_steps), mesh=mesh,
+        straggler_prob=0.3, seed=3, transport=TransportConfig(codec="int8"))
+    torch.cuda.synchronize()
+    return fleet, hist, read_launches()[:3]
+
+
+def mesh_rank(rank, world, rendezvous, out):
+    """One gloo rank of the two that share the card (``chip_smoke.py
+    --mesh-rank``): checks that the graph driver refuses a gloo mesh on
+    the card, runs ``mesh_gloo_run`` on the (pod 2, data 1) mesh, and
+    writes the whole fleet (gathered; rank 0), the history and its own
+    launch counts and per-rank bytes to ``out``."""
+    import numpy as np
+    import torch
+    import torch.distributed as dist
+    sys.path.insert(0, str(ROOT / "src"))
+    torch.cuda.set_device(0)
+    torch.backends.cuda.matmul.allow_tf32 = False
+    dist.init_process_group("gloo", init_method=f"file://{rendezvous}",
+                            rank=rank, world_size=world)
+    try:
+        from repro_torch.configs.fcpo import FCPOConfig
+        from repro_torch.core.fleet import (FleetScan, fleet_device_bytes,
+                                            fleet_gather, fleet_init,
+                                            fleet_to_numpy)
+        from repro_torch.kernels import build
+        from repro_torch.launch.mesh import make_fleet_mesh
+        build.build()
+        mesh = make_fleet_mesh(world, 2, device_type="cuda")
+        cfg = FCPOConfig(fl_every=1)
+        try:
+            FleetScan(cfg, fleet_init(cfg, 8, 0, n_pods=2, device=DEV,
+                                      mesh=mesh),
+                      mesh_traces(torch, 8, 1, cfg.n_steps), mesh=mesh)
+            refused = ""
+        except ValueError as e:
+            refused = str(e)
+        fleet, hist, counts = mesh_gloo_run(torch, mesh)
+        per = fleet_device_bytes(fleet)
+        whole = fleet_to_numpy(fleet_gather(fleet))
+        info = dict(rank=rank, launches=counts, device_bytes=per,
+                    agents=[fleet.placement.agents.start,
+                            fleet.placement.agents.stop],
+                    refused=refused)
+        Path(out, f"rank{rank}.json").write_text(json.dumps(info))
+        if rank == 0:
+            np.savez(Path(out, "fleet.npz"), **{k: raw(v) for k, v in
+                                                 leaves(whole)})
+            np.savez(Path(out, "hist.npz"), **hist)
+    finally:
+        dist.destroy_process_group()
+
+
+def mesh_two_ranks(torch):
+    """Two gloo ranks spawned on the card against the meshless card run:
+    within rtol/atol 1e-5 (an int8 residual's rounding tie by the tests'
+    rule), integer state exact; two balanced ``fleet_device_bytes``
+    entries; each rank's K1 / K2 launches one per episode / round; the
+    graph driver refuses the gloo mesh."""
+    import os
+    import shutil
+    import tempfile
+    import numpy as np
+    tmp = Path(tempfile.mkdtemp(prefix="chip_smoke_mesh_"))
+    try:
+        env = dict(os.environ, OMP_NUM_THREADS="1")
+        t0 = time.time()
+        procs = [subprocess.Popen(
+            [sys.executable, str(Path(__file__).resolve()), "--mesh-rank",
+             str(r), str(MESH_RANKS), str(tmp / "rendezvous"), str(tmp)],
+            env=env) for r in range(MESH_RANKS)]
+        try:
+            for p in procs:
+                p.wait(timeout=240)
+        finally:
+            for p in procs:
+                if p.poll() is None:
+                    p.kill()
+                    p.wait()
+        if any(p.returncode != 0 for p in procs):
+            raise AssertionError(f"[mesh] the gloo ranks exited "
+                                 f"{[p.returncode for p in procs]}")
+        spawn_s = time.time() - t0
+        infos = [json.loads((tmp / f"rank{r}.json").read_text())
+                 for r in range(MESH_RANKS)]
+        got_fleet = dict(np.load(tmp / "fleet.npz"))
+        got_hist = dict(np.load(tmp / "hist.npz"))
+    finally:
+        shutil.rmtree(tmp, ignore_errors=True)
+    fleet, hist, counts = mesh_gloo_run(torch)
+    from repro_torch.core.fleet import fleet_to_numpy
+    want = {k: raw(v) for k, v in leaves(fleet_to_numpy(fleet))}
+    for k, v in hist.items():
+        np.testing.assert_allclose(got_hist[k], v, rtol=1e-5, atol=1e-5,
+                                   err_msg=f"[mesh] gloo history {k}")
+    for k, v in want.items():
+        g = got_fleet[k]
+        if k.startswith("residuals.") and v.dtype.kind == "f":
+            # an int8 rounding tie moves a coordinate by one step (at most
+            # two a leaf), as the CPU tests accept
+            bad = ~np.isclose(g, v, rtol=1e-5, atol=1e-5)
+            step = 2 * np.abs(v).reshape(len(v), -1).max(1)
+            step = step.reshape((-1,) + (1,) * (v.ndim - 1))
+            if bad.sum() > 2 or not (np.abs(g - v) <= 1.01 *
+                                     np.broadcast_to(step, v.shape))[bad].all():
+                raise AssertionError(f"[mesh] gloo {k}: {bad.sum()} off")
+        elif v.dtype.kind == "f":
+            np.testing.assert_allclose(g, v, rtol=1e-5, atol=1e-5,
+                                       err_msg=f"[mesh] gloo {k}")
+        elif not np.array_equal(g, v):
+            raise AssertionError(f"[mesh] gloo {k} differs")
+    per = infos[0]["device_bytes"]
+    vals = sorted(per.values())
+    if len(per) != MESH_RANKS or vals[-1] > 2 * vals[0]:
+        raise AssertionError(f"[mesh] gloo fleet_device_bytes {per}")
+    for info in infos:
+        if info["launches"] != [8, 8, 0]:
+            raise AssertionError(f"[mesh] rank {info['rank']}: K1, K2, K3 "
+                                 f"{info['launches']}, not 8, 8, 0")
+        if "gloo process group cannot be" not in info["refused"]:
+            raise AssertionError("[mesh] the graph driver took a gloo mesh "
+                                 "on the card")
+    log(f"  2 gloo ranks on the card (pod 2 x data 1, A=8: agents "
+        f"{[i['agents'] for i in infos]}), reference driver, 8 episodes, "
+        f"int8, stragglers 0.3: == the meshless card run within 1e-5 "
+        f"({len(hist)} metrics, {len(want)} leaves); fleet_device_bytes "
+        f"{per}; launches K1, K2, K3 per rank {[i['launches'] for i in infos]}"
+        f" (meshless {list(counts)}); the graph driver refuses the gloo "
+        f"mesh; gloo all_gather / all_reduce on CUDA tensors directly, no "
+        f"host staging; {spawn_s:.1f} s for the spawn")
+
+
+def mesh_window(torch, cfg, backend, mesh, n_episodes=10, profile=False):
+    """Ten replayed episodes of the CLI default (A=8, P=2) after eight that
+    run eagerly and capture the graphs, on ``mesh`` (None: meshless):
+    ms per replayed episode alone, graph launches per episode (at most
+    three) and the collectives (the counter, topped up per replay: per
+    episode of the window, and per replay of each graph); ``profile``: ten more under ``torch.profiler``, counting
+    its NCCL kernels and device-to-device copies per round."""
+    from repro_torch.core.fleet import FleetScan, fleet_init
+    from repro_torch.data.workload import fleet_traces
+    from repro_torch.distributed.sharding import COLLECTIVES
+    warm, n = 8, cfg.n_steps
+    gen = torch.Generator()
+    gen.manual_seed(1)
+    traces = fleet_traces(gen, 8, (warm + 2 * n_episodes) * n, device=DEV)
+    driver = FleetScan(cfg, fleet_init(cfg, 8, 0, n_pods=2, device=DEV,
+                                       env_backend=backend, mesh=mesh),
+                       traces, env_backend=backend, mesh=mesh)
+    for _ in range(warm):
+        driver.step()
+    per_step = []
+
+    def steps():
+        for _ in range(n_episodes):
+            before = driver.graph_launches
+            driver.step()
+            per_step.append(driver.graph_launches - before)
+    rounds = lambda: int(driver.schedule[driver.episodes:
+                                         driver.episodes + n_episodes].sum())
+    c0 = COLLECTIVES.launches
+    wall = timed(torch, steps)
+    out = dict(ms=wall / n_episodes * 1e3, graph_launches=max(per_step),
+               collectives_per_episode=(COLLECTIVES.launches - c0)
+               / n_episodes,
+               # per replay of the episode, round and merge graphs
+               collectives_per_body=[g.launches.get(COLLECTIVES, 0)
+                                     for g in driver.graphs])
+    if max(per_step) > 3:
+        raise AssertionError(f"[mesh] a replayed episode took "
+                             f"{max(per_step)} graph launches (at most 3)")
+    if profile:
+        from torch.profiler import ProfilerActivity, profile as prof_ctx
+        n_rounds = rounds()
+        with prof_ctx(activities=[ProfilerActivity.CPU,
+                                  ProfilerActivity.CUDA]) as prof:
+            steps()
+            torch.cuda.synchronize()
+        averages = prof.key_averages()
+        out["nccl_kernels_per_round"] = sum(
+            e.count for e in averages if "nccl" in e.key.lower()) / n_rounds
+        out["dtod_per_round"] = sum(
+            e.count for e in averages if "DtoD" in e.key) / n_rounds
+        out["kernels_per_episode"] = sum(
+            e.count for e in averages
+            if str(e.device_type).endswith("CUDA")) / n_episodes
+    return out
+
+
+def mesh_phase(torch, cfg):
+    """``train_fleet --mesh``. One NCCL rank: the CLI default (20
+    episodes), fluid, twin and int8, ``--mesh fleet`` under the graph
+    driver against ``--mesh none`` bit for bit (histories, the whole
+    final fleet, K1–K3 launches), the graph launches per episode and the
+    collectives and NCCL kernels per round, ms per replayed episode meshed
+    and meshless in turns (none, fleet, fleet, none); ``--mesh debug`` ==
+    ``--mesh none``; ``--mesh production`` raises, naming the ranks it
+    needs and the world's. Then two gloo ranks on the card
+    (``mesh_two_ranks``). Returns the windows."""
+    import numpy as np
+    import torch.distributed as dist
+    from repro_torch.core import fleet as fleet_mod
+    from repro_torch.distributed.sharding import COLLECTIVES
+    from repro_torch.launch import mesh as mesh_mod
+    from repro_torch.launch import train_fleet
+    mesh_mod.init_world("cuda")
+    try:
+        for argv, meshed in ((["--episodes", "20"], "fleet"),
+                             (["--episodes", "20", "--env-backend", "twin"],
+                              "fleet"),
+                             (["--episodes", "20", "--fl-codec", "int8"],
+                              "fleet"),
+                             (["--episodes", "8", "--fl-every", "1"],
+                              "debug")):
+            runs = {}
+            for mesh in ("none", meshed):
+                reset_launches()
+                COLLECTIVES.launches = 0
+                with graph_spy(fleet_mod) as graphs:
+                    fleet, hist = train_fleet.main(
+                        [*argv, "--device", DEV, "--mesh", mesh])
+                torch.cuda.synchronize()
+                runs[mesh] = (hist, dict(leaves(fleet_mod.fleet_to_numpy(
+                    fleet_mod.fleet_gather(fleet)))), read_launches()[:3],
+                    sum(g.replays for g in graphs), COLLECTIVES.launches)
+            (h0, s0, k0, g0, c0), (h1, s1, k1, g1, c1) = runs.values()
+            for name, v in [*h0.items(), *s0.items()]:
+                w = h1[name] if name in h1 else s1[name]
+                if not np.array_equal(raw(v), raw(w)):
+                    raise AssertionError(f"[mesh] {argv}: {name} differs "
+                                         f"from the meshless run's")
+            if k0 != k1 or g0 != g1 or c0 or not c1:
+                raise AssertionError(f"[mesh] {argv}: launches {k1} / "
+                                     f"{k0}, graph launches {g1} / {g0}, "
+                                     f"collectives {c1} / {c0}")
+            log(f"  {' '.join(argv)} --mesh {meshed} (1 NCCL rank) "
+                f"== --mesh none bit for bit: {len(h0)} metrics, {len(s0)} "
+                f"leaves; K1, K2, K3 {k1}, {g1} graph launches and {c1} "
+                f"collectives in the run")
+        try:
+            train_fleet.main(["--episodes", "2", "--device", DEV, "--mesh",
+                              "production"])
+            raise AssertionError("[mesh] --mesh production ran on 1 rank")
+        except ValueError as e:
+            if "512 ranks; the world has 1" not in str(e):
+                raise
+            log(f"  --mesh production on 1 rank: ValueError: {e}")
+        windows = {}
+        mesh = mesh_mod.make_fleet_mesh(1, 2, "cuda")
+        for backend in ("fluid", "twin"):
+            turns = [mesh_window(torch, cfg, backend, m)
+                     for m in (None, mesh, mesh, None)]
+            plain = mesh_window(torch, cfg, backend, None, profile=True)
+            windows[backend] = dict(
+                meshless_ms=[turns[0]["ms"], turns[3]["ms"]],
+                meshed_ms=[turns[1]["ms"], turns[2]["ms"]],
+                meshless_kernels_per_episode=plain["kernels_per_episode"],
+                meshless_dtod_per_round=plain["dtod_per_round"],
+                **mesh_window(torch, cfg, backend, mesh, profile=True))
+            log(f"  {backend}: ms per replayed episode meshless / meshed in "
+                f"turns {turns[0]['ms']:.3f}, {turns[1]['ms']:.3f}, "
+                f"{turns[2]['ms']:.3f}, {turns[3]['ms']:.3f}; graph "
+                f"launches an episode at most {windows[backend]['graph_launches']}"
+                f"; {windows[backend]['collectives_per_episode']:.1f} "
+                f"collectives an episode (episode / round / merge graphs "
+                f"{windows[backend]['collectives_per_body']}), the "
+                f"profiler's NCCL kernels "
+                f"{windows[backend]['nccl_kernels_per_round']:.1f} and "
+                f"device copies {windows[backend]['dtod_per_round']:.1f} a "
+                f"round (meshless "
+                f"{windows[backend]['meshless_dtod_per_round']:.1f}), "
+                f"{windows[backend]['kernels_per_episode']:.0f} kernels an "
+                f"episode (meshless "
+                f"{windows[backend]['meshless_kernels_per_episode']:.0f}), "
+                f"profiled")
+    finally:
+        dist.destroy_process_group()
+    mesh_two_ranks(torch)
+    return windows
+
+
 def card():
     """The card's name and power limit, as nvidia-smi reports them."""
     return subprocess.run(
@@ -3310,19 +3647,20 @@ def main():
     log("[twin reference] small twin run, card vs CPU")
     run_pair(torch, FCPOConfig(fl_every=1), "twin")
     log("[chaos] train_fleet " + " ".join(CHAOS_ARGV))
-    k_chaos = {"fluid": drive(torch, ["--episodes", "20", *CHAOS_ARGV], 20,
+    k_chaos = {"fluid": drive(torch, ["--episodes", str(CUT_EPISODES),
+                                      *CHAOS_ARGV], CUT_EPISODES,
                               cfg.fl_every, n),
                "twin": drive(torch, ["--env-backend", "twin", "--episodes",
-                                     "20", *CHAOS_ARGV], 20, cfg.fl_every,
-                             n)}
+                                     str(CUT_EPISODES), *CHAOS_ARGV],
+                             CUT_EPISODES, cfg.fl_every, n)}
     log("  launches of K1, K2, K3 on the slice's path: "
         + json.dumps(k_chaos))
     graph_parity(torch, "fluid", chaos=True)
     graph_parity(torch, "twin", chaos=True)
     run_pair(torch, FCPOConfig(fl_every=1), "fluid", chaos=True)
     run_pair(torch, FCPOConfig(fl_every=1), "twin", chaos=True)
-    profile_episodes(torch, cfg, **chaos_kwargs())
-    profile_episodes(torch, cfg, "twin", **chaos_kwargs())
+    profile_episodes(torch, cfg, reference=False, **chaos_kwargs())
+    profile_episodes(torch, cfg, "twin", reference=False, **chaos_kwargs())
     log("[state dtype] train_fleet --state-dtype bf16 / lean")
     state_dtype_phase(torch, cfg)
     log("[resume] train_fleet --state-dtype lean " + " ".join(NOISE_ARGV)
@@ -3333,8 +3671,10 @@ def main():
     log("[health] train_fleet --health --metrics-out --alerts-out, fluid "
         "and twin, plain and with the chaos flags and --susp-threshold 0.5")
     health_phase(torch, cfg, default_windows,
-                 {"fluid": (20, 0, 0), "fluid chaos": k_chaos["fluid"],
-                  "twin": (20, 0, 20 * n), "twin chaos": k_chaos["twin"]})
+                 {"fluid": (CUT_EPISODES, 0, 0),
+                  "fluid chaos": k_chaos["fluid"],
+                  "twin": (CUT_EPISODES, 0, CUT_EPISODES * n),
+                  "twin chaos": k_chaos["twin"]})
     log("[metrics] the JSONL stream, watch, the sink's cost")
     metrics_phase(torch, cfg)
     log("[leaderboard] a reduced grid from the [main path] run's "
@@ -3363,6 +3703,10 @@ def main():
         + json.dumps(ablation_counts) + "; K2 single-head round: "
         + json.dumps({c: k2_single[(c, 8)]["ms"]
                       for c in ("int8", "topk")}))
+    log("[mesh] train_fleet --mesh fleet / debug / production on 1 NCCL "
+        "rank (graph driver), 2 gloo ranks on the card")
+    mesh_windows = mesh_phase(torch, cfg)
+    log("  [mesh] windows: " + json.dumps(mesh_windows))
 
     log("[K5] decode_attention vs plain")
     k5_err, k5_t = check_k5(torch, gen)
@@ -3441,4 +3785,8 @@ def main():
 
 
 if __name__ == "__main__":
-    main()
+    if sys.argv[1:2] == ["--mesh-rank"]:
+        mesh_rank(int(sys.argv[2]), int(sys.argv[3]), sys.argv[4],
+                  sys.argv[5])
+    else:
+        main()

@@ -34,6 +34,7 @@ from torch import nn
 from repro_torch import resolve_device
 from repro_torch.configs.fcpo import FCPOConfig
 from repro_torch.core.dtypes import from_numpy, to_numpy
+from repro_torch.distributed.sharding import agent_slice
 
 BACKBONE_KEYS = ("backbone", "value")          # equally-aggregated (Alg. 1)
 HEAD_KEYS = ("head_res", "head_bs", "head_mt")  # loss-weighted layers
@@ -231,17 +232,20 @@ def _take(logp, a):
 
 
 def sample_actions(cfg: FCPOConfig, params, state, mask: ActionMask,
-                   gumbel=None, generator=None):
+                   gumbel=None, generator=None, place=None):
     """Sample (res, bs, mt) per agent by Gumbel-max: ``argmax(logp + g)``.
 
     ``gumbel`` ((A, ``noise_width(cfg)``)) is pre-drawn noise; without it
-    the noise is drawn from ``generator``. The single head draws one joint
-    action and decodes it. Returns (actions (A, 3) long, logp (A,),
-    out-dict)."""
+    the noise is drawn from ``generator``: for the whole fleet under a
+    meshed fleet's placement ``place``, which keeps this rank's rows (so
+    agent i's draw does not depend on the world size). The single head
+    draws one joint action and decodes it. Returns (actions (A, 3) long,
+    logp (A,), out-dict)."""
     out = agent_forward(cfg, params, state, mask)
     if gumbel is None:
-        gumbel = sample_gumbel(state.shape[:-1] + (noise_width(cfg),),
-                               generator)
+        rows = state.shape[:-1] if place is None else (place.n_agents,)
+        gumbel = agent_slice(sample_gumbel(rows + (noise_width(cfg),),
+                                           generator), place)
     if cfg.single_head:
         aj = torch.argmax(gumbel + out["joint"], dim=-1)
         nbm = cfg.n_bs * cfg.n_mt

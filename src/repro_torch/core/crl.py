@@ -46,7 +46,7 @@ class AgentState:
 
 
 def _steps(cfg, ep, astate: AgentState, rates, mask, backend, gumbel,
-           generator, buffer=None):
+           generator, buffer=None, place=None):
     """The episode's control steps for every agent: observe -> sample ->
     env step. Returns (the per-step outputs stacked to (A, T, ...), the
     final env state, and ``buffer`` with each step's candidates inserted
@@ -64,7 +64,7 @@ def _steps(cfg, ep, astate: AgentState, rates, mask, backend, gumbel,
         actions, logp, out = sample_actions(
             cfg, params, obs, mask,
             gumbel=None if gumbel is None else gumbel[:, t],
-            generator=generator)
+            generator=generator, place=place)
         est2, reward, info = backend.step(cfg, ep, est, actions, rate)
         est = tree_cast_like(est2, est)
         probs = torch.cat([out["res"].exp(), out["bs"].exp(),
@@ -93,18 +93,20 @@ def _outputs(ys):
 
 def run_episode(cfg: FCPOConfig, ep: env_mod.EnvParams, astate: AgentState,
                 rates: torch.Tensor, mask: ActionMask, backend=FLUID,
-                gumbel=None, generator=None, health: bool = False
+                gumbel=None, generator=None, health: bool = False,
+                place=None
                 ) -> Tuple[AgentState, Rollout, Dict[str, torch.Tensor]]:
     """Collect one episode for every agent (rates: (A, n_steps) arrivals
     per interval). ``gumbel`` ((A, n_steps, ``noise_width(cfg)``)) is
     pre-drawn action noise; without it the noise comes from
-    ``generator``.
+    ``generator`` (``place``: a meshed fleet's placement, as
+    ``sample_actions`` takes it).
     ``health`` adds a ``"_health"`` entry of raw per-interval telemetry
     for the health observatory ((A, T) reward, SLO-miss rate and arrival
     rate, (A, T, K) action marginals); every other output is unchanged."""
     with torch.no_grad():
         ys, est, _ = _steps(cfg, ep, astate, rates, mask, backend, gumbel,
-                            generator)
+                            generator, place=place)
         buffer = buffer_insert_batch(cfg, astate.buffer, ys["obs"],
                                      ys["actions"], ys["logp"],
                                      ys["rewards"], ys["values"],
@@ -141,14 +143,14 @@ def run_episode_reference(cfg: FCPOConfig, ep: env_mod.EnvParams,
 def crl_episode(cfg: FCPOConfig, ep: env_mod.EnvParams, astate: AgentState,
                 rates: torch.Tensor, mask: ActionMask, learn: bool = True,
                 backend=FLUID, gumbel=None, generator=None,
-                health: bool = False
+                health: bool = False, place=None
                 ) -> Tuple[AgentState, Rollout, Dict[str, torch.Tensor]]:
     """Episode + gated online update (the CRL inner loop). Metrics are
     (A,) tensors (``health``: plus ``run_episode``'s telemetry)."""
     astate, rollout, metrics = run_episode(cfg, ep, astate, rates, mask,
                                            backend=backend, gumbel=gumbel,
                                            generator=generator,
-                                           health=health)
+                                           health=health, place=place)
     a = rates.shape[0]
     if learn:
         params, opt, lm = agent_update(cfg, astate.policy.params(),

@@ -16,7 +16,11 @@ Port of ``repro.core.federated``:
 
 The segment sums are ``index_add_`` (they sum in another order than
 ``jax.ops.segment_sum``, so results agree to float32 roundoff; so does the
-trimmed mean's sum, while the median is bit for bit). The robust ranks
+trimmed mean's sum, while the median is bit for bit). On a device mesh
+(``place``, a ``core.fleet.Placement``) each rank holds a slice of the
+agents: the segment sums are its partial sums, all-reduced over the ranks
+(``distributed.sharding.agent_allreduce``), and the selection and the
+robust statistics all-gather what they rank. The robust ranks
 are read with ``gather`` at device indices (no host sync). An agent
 outside the selection enters every sum through a ``where``, not a multiply
 by zero, so a rejected non-finite contribution cannot reach any pod member
@@ -35,6 +39,8 @@ from repro_torch.configs.fcpo import FCPOConfig
 from repro_torch.core.agent import (BACKBONE_KEYS, HEAD_KEYS, ActionMask,
                                     agent_forward)
 from repro_torch.core.ppo import Rollout, _normalized_adv
+from repro_torch.distributed.sharding import (agent_allgather,
+                                              agent_allreduce, agent_slice)
 
 
 def per_head_losses(cfg: FCPOConfig, params, rollout: Rollout,
@@ -68,24 +74,28 @@ def total_utility(stats: ClientStats) -> torch.Tensor:
 
 
 def select_clients(cfg: FCPOConfig, stats: ClientStats, suspicion=None,
-                   susp_threshold: float = 0.0) -> torch.Tensor:
+                   susp_threshold: float = 0.0, place=None) -> torch.Tensor:
     """Top-⌈frac·A⌉ by TotalUtil among available clients -> (A,) bool.
     ``suspicion`` ((A,) in [0, 1], the health observatory's EMA from the
     previous round) with ``susp_threshold`` > 0 takes the suspects out of
     the pool before the top-k, so that an excluded client frees its slot
-    for the next candidate instead of shrinking the round."""
-    a = stats.available.shape[0]
-    k = max(1, int(round(cfg.clients_per_round * a)))
+    for the next candidate instead of shrinking the round. ``place``: a
+    meshed fleet's placement: the utilities of every rank's agents are
+    all-gathered, every rank ranks the whole fleet the same way, and the
+    result is this rank's slice of the global selection."""
     available = stats.available
     if suspicion is not None and susp_threshold > 0.0:
         available = available & (suspicion <= susp_threshold)
-    utils = torch.where(available, total_utility(stats), -torch.inf)
+    utils = agent_allgather(torch.where(available, total_utility(stats),
+                                        -torch.inf), place)
+    a = utils.shape[0]
+    k = max(1, int(round(cfg.clients_per_round * a)))
     order = torch.argsort(-utils, stable=True)
     # index_fill_ keeps the value on the host side of the launch (an
     # indexed assignment would copy it to the device: no CUDA graph capture)
     sel = torch.zeros(a, dtype=torch.bool, device=utils.device).index_fill_(
         0, order[:k], True)
-    return sel & available
+    return agent_slice(sel, place) & available
 
 
 def _segment_sum(x, seg, n):
@@ -98,12 +108,15 @@ def _rows(w, like):
     return w.reshape((-1,) + (1,) * (like.dim() - 1))
 
 
-def _masked_mean_with_base(stacked, base, sel, pod_ids, n_pods):
+def _masked_mean_with_base(stacked, base, sel, pod_ids, n_pods, place=None):
     """(base + Σ_sel m) / (n_sel + 1) per pod. Returns (per-agent (A, ...),
-    new base (P, ...))."""
-    wsum = _segment_sum(sel.to(stacked.dtype), pod_ids, n_pods)
-    ssum = _segment_sum(torch.where(_rows(sel, stacked), stacked, 0.0),
-                        pod_ids, n_pods)
+    new base (P, ...)); on a mesh the per-pod sums are this rank's partial
+    sums, all-reduced."""
+    wsum = agent_allreduce(_segment_sum(sel.to(stacked.dtype), pod_ids,
+                                        n_pods), place)
+    ssum = agent_allreduce(_segment_sum(
+        torch.where(_rows(sel, stacked), stacked, 0.0), pod_ids, n_pods),
+        place)
     agg = (base + ssum) / _rows(wsum + 1.0, base)
     return agg[pod_ids], agg
 
@@ -160,20 +173,23 @@ def _with_base(stacked, b_seg, valid):
 def _robust_masked_with_base(stacked, base, sel, pod_ids, n_pods,
                              method: str, trim_frac: float):
     """The robust counterpart of ``_masked_mean_with_base``: the per-pod
-    statistic over {selected clients of the pod} ∪ {the pod's base}."""
+    statistic over {selected clients of the pod} ∪ {the pod's base}, (P,
+    ...). Every agent's row enters: on a mesh, the gathered whole fleet's."""
     pods = torch.arange(n_pods, device=sel.device)
     valid = sel[None, :] & (pod_ids[None, :] == pods[:, None])
-    agg = _robust_stat(*_with_base(stacked, base, valid), method, trim_frac)
-    return agg[pod_ids], agg
+    return _robust_stat(*_with_base(stacked, base, valid), method, trim_frac)
 
 
-def _head_weights(sel, losses_h, group_ids, n_groups):
-    """Loss-centered exponential weights, renormalized within a segment."""
-    cnt = _segment_sum(sel.to(torch.float32), group_ids, n_groups)
-    lsum = _segment_sum(torch.where(sel, losses_h, 0.0), group_ids, n_groups)
+def _head_weights(sel, losses_h, group_ids, n_groups, place=None):
+    """Loss-centered exponential weights, renormalized within a segment
+    (its sums over every rank's agents on a mesh)."""
+    cnt = agent_allreduce(_segment_sum(sel.to(torch.float32), group_ids,
+                                       n_groups), place)
+    lsum = agent_allreduce(_segment_sum(torch.where(sel, losses_h, 0.0),
+                                        group_ids, n_groups), place)
     mean_l = lsum / torch.clamp_min(cnt, 1.0)
     raw = torch.where(sel, torch.exp(-(losses_h - mean_l[group_ids])), 0.0)
-    rsum = _segment_sum(raw, group_ids, n_groups)
+    rsum = agent_allreduce(_segment_sum(raw, group_ids, n_groups), place)
     return raw * (cnt / torch.clamp_min(rsum, 1e-9))[group_ids]
 
 
@@ -181,46 +197,58 @@ def aggregate(cfg: FCPOConfig, fleet_params: Dict[str, torch.Tensor],
               base_params: Dict[str, torch.Tensor], sel: torch.Tensor,
               head_losses: torch.Tensor, head_groups: Dict[str, torch.Tensor],
               group_counts: Dict[str, int], pod_ids: torch.Tensor,
-              n_pods: int, method: str = "mean", trim_frac: float = 0.2
-              ) -> Tuple[Dict, Dict]:
+              n_pods: int, method: str = "mean", trim_frac: float = 0.2,
+              place=None) -> Tuple[Dict, Dict]:
     """Algorithm 1. fleet_params {name: (A, ...)}, base_params
     {name: (P, ...)}, sel (A,) bool, head_losses (A, 3), head_groups
     {head: (A,) group ids} with ``group_counts`` {head: n groups}.
     ``method``: ``"mean"`` (the paper's), or ``"trimmed"`` / ``"median"``,
     the robust statistics, which also drop the heads' loss weighting.
-    Returns (new_fleet_params, new_base_params)."""
+    ``place``: a meshed fleet's placement. The agent-leading arguments are
+    then this rank's agents and ``base_params`` the whole (P, ...) base
+    networks: the segment sums are partial sums, all-reduced over the
+    ranks; the robust statistics need every value of a segment and
+    all-gather the rows. Returns (new_fleet_params for the agents given,
+    the whole new_base_params)."""
     if method not in AGG_METHODS:
         raise ValueError(f"unknown aggregation method {method!r}; expected "
                          f"one of {AGG_METHODS}")
     robust = method != "mean"
+    whole = lambda x: agent_allgather(x, place)
+    if robust:
+        sel_all, pods_all = whole(sel), whole(pod_ids)
     new_fleet, new_base = {}, {}
     for name, st in fleet_params.items():
         top = name.split(".")[0]
         b = base_params[name]
         if top in BACKBONE_KEYS:
             if robust:
-                new_fleet[name], new_base[name] = _robust_masked_with_base(
-                    st, b, sel, pod_ids, n_pods, method, trim_frac)
+                agg = _robust_masked_with_base(whole(st), b, sel_all,
+                                               pods_all, n_pods, method,
+                                               trim_frac)
+                new_fleet[name], new_base[name] = agg[pod_ids], agg
             else:
                 new_fleet[name], new_base[name] = _masked_mean_with_base(
-                    st, b, sel, pod_ids, n_pods)
+                    st, b, sel, pod_ids, n_pods, place)
             continue
         h_idx = HEAD_KEYS.index(top)
         n_g = group_counts[top]
         seg = pod_ids * n_g + head_groups[top]     # pod×group segments
         n_seg = n_pods * n_g
-        cnt = _segment_sum(sel.to(torch.float32), seg, n_seg)
+        cnt = agent_allreduce(_segment_sum(sel.to(torch.float32), seg,
+                                           n_seg), place)
         b_seg = torch.repeat_interleave(b, n_g, dim=0)
         if robust:
             segs = torch.arange(n_seg, device=seg.device)
-            valid = sel[None, :] & (seg[None, :] == segs[:, None])
-            agg = _robust_stat(*_with_base(st, b_seg, valid), method,
+            valid = sel_all[None, :] & (whole(seg)[None, :] == segs[:, None])
+            agg = _robust_stat(*_with_base(whole(st), b_seg, valid), method,
                                trim_frac)
         else:
-            wts = _head_weights(sel, head_losses[:, h_idx], seg, n_seg)
-            ssum = _segment_sum(torch.where(_rows(sel, st),
-                                            st * _rows(wts, st), 0.0),
-                                seg, n_seg)
+            wts = _head_weights(sel, head_losses[:, h_idx], seg, n_seg,
+                                place)
+            ssum = agent_allreduce(_segment_sum(
+                torch.where(_rows(sel, st), st * _rows(wts, st), 0.0),
+                seg, n_seg), place)
             agg = (b_seg + ssum) / _rows(cnt + 1.0, b_seg)   # (n_seg, ...)
         # groups with no contributor keep the agent's own head
         has = _rows(cnt[seg] > 0, st)

@@ -62,16 +62,36 @@ are ``span_stamp`` nodes of its graphs reading the episode counter and
 the sampling period from device memory, and on the CPU host spans. A
 traced run computes the untraced run's numbers bit for bit; without a
 tracer the bodies dispatch exactly the untraced ops.
+
+Meshes (``fleet_init(..., mesh=...)``, the drivers' ``mesh=``): on a
+``torch.distributed`` device mesh (``launch/mesh.py``) the fleet carries a
+``Placement`` and each rank holds the agents ``agent_spec`` gives it and
+the pods ``pod_spec`` gives it. Everything per agent stays local (the
+episode, K1, K2, K3); the FL round's cross-agent steps go through the
+collectives of ``distributed/sharding.py``: Eq. 7 ranks the all-gathered
+utilities, Algorithm 1's segment sums are partial sums all-reduced over
+the ranks, the robust statistics, medians and pod merge read gathered
+rows, and the counters and episode means are world reductions. The inputs
+(traces, availability and fault bits, pre-drawn noise) are the whole
+fleet's and sliced by ``agent_batch_spec``; the fleet's generators draw
+the whole fleet's noise on every rank and keep the rank's rows, so agent
+i's draws do not depend on the world size. A rank's agents are split only
+where A divides the mesh; otherwise every rank holds every agent and the
+sums stay local. On a mesh the collectives run at every world size, one
+included. On the card the graph driver captures them (NCCL); a gloo mesh
+cannot be captured, and the graph driver refuses it there.
 """
 from __future__ import annotations
 
 from collections import deque
 from contextlib import nullcontext
+import copy
 from dataclasses import dataclass, fields, is_dataclass, replace
-from typing import Dict, Optional
+from typing import Any, Dict, Optional
 
 import numpy as np
 import torch
+import torch.distributed as dist
 
 from repro_torch import resolve_device
 from repro_torch.configs.fcpo import FCPOConfig
@@ -89,6 +109,10 @@ from repro_torch.core.buffer import (DiversityBuffer, buffer_cast,
 from repro_torch.core.crl import EPISODE_METRICS, AgentState, crl_episode
 from repro_torch.core.graphs import GraphedBody, copy_into, full_float32
 from repro_torch.core.ppo import Rollout, agent_opt_init, finetune_heads
+from repro_torch.distributed import sharding as shd
+from repro_torch.distributed.sharding import (agent_allgather,
+                                              agent_allreduce, agent_slice,
+                                              pod_allgather, pod_slice)
 from repro_torch.fl import staleness as fl_stale
 from repro_torch.fl import transport as fl_transport
 from repro_torch.fl.codec import codec_roundtrip, residuals_init
@@ -105,6 +129,74 @@ from repro_torch.resilience.faults import FaultConfig
 from repro_torch.resilience.guards import (DEFAULT_GUARDS, GuardConfig,
                                            clip_deltas, finite_mask)
 from repro_torch.sim.state import SimState
+
+
+@dataclass(frozen=True)
+class Placement:
+    """Where a meshed fleet lives: the ``mesh``, the whole fleet's
+    ``n_agents`` / ``n_pods``, this rank's ``agents`` and ``pods`` ranges
+    (from ``agent_spec`` on (A, ...) and ``pod_spec`` on (P, ...)), and
+    the process groups of the collectives: ``agent_group`` holds each
+    agent once (None where agents are replicated over the ranks),
+    ``pod_group`` each pod once, ``world`` every rank. At one rank the
+    world holds each agent and pod once, and is both groups."""
+    mesh: Any
+    n_agents: int
+    n_pods: int
+    agents: slice
+    pods: slice
+    agent_group: Any
+    pod_group: Any
+    world: Any
+    rank: int
+    world_size: int
+
+    @property
+    def agents_split(self) -> bool:
+        """The ranks partition the agents (at one rank, trivially)."""
+        return self.agent_group is not None
+
+
+def _axes_group(mesh, axes):
+    """The process group of this rank's ranks along ``axes`` (the other
+    coordinates fixed), in the order of the shards along them."""
+    sizes = shd.axis_sizes(mesh)
+    if all(sizes[a] == 1 for a in sizes if a not in axes):
+        return dist.group.WORLD
+    if len(axes) == 1:
+        return mesh.get_group(axes[0])
+    names = list(mesh.mesh_dim_names)
+    ranks = mesh.mesh.permute([names.index(a) for a in names
+                               if a not in axes]
+                              + [names.index(a) for a in axes])
+    rows = ranks.reshape(-1, ranks.shape[-len(axes):].numel()).tolist()
+    group, _ = dist.new_subgroups_by_enumeration(rows)
+    return group
+
+
+def fleet_placement(mesh, n_agents: int, n_pods: int) -> Placement:
+    """This rank's placement of a fleet of ``n_agents`` agents in
+    ``n_pods`` pods on ``mesh`` (a ``DeviceMesh``; every rank calls it:
+    groups over several axes are created collectively)."""
+    sizes = shd.axis_sizes(mesh)
+    coord = dict(zip(mesh.mesh_dim_names, mesh.get_coordinate()))
+    world_size = dist.get_world_size()
+
+    def part(n, spec):
+        axes = shd.spec_axes(spec)
+        if not axes:
+            return slice(0, n), (dist.group.WORLD if world_size == 1
+                                 else None)
+        idx, k = 0, 1
+        for a in axes:
+            idx, k = idx * sizes[a] + coord[a], k * sizes[a]
+        m = n // k
+        return slice(idx * m, (idx + 1) * m), _axes_group(mesh, axes)
+    agents, agent_group = part(n_agents, shd.agent_spec((n_agents,), mesh))
+    pods, pod_group = part(n_pods, shd.pod_spec((n_pods,), mesh))
+    return Placement(mesh, n_agents, n_pods, agents, pods, agent_group,
+                     pod_group, dist.group.WORLD, dist.get_rank(),
+                     world_size)
 
 
 @dataclass
@@ -130,9 +222,107 @@ class Fleet:
     episode: int = 0
     fault_generator: Optional[torch.Generator] = None   # byzantine noise
     health: Optional[HealthState] = None   # the observatory's state, (A, ...)
+    placement: Optional[Placement] = None  # a meshed fleet's; None: whole
 
     def replace(self, **kw) -> "Fleet":
         return replace(self, **kw)
+
+
+def _restacked(policy: AgentPolicy, params) -> AgentPolicy:
+    """A copy of ``policy`` holding ``params`` (any leading size)."""
+    new = copy.deepcopy(policy)
+    for name, t in params.items():
+        mod, leaf = name.rsplit(".", 1)
+        old = getattr(new.get_submodule(mod), leaf)
+        setattr(new.get_submodule(mod), leaf,
+                torch.nn.Parameter(t, requires_grad=old.requires_grad))
+    return new
+
+
+def _map_fleet(fleet: Fleet, on_agents, on_pods, on_rng, **kw) -> Fleet:
+    """``fleet`` with ``on_agents`` applied to every agent-leading tensor,
+    ``on_pods`` to every pod-leading one and ``on_rng`` to the host keys
+    (in one fixed order on every rank, as collectives need); ``kw``
+    replaces fields."""
+    a = fleet.astate
+    agents = lambda t: dtp.tree_map(on_agents, t)
+    astate = AgentState(
+        _restacked(a.policy, agents({k: v.detach() for k, v in
+                                     a.policy.params().items()})),
+        agents(a.opt), agents(a.buffer), agents(a.env_state))
+    base = _restacked(fleet.base, dtp.tree_map(on_pods, {
+        k: v.detach() for k, v in fleet.base.params().items()}))
+    return fleet.replace(
+        astate=astate, base=base, env_params=agents(fleet.env_params),
+        masks=agents(fleet.masks), group_ids=agents(fleet.group_ids),
+        pod_ids=agents(fleet.pod_ids), bandwidth=agents(fleet.bandwidth),
+        speeds=agents(fleet.speeds), residuals=agents(fleet.residuals),
+        pending=agents(fleet.pending),
+        crash_timer=agents(fleet.crash_timer),
+        partition_timer=on_pods(fleet.partition_timer),
+        health=None if fleet.health is None else agents(fleet.health),
+        rng=on_rng(fleet.rng), **kw)
+
+
+def fleet_shard(fleet: Fleet, place: Placement) -> Fleet:
+    """This rank's slice of a whole fleet (the rows ``place`` gives it, as
+    copies); the generators are the whole fleet's."""
+    if fleet.placement is not None:
+        raise ValueError("fleet_shard: the fleet is already placed")
+    if int(fleet.pod_ids.shape[0]) != place.n_agents:
+        raise ValueError(f"fleet_shard: a fleet of "
+                         f"{int(fleet.pod_ids.shape[0])} agents, a placement "
+                         f"of {place.n_agents}")
+    return _map_fleet(fleet, lambda t: agent_slice(t, place).clone(),
+                      lambda t: pod_slice(t, place).clone(),
+                      lambda r: agent_slice(r, place).copy(), placement=place)
+
+
+def fleet_gather(fleet: Fleet) -> Fleet:
+    """The whole fleet of a meshed one, assembled on every rank from the
+    ranks' slices (collectives: every rank calls it); a whole fleet is
+    returned as it is."""
+    place = fleet.placement
+    if place is None:
+        return fleet
+    dev = fleet.pod_ids.device
+
+    def rng(r):
+        keys = agent_allgather(torch.as_tensor(r.astype(np.int64),
+                                               device=dev), place)
+        return keys.cpu().numpy().astype(np.uint32)
+    return _map_fleet(fleet, lambda t: agent_allgather(t, place),
+                      lambda t: pod_allgather(t, place), rng, placement=None)
+
+
+def fleet_shardings(fleet: Fleet, mesh) -> Dict[str, Any]:
+    """The specs of the fleet's leaves on ``mesh``, in ``fleet_to_numpy``'s
+    layout: agent-stacked leaves by ``agent_spec``, the per-pod base
+    networks and partition timer by ``pod_spec``, the episode counter
+    replicated (the JAX package's ``fleet_shardings``). Leading sizes are
+    the whole fleet's, whatever rows this rank holds."""
+    place = fleet.placement
+    n_a = int(fleet.pod_ids.shape[0]) if place is None else place.n_agents
+    n_p = fleet.n_pods
+    spec = lambda fn, n: lambda x: fn((n,) + tuple(np.shape(x)[1:]), mesh)
+    agent, pod = spec(shd.agent_spec, n_a), spec(shd.pod_spec, n_p)
+
+    def walk(node, fn):
+        if isinstance(node, dict):
+            return {k: walk(v, fn) for k, v in node.items()}
+        return fn(node)
+    tree = fleet_to_numpy(fleet)
+    out = {k: walk(v, agent) for k, v in tree.items()
+           if k not in ("base_params", "partition_timer", "episode")}
+    out.update(base_params=walk(tree["base_params"], pod),
+               partition_timer=pod(tree["partition_timer"]), episode=())
+    return out
+
+
+def _n_agents(fleet: Fleet) -> int:
+    """The whole fleet's agent count (this rank's slice may hold fewer)."""
+    return (int(fleet.pod_ids.shape[0]) if fleet.placement is None
+            else fleet.placement.n_agents)
 
 
 def agent_keys(seed: int, n_agents: int) -> np.ndarray:
@@ -169,7 +359,7 @@ def fleet_init(cfg: FCPOConfig, n_agents: int, seed: int = 0, *,
                n_pods: int = 1, masks: Optional[ActionMask] = None,
                speeds=None, bandwidth=None, device="cuda", env_backend=None,
                slo_s: Optional[float] = None, state_policy=None,
-               health: Optional[HealthConfig] = None) -> Fleet:
+               health: Optional[HealthConfig] = None, mesh=None) -> Fleet:
     """A fresh fleet: random agents and pod base networks from ``seed``,
     the heterogeneous device mix and link bandwidths drawn from the same
     numpy streams as the reference (``default_rng(0)`` / ``(1)``).
@@ -181,7 +371,10 @@ def fleet_init(cfg: FCPOConfig, n_agents: int, seed: int = 0, *,
     ``state_policy``: a ``core/dtypes.py`` policy name or ``StatePolicy``
     (``fleet_cast``); None keeps every float leaf float32. ``health``: a
     ``HealthConfig`` attaches the observatory's state (float32 under
-    every policy); None keeps the fleet without it."""
+    every policy); None keeps the fleet without it. ``mesh``: a
+    ``torch.distributed`` device mesh; the whole fleet is built from the
+    seed exactly as without it, and this rank keeps its slice
+    (``fleet_placement``, ``fleet_shard``)."""
     dev = resolve_device(device)
     backend = get_backend(env_backend)
     gen = torch.Generator(device=dev)
@@ -212,7 +405,11 @@ def fleet_init(cfg: FCPOConfig, n_agents: int, seed: int = 0, *,
         bandwidth, residuals_init(policy.params()), gen,
         agent_keys(seed, n_agents))
     fleet = _ensure_health(cfg, fleet, health)
-    return fleet if state_policy is None else fleet_cast(fleet, state_policy)
+    if state_policy is not None:
+        fleet = fleet_cast(fleet, state_policy)
+    if mesh is None:
+        return fleet
+    return fleet_shard(fleet, fleet_placement(mesh, n_agents, n_pods))
 
 
 def fleet_cast(fleet: Fleet, state_policy) -> Fleet:
@@ -243,33 +440,39 @@ def fleet_cast(fleet: Fleet, state_policy) -> Fleet:
 
 def fleet_state_bytes(fleet: Fleet) -> Dict[str, float]:
     """Storage bytes of the fleet's state by family, plus ``total`` and
-    ``per_agent`` (the JAX package's accounting, from shapes and dtypes).
+    ``per_agent`` (the JAX package's accounting, from shapes and dtypes),
+    of the whole fleet: a meshed fleet's slices are equal, so its agent-
+    and pod-leading leaves count times the ranks' share of them.
     The port keeps four index leaves int64 where the reference has int32:
     ``buffer.actions`` (buffer), ``env_state.cur_action`` (env),
     ``pod_ids`` and ``group_ids`` (misc)."""
     a = fleet.astate
+    ka = _n_agents(fleet) // int(fleet.pod_ids.shape[0])
+    kp = fleet.n_pods // int(fleet.partition_timer.shape[0])
     fam = {
-        "model": (a.policy.params(), fleet.base.params()),
-        "opt": a.opt,
-        "buffer": a.buffer,
-        "env": (a.env_state, fleet.env_params),
-        "transport": (fleet.residuals, fleet.pending),
-        "health": () if fleet.health is None else fleet.health,
-        "misc": (fleet.masks, fleet.group_ids, fleet.pod_ids,
-                 fleet.bandwidth, fleet.speeds, fleet.crash_timer,
-                 fleet.partition_timer),
+        "model": ((a.policy.params(), ka), (fleet.base.params(), kp)),
+        "opt": ((a.opt, ka),),
+        "buffer": ((a.buffer, ka),),
+        "env": (((a.env_state, fleet.env_params), ka),),
+        "transport": (((fleet.residuals, fleet.pending), ka),),
+        "health": (((), 1) if fleet.health is None else (fleet.health, ka),),
+        "misc": (((fleet.masks, fleet.group_ids, fleet.pod_ids,
+                   fleet.bandwidth, fleet.speeds, fleet.crash_timer), ka),
+                 (fleet.partition_timer, kp)),
     }
-    out = {k: float(dtp.tree_bytes(v)) for k, v in fam.items()}
-    out["misc"] += float(fleet.rng.nbytes)
+    out = {k: float(sum(dtp.tree_bytes(t) * n for t, n in v))
+           for k, v in fam.items()}
+    out["misc"] += float(fleet.rng.nbytes * ka)
     out["total"] = float(sum(out.values()))
-    out["per_agent"] = out["total"] / max(int(fleet.pod_ids.shape[0]), 1)
+    out["per_agent"] = out["total"] / max(_n_agents(fleet), 1)
     return out
 
 
 def fleet_device_bytes(fleet: Fleet) -> Dict[int, float]:
-    """Bytes of the fleet's tensors by device index (the reference's
-    per-device placement; the port runs on one device, index 0 on the
-    CPU). The carried keys are host data and not counted."""
+    """Bytes of the fleet's tensors by device: by device index for a whole
+    fleet (the port runs it on one device, index 0 on the CPU), by rank for
+    a meshed one (each rank's slice, all-gathered: every rank calls it).
+    The carried keys are host data and not counted."""
     per: Dict[int, float] = {}
 
     def add(x):
@@ -279,8 +482,15 @@ def fleet_device_bytes(fleet: Fleet) -> Dict[int, float]:
     dtp.tree_map(add, (a.policy.params(), a.opt, a.buffer, a.env_state,
                        fleet.base.params(),
                        *(getattr(fleet, f.name) for f in fields(fleet)
-                         if f.name not in ("astate", "base"))))
-    return per
+                         if f.name not in ("astate", "base", "placement"))))
+    place = fleet.placement
+    if place is None:
+        return per
+    mine = torch.tensor([sum(per.values())], dtype=torch.float64,
+                        device=fleet.pod_ids.device)
+    parts = [torch.empty_like(mine) for _ in range(place.world_size)]
+    dist.all_gather(parts, mine, group=place.world)
+    return {r: float(p.item()) for r, p in enumerate(parts)}
 
 
 def _numpy_fields(obj):
@@ -413,14 +623,16 @@ def fleet_episode(cfg: FCPOConfig, fleet: Fleet, rates: torch.Tensor,
     ``backend``: the environment, the one the fleet was built with.
     ``health``: advance the fleet's health state through the episode's
     per-interval telemetry and add its summaries to the metrics
-    (``HEALTH_METRIC_KEYS``). Returns (fleet, rollouts, per-agent
-    metrics)."""
+    (``HEALTH_METRIC_KEYS``). A meshed fleet draws the whole fleet's noise
+    and keeps its rows (``sample_actions``). Returns (fleet, rollouts,
+    per-agent metrics)."""
     if health is not None and fleet.health is None:
         raise ValueError("fleet_episode(health=...) needs a fleet with "
                          "health state (fleet_init(..., health=...))")
     astate, rollouts, metrics = crl_episode(
         cfg, fleet.env_params, fleet.astate, rates, fleet.masks, learn,
         backend=backend, gumbel=gumbel, generator=fleet.generator,
+        place=fleet.placement,
         health=health is not None)
     hstate = fleet.health
     if health is not None:
@@ -473,10 +685,14 @@ def fl_round(cfg: FCPOConfig, fleet: Fleet, rollouts, available=None,
                          "state (fleet_init(..., health=...))")
     byz_on = faults is not None and faults.byzantine_active
     policy, astate = fleet.astate.policy, fleet.astate
+    place = fleet.placement
     params = {k: v.detach() for k, v in policy.params().items()}
-    base = {k: v.detach() for k, v in fleet.base.params().items()}
+    # the whole (P, ...) base networks: every rank's agents span every pod
+    base = {k: pod_allgather(v.detach(), place)
+            for k, v in fleet.base.params().items()}
     dev = fleet.pod_ids.device
     a = fleet.pod_ids.shape[0]
+    count = lambda m: agent_allreduce(m.sum().to(torch.float32), place)
     zero = lambda: torch.zeros((), device=dev)
     if available is None:
         available = torch.ones(a, dtype=torch.bool, device=dev)
@@ -486,15 +702,15 @@ def fl_round(cfg: FCPOConfig, fleet: Fleet, rollouts, available=None,
     # parked uploads are validated before anything reads them (selection
     # included): a poisoned parked delta must not make its owner selectable
     if guards.reject_nonfinite and transport.async_rounds:
-        pending, rejected = fl_stale.validate_pending(pending)
+        pending, rejected = fl_stale.validate_pending(pending, place)
 
     # --- communication model: static payload sizes, per-agent links
     with obs_trace.span_of(trace, "fl/uplink"):
         up_bytes = fl_transport.agent_payload_bytes(params.values(),
                                                     transport)
         full_bytes = fl_transport.full_param_bytes(params.values())
-        down_bytes = fl_transport.downlink_bytes(transport, a, fleet.n_pods,
-                                                 up_bytes, full_bytes)
+        down_bytes = fl_transport.downlink_bytes(
+            transport, _n_agents(fleet), fleet.n_pods, up_bytes, full_bytes)
         uplink_s = fl_transport.uplink_seconds(up_bytes, fleet.bandwidth)
         on_time = fl_transport.on_time_mask(uplink_s, transport.deadline_s)
         fresh_ok = available & on_time
@@ -514,7 +730,7 @@ def fl_round(cfg: FCPOConfig, fleet: Fleet, rollouts, available=None,
     # candidate
     sel = fed.select_clients(
         cfg, stats, suspicion=None if health is None else fleet.health.susp,
-        susp_threshold=guards.susp_threshold)
+        susp_threshold=guards.susp_threshold, place=place)
     with torch.no_grad():
         head_losses = fed.per_head_losses(cfg, params, rollouts, fleet.masks)
 
@@ -542,7 +758,8 @@ def fl_round(cfg: FCPOConfig, fleet: Fleet, rollouts, available=None,
                 # stays consistent
                 decoded = rfaults.corrupt_deltas(faults, decoded, byzantine,
                                                  noise=byz_noise,
-                                                 generator=generator)
+                                                 generator=generator,
+                                                 place=place)
             if transport.async_rounds:
                 w_stale = fl_stale.stale_weights(pending,
                                                  transport.staleness_decay)
@@ -555,7 +772,7 @@ def fl_round(cfg: FCPOConfig, fleet: Fleet, rollouts, available=None,
                 transmitted = fresh_sent | parked
                 pending = fl_stale.update_pending(pending, decoded, parked,
                                                   consumed, fresh_sent)
-                stale_used = consumed.sum().to(torch.float32)
+                stale_used = count(consumed)
             else:
                 contrib, sel_agg = decoded, sel  # selection needed on-time
     health_rej = None            # rejected contributions: suspicion 1
@@ -564,7 +781,7 @@ def fl_round(cfg: FCPOConfig, fleet: Fleet, rollouts, available=None,
         # dropped from aggregation
         ok = finite_mask(contrib)
         health_rej = sel_agg & ~ok
-        n_bad = health_rej.sum().to(torch.float32)
+        n_bad = count(health_rej)
         rejected = n_bad if rejected is None else rejected + n_bad
         sel_agg = sel_agg & ok
     if health is not None:
@@ -573,11 +790,11 @@ def fl_round(cfg: FCPOConfig, fleet: Fleet, rollouts, available=None,
         # only to be scored
         scored = contrib if not plain else \
             {k: params[k].float() - base_g[k] for k in params}
-        susp_new = attribution_scores(scored, sel_agg)["susp"]
+        susp_new = attribution_scores(scored, sel_agg, place)["susp"]
     if not plain:
         if guards.clip_factor > 0:
             contrib, clipped = clip_deltas(contrib, sel_agg,
-                                           guards.clip_factor)
+                                           guards.clip_factor, place)
         # only selected contributors are seen through the wire; everyone
         # else enters aggregation with their TRUE params
         rows = lambda m, x: m.reshape((-1,) + (1,) * (x.dim() - 1))
@@ -596,9 +813,11 @@ def fl_round(cfg: FCPOConfig, fleet: Fleet, rollouts, available=None,
         new_params, new_base = fed.aggregate(
             cfg, dtp.tree_f32(recon), dtp.tree_f32(base), sel_agg,
             head_losses, fleet.group_ids, fleet.group_counts, fleet.pod_ids,
-            fleet.n_pods, method=guards.agg, trim_frac=guards.trim_frac)
+            fleet.n_pods, method=guards.agg, trim_frac=guards.trim_frac,
+            place=place)
         new_params = dtp.tree_cast_like(new_params, params)
-        new_base = dtp.tree_cast_like(new_base, base)
+        new_base = dtp.tree_cast_like({k: pod_slice(v, place)
+                                       for k, v in new_base.items()}, base)
     # Algorithm 2: local action-head fine-tuning on local experiences
     with obs_trace.span_of(trace, "fl/finetune"):
         new_params, opt = finetune_heads(cfg, new_params, astate.opt,
@@ -609,12 +828,13 @@ def fl_round(cfg: FCPOConfig, fleet: Fleet, rollouts, available=None,
     astate = AgentState(policy, opt, buffer_resync(astate.buffer),
                         astate.env_state)
 
-    n_up = transmitted.sum().to(torch.float32)
+    n_up = count(transmitted)
     fl_metrics = {
         "fl_payload_bytes": n_up * up_bytes + down_bytes,
-        "fl_uplink_s": torch.where(transmitted, uplink_s, 0.0).sum()
+        "fl_uplink_s": agent_allgather(torch.where(transmitted, uplink_s,
+                                                   0.0), place).sum()
         / torch.clamp_min(n_up, 1.0),
-        "fl_missed": (available & ~on_time).sum().to(torch.float32),
+        "fl_missed": count(available & ~on_time),
         "fl_stale_used": zero() if stale_used is None else stale_used,
         "fl_rejected": zero() if rejected is None else rejected,
         "fl_clipped": zero() if clipped is None else clipped,
@@ -637,15 +857,21 @@ def pod_merge(cfg: FCPOConfig, fleet: Fleet, partition=None,
     networks are averaged and redistributed (in place). With partition
     faults, ``partition`` ((P,) bool) holds this merge's fresh draws: a
     newly partitioned pod stays off the cloud tier for
-    ``faults.partition_merges`` merges, then rejoins."""
-    base = {k: v.detach() for k, v in fleet.base.params().items()}
+    ``faults.partition_merges`` merges, then rejoins. A meshed fleet
+    gathers the base networks (and the timers), mixes the whole, and keeps
+    its pods; ``partition`` holds every pod's draw."""
+    place = fleet.placement
+    local = lambda tree: {k: pod_slice(v, place) for k, v in tree.items()}
+    base = {k: pod_allgather(v.detach(), place)
+            for k, v in fleet.base.params().items()}
     if faults is None or not faults.partition_active or partition is None:
-        fleet.base.assign(fed.merge_pods(base))
+        fleet.base.assign(local(fed.merge_pods(base)))
         return fleet
-    timer = torch.clamp_min(fleet.partition_timer - 1, 0)
+    timer = torch.clamp_min(pod_allgather(fleet.partition_timer, place) - 1,
+                            0)
     timer = torch.where(partition, faults.partition_merges, timer)
-    fleet.base.assign(fed.merge_pods(base, timer == 0))
-    return fleet.replace(partition_timer=timer)
+    fleet.base.assign(local(fed.merge_pods(base, timer == 0)))
+    return fleet.replace(partition_timer=pod_slice(timer, place))
 
 
 def _normalize_chaos(faults, guards):
@@ -675,9 +901,19 @@ def _split_health(metrics):
             {k: metrics[k] for k in HEALTH_METRIC_KEYS if k in metrics})
 
 
-def _episode_means(metrics, ran):
+def _episode_means(metrics, ran, place=None):
     """Per-episode fleet values: the mean, or, with crashes, the mean over
-    the agents that ran (a frozen agent's episode did not happen)."""
+    the agents that ran (a frozen agent's episode did not happen). A
+    meshed fleet's (A_local,) values are all-gathered in one collective
+    first, so that every rank reduces the whole fleet's values in the
+    meshless order."""
+    if place is not None and metrics:
+        cols = list(metrics.values()) + ([] if ran is None else [ran])
+        whole = agent_allgather(torch.stack([c.to(torch.float32)
+                                             for c in cols], 1), place)
+        rows = whole.t().contiguous()    # each metric's values contiguous
+        metrics = dict(zip(metrics, rows.unbind(0)))
+        ran = None if ran is None else rows[-1] > 0
     if ran is None:
         return [v.mean() for v in metrics.values()]
     w = ran.to(torch.float32)
@@ -712,13 +948,33 @@ def _run_plan(cfg: FCPOConfig, fleet: Fleet, n_eps: int, learn, federated,
     if total < episode_offset + n_eps:
         raise ValueError(f"total_episodes={total} < episode_offset="
                          f"{episode_offset} + {n_eps} trace episodes")
-    a = fleet.pod_ids.shape[0]
+    a = _n_agents(fleet)
     schedule = fed.fl_schedule(cfg, total, federated=federated, learn=learn)
     avail = fed.draw_availability(schedule, a, straggler_prob, seed)
     plan = rfaults.draw_fault_plan(schedule, a, fleet.n_pods, faults)
     sl = slice(episode_offset, episode_offset + n_eps)
-    return (schedule[sl], avail[sl], rfaults.FaultPlan(*(x[sl] for x in plan)),
+    # drawn for the whole fleet, each rank keeps its agents' bits (the pod
+    # merge reads every pod's)
+    place = fleet.placement
+    return (schedule[sl], agent_slice(avail[sl], place, 1),
+            rfaults.FaultPlan(agent_slice(plan.crash[sl], place, 1),
+                              agent_slice(plan.byzantine[sl], place, 1),
+                              plan.partition[sl]),
             int(schedule[:episode_offset].sum()))
+
+
+def _placed(fleet: Fleet, mesh) -> Fleet:
+    """``fleet`` on ``mesh``: a whole fleet is placed there (this rank's
+    slice); a meshed fleet must already be on it."""
+    if mesh is None:
+        return fleet
+    if fleet.placement is None:
+        return fleet_shard(fleet, fleet_placement(mesh, _n_agents(fleet),
+                                                  fleet.n_pods))
+    if fleet.placement.mesh is not mesh:
+        raise ValueError("the fleet is placed on another mesh than the "
+                         "driver's mesh=")
+    return fleet
 
 
 def train_fleet_reference(cfg: FCPOConfig, fleet: Fleet, traces, *,
@@ -733,7 +989,7 @@ def train_fleet_reference(cfg: FCPOConfig, fleet: Fleet, traces, *,
                           total_episodes: Optional[int] = None,
                           metrics_sink=None,
                           health: Optional[HealthConfig] = None,
-                          tracer=None):
+                          tracer=None, mesh=None):
     """The Python-loop driver: episodes over ``traces`` (A, total_steps),
     an FL round every ``fl_every`` episodes (stragglers from
     ``draw_availability(seed)``, the reference's stream), a pod merge every
@@ -756,14 +1012,25 @@ def train_fleet_reference(cfg: FCPOConfig, fleet: Fleet, traces, *,
     **the episode's history values}`` as each episode ends. ``tracer``: a
     ``repro_torch.obs.trace.Tracer``; host spans ``episode``, ``fl_round``
     and ``pod_merge`` on every ``tracer.span_sample_every``-th absolute
-    episode, each ending when the card has finished its work. Returns
-    (fleet, history) with one fleet-mean value per episode and metric
-    (with crashes, the mean over the agents that ran)."""
+    episode, each ending when the card has finished its work. ``mesh``: a
+    device mesh (``launch/mesh.py``): a whole ``fleet`` is placed on it
+    (``fleet_shard``), a meshed one must be on it; the inputs (``traces``,
+    ``gumbel``, ``byz_noise``) are the whole fleet's, each rank keeps its
+    agents', and the sink is written by rank 0. A meshed fleet runs on its
+    own placement. Returns (fleet, history) with one fleet-mean value per
+    episode and metric (with crashes, the mean over the agents that
+    ran)."""
     backend = get_backend(env_backend)
     faults, guards = _normalize_chaos(faults, guards)
-    fleet = _ensure_health(cfg, fleet, health)
+    fleet = _ensure_health(cfg, _placed(fleet, mesh), health)
+    place = fleet.placement
     dev = fleet.pod_ids.device
-    traces = traces.to(dev)
+    traces = agent_slice(traces, place).to(dev)
+    gumbel = None if gumbel is None else agent_slice(gumbel, place, 1)
+    byz_noise = None if byz_noise is None else \
+        {k: agent_slice(v, place, 1) for k, v in byz_noise.items()}
+    if place is not None and place.rank != 0:
+        metrics_sink = None
     n_eps = traces.shape[1] // cfg.n_steps
     schedule, avail, plan, rounds = _run_plan(
         cfg, fleet, n_eps, learn, federated, straggler_prob, seed, faults,
@@ -790,7 +1057,8 @@ def train_fleet_reference(cfg: FCPOConfig, fleet: Fleet, traces, *,
         ran = None
         if crash_on:
             fleet, ran, down = rfaults.apply_crashes(faults, prev, fleet,
-                                                     bits(plan.crash[e]))
+                                                     bits(plan.crash[e]),
+                                                     place)
         fl_metrics = fl_transport.fl_zero_metrics(dev)
         if schedule[e]:
             av = bits(avail[e])
@@ -817,8 +1085,9 @@ def train_fleet_reference(cfg: FCPOConfig, fleet: Fleet, traces, *,
                                       faults)
         ep_m, health_m = _split_health(metrics)
         names = [*ep_m, *fl_metrics, *health_m]
-        vals = torch.stack([*_episode_means(ep_m, ran), *fl_metrics.values(),
-                            *_episode_means(health_m, ran)]).tolist()
+        vals = torch.stack([*_episode_means(ep_m, ran, place),
+                            *fl_metrics.values(),
+                            *_episode_means(health_m, ran, place)]).tolist()
         for k, v in zip(names, vals):            # one transfer per episode
             history.setdefault(k, []).append(v)
         if metrics_sink is not None:
@@ -899,8 +1168,11 @@ class FleetScan:
     returns (fleet, history); ``step()`` runs the next episode alone,
     ``history()`` fetches the history so far and ``drain()`` writes every
     streamed record still in flight and collects the tracer's device
-    stamps. ``capture_s`` is the wall time of the graphs' captures and
-    ``graph_launches`` the host's graph launches (0 on the CPU)."""
+    stamps; ``close()`` releases the graphs (``run()`` does at its end).
+    ``capture_s`` is the wall time of the graphs' captures and
+    ``graph_launches`` the host's graph launches (0 on the CPU);
+    ``warmed`` lists the sizes of a meshed fleet's process groups, each
+    warmed by one collective before any capture."""
 
     def __init__(self, cfg: FCPOConfig, fleet: Fleet, traces, *,
                  learn: bool = True, federated: bool = True,
@@ -911,7 +1183,9 @@ class FleetScan:
                  faults: Optional[FaultConfig] = None, gumbel=None,
                  byz_noise=None, episode_offset: int = 0,
                  total_episodes: Optional[int] = None, metrics_sink=None,
-                 health: Optional[HealthConfig] = None, tracer=None):
+                 health: Optional[HealthConfig] = None, tracer=None,
+                 mesh=None):
+        fleet = _placed(fleet, mesh)
         self.cfg, self.fleet, self.learn = cfg, fleet, learn
         self.health, self.tracer = health, tracer
         self.offset = episode_offset
@@ -921,25 +1195,38 @@ class FleetScan:
         self.faults, self.guards = _normalize_chaos(faults, guards)
         faults = self.faults
         dev = self.dev = fleet.pod_ids.device
+        place = self.place = fleet.placement
+        if (place is not None and dev.type == "cuda"
+                and dist.get_backend(place.world) != "nccl"):
+            raise ValueError(
+                f"the graph driver captures the mesh's collectives in CUDA "
+                f"graphs, which a {dist.get_backend(place.world)} process "
+                f"group cannot be: use an NCCL mesh on the card, or "
+                f"train_fleet_reference")
+        # every group's communicator exists before the first capture
+        self.warmed = [] if place is None else shd.warm_groups(place, dev)
+        traces = agent_slice(traces, place)
         a, total = traces.shape
         n = cfg.n_steps
         self.n_eps = total // n
         self.schedule, avail, plan, self.rounds = _run_plan(
             cfg, fleet, self.n_eps, learn, federated, straggler_prob, seed,
             faults, episode_offset, total_episodes)
+        if place is not None and place.rank != 0:
+            metrics_sink = None          # rank 0 writes the stream
         # the run's inputs, staged on the device once, episode-major
         self.rates = traces[:, :self.n_eps * n].to(dev, torch.float32) \
             .reshape(a, self.n_eps, n).transpose(0, 1).contiguous()
         self.avail = torch.as_tensor(avail, device=dev)
         self.gumbel = None if gumbel is None else \
-            gumbel.to(dev, torch.float32).contiguous()
+            agent_slice(gumbel, place, 1).to(dev, torch.float32).contiguous()
         self.crash_on = faults is not None and faults.crash_active
         self.byz_on = faults is not None and faults.byzantine_active
         self.part_on = faults is not None and faults.partition_active
         self.plan = rfaults.FaultPlan(*(torch.as_tensor(x, device=dev)
                                         for x in plan))
         self.byz_noise = None if byz_noise is None else \
-            {k: v.to(dev, torch.float32).contiguous()
+            {k: agent_slice(v, place, 1).to(dev, torch.float32).contiguous()
              for k, v in byz_noise.items()}
         self.fault_gen = _fault_generator(fleet, faults, byz_noise)
         self.counter = torch.zeros((), dtype=torch.long, device=dev)
@@ -1008,17 +1295,18 @@ class FleetScan:
             if self.crash_on:
                 out, ran, down = rfaults.apply_crashes(
                     self.faults, self.prev, out,
-                    self.plan.crash.index_select(0, e)[0])
+                    self.plan.crash.index_select(0, e)[0], self.place)
                 self.fleet.crash_timer.copy_(out.crash_timer)
                 self.down.copy_(down)
             copy_into(self.fleet.astate, out.astate)
             copy_into(self.rollout, rollout)
             self.ep_hist.index_copy_(0, e, torch.stack(_episode_means(
-                {k: metrics[k] for k in EPISODE_METRICS}, ran))[None])
+                {k: metrics[k] for k in EPISODE_METRICS}, ran,
+                self.place))[None])
             if self.health is not None:
                 copy_into(self.fleet.health, out.health)
                 self.h_hist.index_copy_(0, e, torch.stack(_episode_means(
-                    health_m, ran))[None])
+                    health_m, ran, self.place))[None])
             self.fl_hist.index_copy_(0, e, torch.stack(
                 list(fl_transport.fl_zero_metrics(self.dev).values()))[None])
         self.counter.add_(1)
@@ -1101,6 +1389,13 @@ class FleetScan:
         hist = torch.cat(self.rows, 1)[:self.episodes].cpu().numpy()
         return {k: hist[:, i] for i, k in enumerate(self.names)}
 
+    def close(self) -> None:
+        """Release the captured graphs (``GraphedBody.release``): a meshed
+        run's graphs hold its NCCL communicators, whose destruction waits
+        for them. The history, counts and fleet stay readable."""
+        for g in self.graphs:
+            g.release()
+
     def run(self):
         try:
             with full_float32():
@@ -1108,6 +1403,7 @@ class FleetScan:
                     self.step()
         finally:
             self.drain()
+            self.close()
         return self.fleet, self.history()
 
 
@@ -1121,7 +1417,8 @@ def train_fleet_scan(cfg: FCPOConfig, fleet: Fleet, traces, *,
                      gumbel=None, byz_noise=None, episode_offset: int = 0,
                      total_episodes: Optional[int] = None,
                      metrics_sink=None,
-                     health: Optional[HealthConfig] = None, tracer=None):
+                     health: Optional[HealthConfig] = None, tracer=None,
+                     mesh=None):
     """The graph driver: episodes over ``traces`` (A, total_steps), an FL
     round every ``fl_every`` episodes (stragglers from
     ``draw_availability(seed)``), a pod merge every ``hierarchical_period``
@@ -1154,7 +1451,9 @@ def train_fleet_scan(cfg: FCPOConfig, fleet: Fleet, traces, *,
     ``span_stamp`` node at each end inside the graphs (the episode and
     the period read from device memory), on the CPU host spans; drained
     before the call returns. Without it the bodies dispatch what they
-    dispatch untraced. Float32 products
+    dispatch untraced. ``mesh``: as in ``train_fleet_reference``; on the
+    card the graphs capture the mesh's NCCL collectives, and a gloo mesh
+    there raises (it cannot be captured). Float32 products
     run without TF32 for the run. Returns (fleet, history) with one
     fleet-mean float32 value per episode and metric (FL metrics 0 on
     episodes without a round), fetched in one transfer."""
@@ -1164,7 +1463,7 @@ def train_fleet_scan(cfg: FCPOConfig, fleet: Fleet, traces, *,
                      guards=guards, faults=faults, gumbel=gumbel,
                      byz_noise=byz_noise, episode_offset=episode_offset,
                      total_episodes=total_episodes, metrics_sink=metrics_sink,
-                     health=health, tracer=tracer).run()
+                     health=health, tracer=tracer, mesh=mesh).run()
 
 
 def train_fleet(cfg: FCPOConfig, fleet: Fleet, traces, *, learn: bool = True,
@@ -1175,7 +1474,8 @@ def train_fleet(cfg: FCPOConfig, fleet: Fleet, traces, *, learn: bool = True,
                 faults: Optional[FaultConfig] = None, gumbel=None,
                 byz_noise=None, episode_offset: int = 0,
                 total_episodes: Optional[int] = None, metrics_sink=None,
-                health: Optional[HealthConfig] = None, tracer=None):
+                health: Optional[HealthConfig] = None, tracer=None,
+                mesh=None):
     """The default entry point: delegates to ``train_fleet_scan``, as the
     JAX package's ``train_fleet`` does."""
     return train_fleet_scan(cfg, fleet, traces, learn=learn,
@@ -1187,4 +1487,4 @@ def train_fleet(cfg: FCPOConfig, fleet: Fleet, traces, *, learn: bool = True,
                             episode_offset=episode_offset,
                             total_episodes=total_episodes,
                             metrics_sink=metrics_sink, health=health,
-                            tracer=tracer)
+                            tracer=tracer, mesh=mesh)

@@ -10,7 +10,8 @@ every call runs the body eagerly.
 
 Capture runs nothing, so the kernel wrappers' launch counters, which count
 in Python, would count the capture and not the replays: the counts a
-capture adds are taken back and added once per replay instead. Generators
+capture adds are taken back and added once per replay instead (so is the
+count of a meshed fleet's collectives, NCCL calls that the graph holds). Generators
 the body draws from are registered with the graph, so each replay advances
 their Philox offsets exactly as an eager call does. Python's cyclic
 garbage collector is off during a capture: a graph left in a reference
@@ -31,14 +32,17 @@ from typing import Callable, Dict, Sequence
 
 import torch
 
+from repro_torch.distributed.sharding import COLLECTIVES
 from repro_torch.kernels.delta_codec import delta_codec
 from repro_torch.kernels.diversity import diversity_insert
 from repro_torch.kernels.queue_advance import queue_advance
 from repro_torch.kernels.span_stamp import span_stamp
 from repro_torch.obs import trace as obs_trace
 
-# the kernel wrappers a captured body of this package may launch
-COUNTED = (diversity_insert, delta_codec, queue_advance, span_stamp)
+# the kernel wrappers a captured body of this package may launch, and the
+# count of the fleet's collectives (a meshed fleet's bodies issue them)
+COUNTED = (diversity_insert, delta_codec, queue_advance, span_stamp,
+           COLLECTIVES)
 
 
 class GraphedBody:
@@ -67,6 +71,17 @@ class GraphedBody:
             self.replays += 1
             for fn, n in self.launches.items():
                 fn.launches += n
+
+    def release(self) -> None:
+        """Free the captured graph (a later call captures anew). A graph
+        that captured NCCL collectives holds its communicator: NCCL's
+        destruction of the communicator waits until every such graph is
+        freed, so a meshed run's graphs are released before its process
+        group is destroyed."""
+        if self.graph is not None:
+            torch.cuda.synchronize(self.device)
+            self.graph.reset()
+            self.graph = None
 
     def _warm_up_and_capture(self) -> None:
         main = torch.cuda.current_stream(self.device)

@@ -23,6 +23,7 @@ from typing import Dict
 
 import torch
 
+from repro_torch.distributed.sharding import agent_allreduce
 from repro_torch.resilience.guards import finite_mask
 
 
@@ -48,13 +49,14 @@ def _rows(m, leaf):
     return m.reshape((-1,) + (1,) * (leaf.dim() - 1))
 
 
-def validate_pending(pending: PendingDeltas):
+def validate_pending(pending: PendingDeltas, place=None):
     """Drop parked deltas holding a NaN or Inf before anything reads them.
-    Returns ``(pending, n_dropped)``; the identity on a healthy buffer."""
+    Returns ``(pending, n_dropped)``; the identity on a healthy buffer.
+    ``place``: a meshed fleet's placement; the count is a world sum."""
     ok = finite_mask(pending.delta)
     dropped = pending.has & ~ok
     return (PendingDeltas(pending.delta, pending.staleness, pending.has & ok),
-            dropped.sum().to(torch.float32))
+            agent_allreduce(dropped.sum().to(torch.float32), place))
 
 
 def stale_weights(pending: PendingDeltas, decay: float) -> torch.Tensor:

@@ -25,6 +25,8 @@ from typing import Dict
 
 import torch
 
+from repro_torch.distributed.sharding import agent_allgather, agent_allreduce
+
 _EPS = 1e-12
 
 # evidence blend: leave-one-out alignment discriminates best, raw alignment
@@ -57,30 +59,42 @@ def _leaves(deltas: Dict[str, torch.Tensor]):
             for k in sorted(deltas)]
 
 
-def robust_reference_weights(norms: torch.Tensor, sel: torch.Tensor
-                             ) -> torch.Tensor:
+def _fleet_median(norms, sel, place):
+    """The lower median norm of the selected clients of every rank."""
+    return _masked_lower_median(agent_allgather(norms, place),
+                                agent_allgather(sel.bool(), place))
+
+
+def robust_reference_weights(norms: torch.Tensor, sel: torch.Tensor,
+                             place=None) -> torch.Tensor:
     """Squared norm-clip weights: ``sel_i * min(1, (med / norm_i)^2)`` with
-    ``med`` the lower median norm of the selected clients."""
-    med = _masked_lower_median(norms, sel.bool())
+    ``med`` the lower median norm of the selected clients (of every rank's
+    agents under a meshed fleet's placement ``place``)."""
+    med = _fleet_median(norms, sel, place)
     ratio = med / torch.clamp_min(norms, _EPS)
     return sel.to(torch.float32) * torch.clamp_max(ratio * ratio, 1.0)
 
 
 def attribution_scores(deltas: Dict[str, torch.Tensor],
-                       sel: torch.Tensor) -> Dict[str, torch.Tensor]:
+                       sel: torch.Tensor, place=None
+                       ) -> Dict[str, torch.Tensor]:
     """``deltas``: {name: (A, ...)} wire deltas; ``sel``: (A,) selection
     mask. Returns (A,) ``norm``, ``cos``, ``cos_loo`` and ``susp``
-    (unselected clients score 0 suspicion)."""
+    (unselected clients score 0 suspicion). ``place``: a meshed fleet's
+    placement (the arguments this rank's agents): the reference direction
+    r is all-reduced from the ranks' partial sums, the medians read the
+    all-gathered norms, and the leave-one-out terms follow from r and
+    |r|² per agent."""
     leaves = _leaves(deltas)
     sq = sum((f * f).sum(1) for f in leaves)
     norms = torch.sqrt(sq)
-    w = robust_reference_weights(norms, sel)
+    w = robust_reference_weights(norms, sel, place)
 
     # r = sum_i w_i d_i and dot_i = <d_i, r>, accumulated leaf by leaf
     dot = torch.zeros_like(sq)
     ref_sq = torch.zeros((), dtype=torch.float32, device=sq.device)
     for f in leaves:
-        r = w @ f
+        r = agent_allreduce(w @ f, place)
         ref_sq = ref_sq + (r * r).sum()
         dot = dot + (f * r).sum(1)
 
@@ -90,7 +104,7 @@ def attribution_scores(deltas: Dict[str, torch.Tensor],
     loo_sq = torch.clamp_min(ref_sq - 2.0 * w * dot + w * w * sq, 0.0)
     cos_loo = dot_loo / torch.clamp_min(norms * torch.sqrt(loo_sq), _EPS)
 
-    med = _masked_lower_median(norms, sel.bool())
+    med = _fleet_median(norms, sel, place)
     log_r = torch.clamp_min(torch.log(torch.clamp_min(norms, _EPS)
                                       / torch.clamp_min(med, _EPS)), 0.0)
     norm_term = log_r / (1.0 + log_r)

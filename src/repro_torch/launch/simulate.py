@@ -14,7 +14,11 @@ the fluid comparison run through ``train_fleet``, the graph driver.
 recording instantiation on the card) and prints the per-request stage
 latency decomposition, with the conservation check against the twin's
 own counters; ``--trace-out`` (which implies it) writes the sampled
-request lifecycles as Chrome trace-event JSON.
+request lifecycles as Chrome trace-event JSON. ``--pallas`` is the JAX
+CLI's switch to its fused twin kernel: accepted with the JAX CLI's error
+beside ``--attribution``, and it changes nothing here, because the device
+picks K3's path (CUDA tensors launch the kernel, CPU tensors run its plain
+version).
 
 Examples:
   PYTHONPATH=src python -m repro_torch.launch.simulate
@@ -76,6 +80,12 @@ def main(argv=None):
                     help="ring capacity (power of two)")
     ap.add_argument("--hist", type=int, default=64,
                     help="latency histogram buckets (ticks)")
+    ap.add_argument("--pallas", action="store_true",
+                    help="route the data plane through the fused Pallas "
+                         "queue_advance kernel (the JAX CLI's switch; "
+                         "accepted, and changes nothing here: CUDA tensors "
+                         "always launch the K3 kernel, CPU tensors run its "
+                         "plain version)")
     ap.add_argument("--compare-fluid", action="store_true",
                     help="also evaluate on the fluid MDP and print the gap")
     ap.add_argument("--attribution", action="store_true",
@@ -100,6 +110,9 @@ def main(argv=None):
         ap.error("--k-ticks must be >= 1 and --hist >= 2")
     if args.trace_out:
         args.attribution = True
+    if args.attribution and args.pallas:
+        ap.error("--attribution needs the jnp data plane (drop --pallas): "
+                 "the fused kernel advances whole intervals per call")
 
     dev = resolve_device(args.device)
     torch.backends.cuda.matmul.allow_tf32 = False

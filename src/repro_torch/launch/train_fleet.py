@@ -48,6 +48,18 @@ stops an invocation after N episodes, for the drill). ``--pallas`` and
 ``--fl-pallas`` are accepted with the JAX CLI's errors; they change
 nothing, because the device picks each kernel's path.
 
+``--mesh {none,debug,production,fleet}`` places the fleet on a
+``torch.distributed`` device mesh (``repro_torch.launch.mesh``): ``fleet``
+is the (pod, data) mesh over the world's ranks (pods over the FL
+hierarchy), ``debug`` a (world, 1) (data, model) mesh, ``production`` the
+(16, 16) / (2, 16, 16) mesh, which raises on fewer than 256 / 512 ranks.
+Each rank holds its slice of the agents (``cuda:LOCAL_RANK``, NCCL; gloo
+with ``--device cpu``); the FL round's cross-agent steps are collectives,
+and rank 0 prints, streams and writes the checkpoints (the whole fleet,
+gathered). Several ranks run under torchrun; one rank runs plainly:
+  torchrun --nproc-per-node 8 -m repro_torch.launch.train_fleet \
+      --mesh fleet --agents 16 --pods 2
+
 Examples:
   PYTHONPATH=src python -m repro_torch.launch.train_fleet
   PYTHONPATH=src python -m repro_torch.launch.train_fleet --agents 8 \\
@@ -73,6 +85,7 @@ import time
 
 import numpy as np
 import torch
+import torch.distributed as dist
 
 from repro_torch import resolve_device
 from repro_torch.configs.fcpo import FCPOConfig
@@ -87,11 +100,19 @@ from repro_torch.fl.transport import CODECS, TransportConfig
 from repro_torch.health import HealthConfig
 from repro_torch.health.alerts import AlertEngine
 from repro_torch.kernels import build
+from repro_torch.launch import mesh as mesh_mod
 from repro_torch.obs.trace import Tracer
 from repro_torch.resilience.faults import BYZANTINE_MODES, FaultConfig
 from repro_torch.resilience.guards import AGG_METHODS, GuardConfig
 from repro_torch.sim import SCENARIOS, SimParams, make_scenario
 from repro_torch.training import checkpoint as ckpt_mod
+
+
+def _say(fleet):
+    """``print`` on rank 0 (and without a mesh), a no-op on the others."""
+    place = fleet.placement
+    return print if place is None or place.rank == 0 else \
+        (lambda *a, **k: None)
 
 
 def resume(args, cfg, fleet, start: int, faults):
@@ -101,21 +122,22 @@ def resume(args, cfg, fleet, start: int, faults):
     seeded from ``--seed`` / ``--fault-seed`` and the step, and says so."""
     step_seed = lambda s: int(np.random.SeedSequence([s, start])
                               .generate_state(1)[0])
+    say = _say(fleet)
     fleet, manifest = ckpt_mod.restore(args.ckpt_dir, start, fleet, cfg,
                                        seed=step_seed(args.seed))
-    print(f"auto-resume: restored episode {start} from {args.ckpt_dir}")
+    say(f"auto-resume: restored episode {start} from {args.ckpt_dir}")
     got = manifest["restored_generators"]
     if "torch/generator" not in got:
-        print(f"auto-resume: the checkpoint holds no generator state for "
-              f"this device; the action noise is seeded from --seed "
-              f"{args.seed} and step {start}")
+        say(f"auto-resume: the checkpoint holds no generator state for "
+            f"this device; the action noise is seeded from --seed "
+            f"{args.seed} and step {start}")
     if (faults.byzantine_active and faults.byzantine_mode == "noise"
             and "torch/fault_generator" not in got):
         gen = torch.Generator(device=fleet.pod_ids.device)
         gen.manual_seed(step_seed(faults.seed))
         fleet.fault_generator = gen
-        print(f"auto-resume: the byzantine noise is seeded from "
-              f"--fault-seed {faults.seed} and step {start}")
+        say(f"auto-resume: the byzantine noise is seeded from "
+            f"--fault-seed {faults.seed} and step {start}")
     return fleet
 
 
@@ -123,10 +145,13 @@ def run_with_checkpoints(args, driver: FleetScan, start: int) -> None:
     """The graph driver over ``[start, --episodes)`` with a checkpoint
     every ``--ckpt-every`` episodes of this invocation and at its end, read
     from the fleet's own tensors between episodes (the JAX CLI's chunk
-    boundaries, without restarting the driver); the streamed records are
-    written before each save, and on the way out. ``--stop-after`` ends the
+    boundaries, without restarting the driver; a meshed fleet is gathered
+    and rank 0 writes it); the streamed records are written before each
+    save, and on the way out. ``--stop-after`` ends the
     invocation early."""
     every = args.ckpt_every or (args.episodes - start)
+    say = _say(driver.fleet)
+    rank0 = say is print
     e, since = start, 0
     extra = dict(episodes=args.episodes, agents=args.agents,
                  pods=args.pods, seed=args.seed, scenario=args.scenario,
@@ -141,12 +166,13 @@ def run_with_checkpoints(args, driver: FleetScan, start: int) -> None:
                     driver.drain()
                     ckpt_mod.save(args.ckpt_dir, e, driver.fleet,
                                   extra=extra)
-                    ckpt_mod.keep_last(args.ckpt_dir, args.keep_last)
+                    if rank0:
+                        ckpt_mod.keep_last(args.ckpt_dir, args.keep_last)
                     since = 0
                 if stop:
-                    print(f"--stop-after {args.stop_after}: stopping at "
-                          f"episode {e}/{args.episodes} (rerun the same "
-                          f"command to resume)")
+                    say(f"--stop-after {args.stop_after}: stopping at "
+                        f"episode {e}/{args.episodes} (rerun the same "
+                        f"command to resume)")
                     return
         finally:
             driver.drain()
@@ -287,6 +313,13 @@ def main(argv=None):
                          "CPU); reference: the Python-loop driver")
     ap.add_argument("--no-federated", action="store_true")
     ap.add_argument("--no-learn", action="store_true")
+    ap.add_argument("--mesh", choices=("none", "debug", "production",
+                                       "fleet"),
+                    default="none",
+                    help="fleet = the scaling mesh: ('pod', 'data') over "
+                         "every rank of the world, pods over the "
+                         "FL-hierarchy axis (run several ranks with "
+                         "torchrun --nproc-per-node N)")
     # --- periodic checkpoint + auto-resume ---
     ap.add_argument("--ckpt-dir", type=str, default=None,
                     help="checkpoint directory (training.checkpoint "
@@ -353,6 +386,35 @@ def main(argv=None):
         ap.error("--trace-sample must be >= 1")
 
     dev = resolve_device(args.device)
+    if args.mesh == "none":
+        return train(args, dev)
+    owns_world = mesh_mod.init_world(dev.type)
+    if dev.type == "cuda":
+        dev = torch.device("cuda", mesh_mod.local_rank())
+    try:
+        return train(args, dev)
+    finally:
+        if owns_world:
+            dist.destroy_process_group()
+
+
+def make_mesh(args, dev):
+    """The device mesh of ``--mesh`` over the world's ranks (None for
+    ``none``)."""
+    if args.mesh == "none":
+        return None
+    world = dist.get_world_size()
+    if args.mesh == "debug":
+        return mesh_mod.make_debug_mesh(world, 1, device_type=dev.type)
+    if args.mesh == "production":
+        return mesh_mod.make_production_mesh(multi_pod=args.pods > 1,
+                                             device_type=dev.type)
+    return mesh_mod.make_fleet_mesh(world, args.pods, device_type=dev.type)
+
+
+def train(args, dev):
+    """The run of ``main``'s checked arguments on ``dev``: returns (this
+    rank's fleet, the history)."""
     # full float32 on the card, as on the CPU (no TF32 rounding)
     torch.backends.cuda.matmul.allow_tf32 = False
     torch.backends.cudnn.allow_tf32 = False
@@ -381,23 +443,28 @@ def main(argv=None):
     health = HealthConfig(bins=args.health_bins) if args.health else None
     backend = get_backend(args.env_backend, sim_params=SimParams(
         dt=args.dt, k_ticks=args.k_ticks, ring=args.ring))
+    mesh = make_mesh(args, dev)
     fleet = fleet_init(cfg, args.agents, args.seed, n_pods=args.pods,
                        device=dev, env_backend=backend,
                        state_policy=(args.state_dtype
                                      if args.state_dtype != "float32"
                                      else None),
-                       health=health)
+                       health=health, mesh=mesh)
+    # rank 0 prints, streams, traces and prunes checkpoints
+    rank0 = fleet.placement is None or fleet.placement.rank == 0
+    say = print if rank0 else (lambda *a, **k: None)
+    n_dev = 1 if mesh is None else dist.get_world_size()
     gen = torch.Generator()
     gen.manual_seed(args.seed + 1)
     traces = make_scenario(args.scenario, gen, args.agents,
                            args.episodes * cfg.n_steps, device=dev)
     name = torch.cuda.get_device_name(dev) if dev.type == "cuda" else "cpu"
-    print(f"fleet: {args.agents} iAgents, {args.pods} pods, "
-          f"{args.episodes} episodes, env={backend.name}, "
-          f"scenario={args.scenario}, driver={args.driver}, "
-          f"state_dtype={args.state_dtype} "
-          f"({fleet_state_bytes(fleet)['per_agent'] / 1024:.1f} KB/agent), "
-          f"device={dev.type} ({name})")
+    say(f"fleet: {args.agents} iAgents, {args.pods} pods, "
+        f"{args.episodes} episodes, env={backend.name}, "
+        f"scenario={args.scenario}, driver={args.driver}, "
+        f"mesh={args.mesh}, state_dtype={args.state_dtype} "
+        f"({fleet_state_bytes(fleet)['per_agent'] / 1024:.1f} KB/agent), "
+        f"device={dev.type} ({name}) ({n_dev} devices)")
 
     kw = dict(learn=not args.no_learn, federated=not args.no_federated,
               straggler_prob=args.straggler_prob, seed=args.seed,
@@ -407,15 +474,15 @@ def main(argv=None):
     start = (ckpt_mod.latest_step(args.ckpt_dir) or 0) \
         if args.ckpt_dir else 0
     if start >= args.episodes:
-        print(f"checkpoint step {start} >= --episodes {args.episodes}: "
-              f"run already complete, nothing to do")
+        say(f"checkpoint step {start} >= --episodes {args.episodes}: "
+            f"run already complete, nothing to do")
         return fleet, {}
     if start > 0:
         fleet = resume(args, cfg, fleet, start, faults)
     # the sink opens after the resume is known: a resumed run appends to
     # the metrics file instead of truncating the episodes before the kill
     sink = engine = None
-    if args.metrics_out:
+    if args.metrics_out and rank0:
         sink = MetricsSink(args.metrics_out, meta=dict(
             agents=args.agents, pods=args.pods, episodes=args.episodes,
             driver=args.driver, env_backend=backend.name,
@@ -423,16 +490,16 @@ def main(argv=None):
             robust_agg=args.robust_agg, seed=args.seed),
             resume=start > 0)
         if start > 0 and sink.n_records:
-            print(f"metrics resume: appending to {args.metrics_out} "
-                  f"({sink.n_records} episodes already recorded)")
+            say(f"metrics resume: appending to {args.metrics_out} "
+                f"({sink.n_records} episodes already recorded)")
         kw["metrics_sink"] = sink
-    if args.alerts_out:
+    if args.alerts_out and rank0:
         # the engine tees in front of the JSONL sink (or runs alone
         # without --metrics-out): each record is forwarded and evaluated
         engine = AlertEngine(args.alerts_out, forward=sink)
         kw["metrics_sink"] = engine
     tracer = None
-    if args.trace_out:
+    if args.trace_out and rank0:
         tracer = Tracer(span_sample_every=args.trace_sample)
         kw["tracer"] = tracer
     t0 = time.time()
@@ -441,27 +508,32 @@ def main(argv=None):
             driver = FleetScan(cfg, fleet, traces[:, start * cfg.n_steps:],
                                episode_offset=start,
                                total_episodes=args.episodes, **kw)
-            if args.ckpt_dir:
-                run_with_checkpoints(args, driver, start)
-            else:
-                driver.run()
+            try:
+                if args.ckpt_dir:
+                    run_with_checkpoints(args, driver, start)
+                else:
+                    driver.run()
+            finally:
+                driver.close()     # before a mesh's process group goes
             fleet, hist = driver.fleet, driver.history()
             capture = driver.capture_s
         else:
             fleet, hist = train_fleet_reference(cfg, fleet, traces, **kw)
             capture = 0.0
         wall = time.time() - t0
+        # where the fleet state lives, by device (a collective on a mesh)
+        per_device = fleet_device_bytes(fleet)
         if sink is not None:
             # one trailing scaling record in the same stream: step time and
             # where the fleet state lives (watch renders the scaling row)
             n_rec = len(hist["reward"])
-            row = {"devices": 1.0, "agents": float(args.agents),
+            row = {"devices": float(n_dev), "agents": float(args.agents),
                    "step_time_s": wall / max(n_rec, 1),
                    "step_time_per_agent_s":
                        wall / max(n_rec, 1) / max(args.agents, 1),
                    "state_bytes_per_agent":
                        fleet_state_bytes(fleet)["per_agent"]}
-            for d, b in sorted(fleet_device_bytes(fleet).items()):
+            for d, b in sorted(per_device.items()):
                 row[f"dev{d}_bytes"] = b
             sink.append(row)
     finally:
@@ -471,54 +543,54 @@ def main(argv=None):
             sink.close()
         if tracer is not None:
             tracer.export(args.trace_out)
-            print(f"flight recorder: "
-                  f"{len(tracer.chrome_events())} span events -> "
-                  f"{args.trace_out} (open in Perfetto)")
+            say(f"flight recorder: "
+                f"{len(tracer.chrome_events())} span events -> "
+                f"{args.trace_out} (open in Perfetto)")
             tracer.close()
 
     n_run = len(hist["reward"])
     k = max(n_run // 10, 1)
-    print(f"\nwall {wall:.2f}s  ({(wall - capture) / n_run * 1e3:.1f} "
-          f"ms/episode)")
+    say(f"\nwall {wall:.2f}s  ({(wall - capture) / n_run * 1e3:.1f} "
+        f"ms/episode)")
     if args.driver == "scan" and dev.type == "cuda":
-        print(f"graph capture {capture:.3f} s apart from the episodes; "
-              f"{driver.graph_launches / n_run:.2f} graph launches/episode")
-    print(f"{'':24s}{'first ' + str(k) + ' eps':>16s}"
-          f"{'last ' + str(k) + ' eps':>16s}")
+        say(f"graph capture {capture:.3f} s apart from the episodes; "
+            f"{driver.graph_launches / n_run:.2f} graph launches/episode")
+    say(f"{'':24s}{'first ' + str(k) + ' eps':>16s}"
+        f"{'last ' + str(k) + ' eps':>16s}")
     for key, scale, unit in (("reward", 1, ""), ("throughput", 1, "/s"),
                              ("effective_throughput", 1, "/s"),
                              ("latency", 1e3, "ms"), ("gated", 1, "")):
         a, b = hist[key][:k].mean() * scale, hist[key][-k:].mean() * scale
-        print(f"{key:24s}{a:12.3f}{unit:4s}{b:12.3f}{unit}")
+        say(f"{key:24s}{a:12.3f}{unit:4s}{b:12.3f}{unit}")
 
     fl_eps = np.flatnonzero(hist["fl_payload_bytes"])
     if fl_eps.size:
-        print(f"\nFL transport (codec={args.fl_codec}, "
-              f"deadline={args.fl_deadline_s}s, async={args.fl_async}): "
-              f"{fl_eps.size} rounds, "
-              f"{hist['fl_payload_bytes'][fl_eps].mean() / 1024:.1f} KB/round, "
-              f"uplink {hist['fl_uplink_s'][fl_eps].mean() * 1e3:.1f} ms, "
-              f"missed {hist['fl_missed'][fl_eps].mean():.2f}/round, "
-              f"stale joins {hist['fl_stale_used'][fl_eps].mean():.2f}/round, "
-              f"rejected {hist['fl_rejected'].sum():.0f}, "
-              f"clipped {hist['fl_clipped'].sum():.0f}")
+        say(f"\nFL transport (codec={args.fl_codec}, "
+            f"deadline={args.fl_deadline_s}s, async={args.fl_async}): "
+            f"{fl_eps.size} rounds, "
+            f"{hist['fl_payload_bytes'][fl_eps].mean() / 1024:.1f} KB/round, "
+            f"uplink {hist['fl_uplink_s'][fl_eps].mean() * 1e3:.1f} ms, "
+            f"missed {hist['fl_missed'][fl_eps].mean():.2f}/round, "
+            f"stale joins {hist['fl_stale_used'][fl_eps].mean():.2f}/round, "
+            f"rejected {hist['fl_rejected'].sum():.0f}, "
+            f"clipped {hist['fl_clipped'].sum():.0f}")
     if health is not None and "health_drift_score" in hist:
         flags = np.asarray(hist["health_drift_flag"])
-        print(f"\nhealth: drift flags on {np.count_nonzero(flags)} of "
-              f"{flags.size} episodes, "
-              f"drift score last {hist['health_drift_score'][-1]:.2f}, "
-              f"reward p50 last {hist['health_reward_p50'][-1]:.3f}, "
-              f"susp last {hist['health_susp'][-1]:.3f}"
-              + (f"; {engine.n_alerts} alerts -> {args.alerts_out}"
+        say(f"\nhealth: drift flags on {np.count_nonzero(flags)} of "
+            f"{flags.size} episodes, "
+            f"drift score last {hist['health_drift_score'][-1]:.2f}, "
+            f"reward p50 last {hist['health_reward_p50'][-1]:.3f}, "
+            f"susp last {hist['health_susp'][-1]:.3f}"
+            + (f"; {engine.n_alerts} alerts -> {args.alerts_out}"
                  if engine is not None else ""))
     if faults.active:
-        print(f"\nchaos: crash_prob={faults.crash_prob}, "
-              f"byzantine={faults.byzantine_frac} "
-              f"({faults.byzantine_mode} x{faults.byzantine_scale}), "
-              f"partition={faults.partition_prob}; defenses: "
-              f"agg={guards.agg}, clip={guards.clip_factor}, "
-              f"reject_nonfinite={guards.reject_nonfinite}; "
-              f"update_rejected {hist['update_rejected'].sum():.0f}")
+        say(f"\nchaos: crash_prob={faults.crash_prob}, "
+            f"byzantine={faults.byzantine_frac} "
+            f"({faults.byzantine_mode} x{faults.byzantine_scale}), "
+            f"partition={faults.partition_prob}; defenses: "
+            f"agg={guards.agg}, clip={guards.clip_factor}, "
+            f"reject_nonfinite={guards.reject_nonfinite}; "
+            f"update_rejected {hist['update_rejected'].sum():.0f}")
     return fleet, hist
 
 

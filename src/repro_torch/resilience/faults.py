@@ -35,6 +35,7 @@ import torch
 from repro_torch.core.crl import AgentState
 from repro_torch.core.dtypes import tree_map
 from repro_torch.core.graphs import copy_into
+from repro_torch.distributed.sharding import agent_slice, pod_allgather
 
 BYZANTINE_MODES = ("sign_flip", "noise", "nan")
 
@@ -164,7 +165,7 @@ def freeze_astate(down, old: AgentSnapshot, new: AgentState) -> AgentState:
 
 
 def apply_crashes(faults: FaultConfig, prev: AgentSnapshot, fleet,
-                  crash_now):
+                  crash_now, place=None):
     """The crash state machine past one episode (run after the episode):
     agents down at its start get their state from ``prev`` back; timers
     age, and an agent whose window ends rejoins warm-started from its pod's
@@ -172,14 +173,17 @@ def apply_crashes(faults: FaultConfig, prev: AgentSnapshot, fleet,
     an agent down for ``crash_recovery`` episodes (params and optimizer
     zeroed when ``crash_zero_params``). Returns ``(fleet, ran, down)``:
     ``ran`` marks the agents whose episode counts in the metrics, ``down``
-    those that sit out the FL round that may follow."""
+    those that sit out the FL round that may follow. ``place``: a meshed
+    fleet's placement; the warm start reads the all-gathered base
+    networks."""
     timer = fleet.crash_timer
     was_down = timer > 0
     astate = freeze_astate(was_down, prev, fleet.astate)
 
     timer = torch.clamp_min(timer - 1, 0)
     rejoin = was_down & (timer == 0)
-    base = {k: v.detach() for k, v in fleet.base.params().items()}
+    base = {k: pod_allgather(v.detach(), place)
+            for k, v in fleet.base.params().items()}
     params = {k: torch.where(_rows(rejoin, v), base[k][fleet.pod_ids],
                              v.detach())
               for k, v in astate.policy.params().items()}
@@ -197,20 +201,24 @@ def apply_crashes(faults: FaultConfig, prev: AgentSnapshot, fleet,
 
 def corrupt_deltas(faults: FaultConfig, decoded: Dict[str, torch.Tensor],
                    byzantine, noise: Optional[Dict[str, torch.Tensor]] = None,
-                   generator: Optional[torch.Generator] = None):
+                   generator: Optional[torch.Generator] = None, place=None):
     """Corrupt the decoded deltas of the agents in ``byzantine`` (the
     server's side of the wire). The ``noise`` mode adds
     ``byzantine_scale`` times ``noise[name]`` (pre-drawn, the shape of each
     leaf) or, without it, standard normal draws from ``generator`` (every
-    leaf, every agent, in the dict's order)."""
+    leaf, every agent, in the dict's order; under a meshed fleet's
+    placement ``place`` every agent of the whole fleet, this rank's rows
+    kept)."""
     mode, scale = faults.byzantine_mode, faults.byzantine_scale
     out = {}
     for k, d in decoded.items():
         if mode == "sign_flip":
             bad = -scale * d
         elif mode == "noise":
-            z = noise[k] if noise is not None else torch.randn(
-                d.shape, generator=generator, device=d.device)
+            rows = d.shape[:1] if place is None else (place.n_agents,)
+            z = noise[k] if noise is not None else agent_slice(torch.randn(
+                rows + d.shape[1:], generator=generator, device=d.device),
+                place)
             bad = d + scale * z
         else:  # nan — a poisoned upload
             bad = torch.full_like(d, torch.nan)

@@ -24,6 +24,8 @@ from typing import Dict
 
 import torch
 
+from repro_torch.distributed.sharding import agent_allgather, agent_allreduce
+
 AGG_METHODS = ("mean", "trimmed", "median")
 
 
@@ -79,19 +81,23 @@ def suspicion_gate(sel, suspicion, threshold: float):
     return sel & ~hit, hit.sum().to(torch.float32)
 
 
-def clip_deltas(contrib: Dict[str, torch.Tensor], sel, clip_factor: float):
+def clip_deltas(contrib: Dict[str, torch.Tensor], sel, clip_factor: float,
+                place=None):
     """Per-leaf L2 norm clip at ``clip_factor ×`` the selected clients'
     median norm of that leaf. Returns ``(clipped, n_clipped)``, the count
     of agents with at least one clipped leaf. Unselected agents are never
-    scaled."""
+    scaled. ``place``: a meshed fleet's placement; the median is over
+    every rank's agents (the norms all-gathered), the count a world
+    sum."""
     any_clip = torch.zeros_like(sel)
     out = {}
     for k, d in contrib.items():
         flat = d.reshape(d.shape[0], -1)
         nrm = torch.sqrt((flat * flat).sum(1))
-        lim = clip_factor * _masked_median_1d(nrm, sel)
+        lim = clip_factor * _masked_median_1d(agent_allgather(nrm, place),
+                                              agent_allgather(sel, place))
         hit = sel & (nrm > lim)
         scale = torch.where(hit, lim / torch.clamp_min(nrm, 1e-12), 1.0)
         out[k] = d * scale.reshape((-1,) + (1,) * (d.dim() - 1))
         any_clip = any_clip | hit
-    return out, any_clip.sum().to(torch.float32)
+    return out, agent_allreduce(any_clip.sum().to(torch.float32), place)

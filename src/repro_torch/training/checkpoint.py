@@ -15,6 +15,13 @@ drivers to attach fresh state. The port adds its
 generators' states under keys of its own (``torch/generator``,
 ``torch/fault_generator``), which the JAX package's ``restore`` ignores.
 
+A meshed fleet (one that carries a ``core.fleet.Placement``) is saved
+whole, in the same format: every rank calls ``save``, the ranks' slices
+are gathered and rank 0 writes. ``restore`` into a meshed fleet reads the
+whole file on every rank and keeps the rank's slice. So a meshed run
+resumes meshless and the reverse, as the JAX checkpoints of sharded arrays
+allow.
+
 The hardening is the reference's: saves go to a temporary file renamed
 into place (a crash mid-save never leaves a torn checkpoint), torn and
 garbage manifests are skipped by ``latest_step``, a corrupt arrays file is
@@ -31,7 +38,8 @@ import numpy as np
 import torch
 
 from repro_torch.core import dtypes as dtp
-from repro_torch.core.fleet import Fleet, fleet_from_numpy, fleet_to_numpy
+from repro_torch.core.fleet import (Fleet, fleet_from_numpy, fleet_gather,
+                                    fleet_shard, fleet_to_numpy)
 
 BF16 = np.dtype("V2")        # the numpy carry's raw bf16
 GENERATORS = {"torch/generator": "generator",
@@ -136,7 +144,14 @@ def _dtype_name(x: np.ndarray) -> str:
 def save(ckpt_dir: str, step: int, state, extra: Optional[Dict] = None):
     """Write ``state`` (a ``Fleet`` or a ``{key: array}`` dict) as step
     ``step``: the arrays file, then its manifest, each through a temporary
-    file renamed into place. Returns the arrays file's path."""
+    file renamed into place. Returns the arrays file's path. A meshed
+    fleet is gathered whole (every rank calls ``save``) and written by
+    rank 0; the other ranks return None."""
+    if isinstance(state, Fleet) and state.placement is not None:
+        rank = state.placement.rank
+        state = fleet_gather(state)
+        if rank != 0:
+            return None
     os.makedirs(ckpt_dir, exist_ok=True)
     flat = fleet_flat(state) if isinstance(state, Fleet) else dict(state)
     fd, tmp = tempfile.mkstemp(dir=ckpt_dir, suffix=".tmp")
@@ -260,6 +275,17 @@ def _convert(arr: np.ndarray, saved: Optional[str], want: np.dtype,
     return arr.astype(want)
 
 
+def _whole_shape(key: str, shape, place):
+    """A leaf's shape in the whole fleet of a meshed one (``place``; the
+    shape itself without one): the per-pod leaves (the base networks, the
+    partition timer) lead with the pod count, the episode counter is a
+    scalar, every other leaf leads with the agent count."""
+    if place is None or not shape:
+        return tuple(shape)
+    pods = key == "12" or key.startswith("1/")
+    return ((place.n_pods if pods else place.n_agents),) + tuple(shape[1:])
+
+
 def restore(ckpt_dir: str, step: int, like: Fleet, cfg, seed: int = 0):
     """Step ``step`` restored into the layout and dtypes of ``like`` (a
     fleet on the device to restore to, e.g. one from ``fleet_init`` with
@@ -271,10 +297,14 @@ def restore(ckpt_dir: str, step: int, like: Fleet, cfg, seed: int = 0):
     ``seed``. A checkpoint without health state restores a health ``like``
     without it (``fleet.health`` None; the drivers attach fresh state).
     Returns (fleet, manifest); the manifest's ``restored_generators`` lists
-    the generator keys restored."""
+    the generator keys restored. A meshed ``like`` gets the whole file's
+    fleet sliced to its placement (no collective: the whole layout is
+    ``like``'s own leaves at the whole fleet's leading sizes)."""
+    place = like.placement
     manifest, data = load(ckpt_dir, step)
     has_health = any(k.startswith(HEALTH_KEY) for k in data.files)
-    target = {k: v for k, v in fleet_flat(like).items()
+    target = {k: (_whole_shape(k, v.shape, place), v.dtype)
+              for k, v in fleet_flat(like).items()
               if k not in GENERATORS
               and (has_health or not k.startswith(HEALTH_KEY))}
     missing = [k for k in target if k not in data]
@@ -286,12 +316,12 @@ def restore(ckpt_dir: str, step: int, like: Fleet, cfg, seed: int = 0):
             f"to the fleet state; re-save from a current run")
     dtypes = manifest.get("dtypes", {})
     flat = {}
-    for key, leaf in target.items():
+    for key, (shape, dtype) in target.items():
         arr = data[key]
-        if arr.shape != leaf.shape:
+        if arr.shape != shape:
             raise ValueError(f"checkpoint/model shape mismatch at {key}: "
-                             f"{arr.shape} vs {leaf.shape}")
-        flat[key] = _convert(arr, dtypes.get(key), leaf.dtype, key)
+                             f"{arr.shape} vs {shape}")
+        flat[key] = _convert(arr, dtypes.get(key), dtype, key)
     fleet = fleet_from_numpy(cfg, _unflatten(flat),
                              device=like.pod_ids.device, seed=seed)
     restored = []
@@ -306,4 +336,6 @@ def restore(ckpt_dir: str, step: int, like: Fleet, cfg, seed: int = 0):
         setattr(fleet, attr, gen)
         restored.append(key)
     manifest["restored_generators"] = restored
+    if place is not None:
+        fleet = fleet_shard(fleet, place)
     return fleet, manifest

@@ -25,6 +25,13 @@ the single-head fleet's graph driver against its reference driver bit
 for bit; the single-agent K3 against the plain advance and the Python
 oracle; ``buffer_insert`` (K1 at T=1) against the CPU; and the static
 baselines card against CPU.
+
+The fleet mesh: ``train_fleet --mesh fleet`` on one NCCL rank under the
+graph driver equals ``--mesh none`` bit for bit, and two gloo ranks
+sharing the card (spawned ``tests/torch_mesh_rank.py``) equal the
+meshless card run within rtol/atol 1e-5; on a machine with two or more
+cards, NCCL ranks one card each under the graph driver equal the
+one-card meshless graph run within rtol/atol 1e-5.
 """
 import os
 import subprocess
@@ -1318,3 +1325,173 @@ def test_static_baselines_on_the_card_match_the_cpu(cuda_device, backend):
         for k, v in run("cpu").items():
             np.testing.assert_allclose(card[k], v, rtol=1e-3, atol=1e-4,
                                        err_msg=k)
+
+
+# ---------------------------------------------------------------------------
+# The fleet mesh on the card
+# ---------------------------------------------------------------------------
+def _fleet_leaves(fleet):
+    """The whole fleet's leaves as {name: numpy}, bf16 as raw bits."""
+    from repro_torch.core.fleet import fleet_gather, fleet_to_numpy
+
+    def walk(node, prefix=""):
+        for k, v in node.items():
+            if isinstance(v, dict):
+                yield from walk(v, f"{prefix}{k}.")
+            else:
+                v = np.asarray(v)
+                yield f"{prefix}{k}", v.view(np.uint16) \
+                    if v.dtype.kind == "V" else v
+    return dict(walk(fleet_to_numpy(fleet_gather(fleet))))
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("extra", [[], ["--env-backend", "twin"],
+                                   ["--fl-codec", "int8"]],
+                         ids=["fluid", "twin", "int8"])
+def test_one_nccl_rank_graph_run_is_meshless_bit_for_bit(cuda_device,
+                                                         extra):
+    """``train_fleet --mesh fleet`` on one NCCL rank under the graph
+    driver (the collectives captured in the graphs) equals ``--mesh
+    none`` bit for bit: histories, every leaf of the final fleet, K1–K3
+    launches."""
+    import torch.distributed as dist
+    from repro_torch.distributed.sharding import COLLECTIVES
+    from repro_torch.launch import mesh as mesh_mod
+    from repro_torch.launch import train_fleet
+    owns = mesh_mod.init_world("cuda")
+    try:
+        runs = []
+        for mesh in ("none", "fleet"):
+            diversity_insert.launches = delta_codec.launches = 0
+            queue_advance.launches = COLLECTIVES.launches = 0
+            fleet, hist = train_fleet.main(
+                ["--episodes", "6", "--fl-every", "1", "--mesh", mesh,
+                 *extra])
+            runs.append((hist, _fleet_leaves(fleet),
+                         (diversity_insert.launches, delta_codec.launches,
+                          queue_advance.launches), COLLECTIVES.launches))
+        (h0, s0, k0, c0), (h1, s1, k1, c1) = runs
+        assert k0 == k1 and c0 == 0 and c1 > 0
+        for k, v in h0.items():
+            np.testing.assert_array_equal(h1[k], v, err_msg=k)
+        for k, v in s0.items():
+            np.testing.assert_array_equal(s1[k], v, err_msg=k)
+    finally:
+        if owns:
+            dist.destroy_process_group()
+
+
+def _spawn_mesh_ranks(tmp_path, world, name, backend, driver):
+    """``world`` ranks of ``tests/torch_mesh_rank.py`` running one library
+    scenario on the card: A=8, P=2, ``fl_every`` 1, stragglers 0.3, eight
+    episodes, under ``driver`` on a ``backend`` world (gloo ranks share
+    card 0, NCCL rank r takes card r). Each rank is killed at 240 s.
+    Returns (cfg, the whole fleet's numpy tree, the traces)."""
+    import json
+    from repro_torch.core.fleet import fleet_init, fleet_to_numpy
+    cfg = FCPOConfig(fl_every=1)
+    tree = fleet_to_numpy(fleet_init(cfg, 8, 0, n_pods=2, device="cpu"))
+    traces = np.random.default_rng(9).uniform(
+        5.0, 160.0, (8, 8 * cfg.n_steps)).astype(np.float32)
+    flat = {}
+
+    def walk(node, prefix):
+        for k, v in node.items():
+            if isinstance(v, dict):
+                walk(v, f"{prefix}{k}/")
+            else:
+                flat[f"fleet/{prefix}{k}"] = np.asarray(v)
+    walk(tree, "")
+    np.savez(tmp_path / "lib.npz", traces=traces, **flat)
+    spec = {"out": str(tmp_path), "device": "cuda", "backend": backend,
+            "scenarios": [{"name": name, "lib": {
+                "npz": str(tmp_path / "lib.npz"), "driver": driver,
+                "straggler_prob": 0.3, "seed": 3}}]}
+    (tmp_path / "spec.json").write_text(json.dumps(spec))
+    root = Path(__file__).resolve().parents[1]
+    env = dict(os.environ, PYTHONPATH=str(root / "src"),
+               OMP_NUM_THREADS="1")
+    procs = [subprocess.Popen(
+        [sys.executable, str(root / "tests" / "torch_mesh_rank.py"), str(r),
+         str(world), str(tmp_path / "rendezvous"),
+         str(tmp_path / "spec.json")], env=env) for r in range(world)]
+    try:
+        for p in procs:
+            p.wait(timeout=240)
+    finally:
+        for p in procs:
+            if p.poll() is None:
+                p.kill()
+                p.wait()
+    assert [p.returncode for p in procs] == [0] * world
+    return cfg, tree, traces
+
+
+def _meshed_matches(out, fleet, hist, world):
+    """A meshed run saved in ``out`` against the meshless ``fleet`` and
+    ``hist``: within rtol/atol 1e-5, integer state exact; ``world``
+    balanced ``fleet_device_bytes`` entries. Returns rank 0's info."""
+    import json
+    from repro_torch.training import checkpoint as ckpt
+    with np.load(out / "hist.npz") as got:
+        for k, v in hist.items():
+            np.testing.assert_allclose(got[k], v, rtol=1e-5, atol=1e-5,
+                                       err_msg=k)
+    _, data = ckpt.load(str(out), 0)
+    for k, v in ckpt.fleet_flat(fleet).items():
+        if k.startswith("torch/"):
+            continue
+        if v.dtype.kind == "f":
+            np.testing.assert_allclose(data[k], v, rtol=1e-5, atol=1e-5,
+                                       err_msg=k)
+        else:
+            np.testing.assert_array_equal(data[k], v, err_msg=k)
+    info = json.loads((out / "info.json").read_text())
+    per = sorted(info["device_bytes"].values())
+    assert len(per) == world and per[-1] <= 2 * per[0]
+    return info
+
+
+@pytest.mark.cuda
+def test_two_gloo_ranks_on_the_card_match_meshless(cuda_device, tmp_path):
+    """Two gloo ranks share the card (``tests/torch_mesh_rank.py``, CUDA
+    tensors, the reference driver; the graph driver refuses a gloo mesh on
+    the card): A=8, P=2, stragglers 0.3, eight episodes equal the meshless
+    card run within rtol/atol 1e-5, integer state exact; two balanced
+    ``fleet_device_bytes`` entries."""
+    from repro_torch.core.fleet import fleet_from_numpy, train_fleet_reference
+    cfg, tree, traces = _spawn_mesh_ranks(tmp_path, 2, "gloo", "gloo",
+                                          "reference")
+    fleet, hist = train_fleet_reference(
+        cfg, fleet_from_numpy(cfg, tree, device=cuda_device),
+        torch.tensor(traces), straggler_prob=0.3, seed=3)
+    info = _meshed_matches(tmp_path / "gloo", fleet, hist, 2)
+    assert info["k1"] == 8 and info["agents"] == [0, 4]
+
+
+@pytest.mark.cuda
+def test_nccl_ranks_on_several_cards_capture_the_mesh(cuda_device,
+                                                      tmp_path):
+    """NCCL ranks, one card each, under the graph driver: every rank's
+    graphs hold its collectives, and the run equals the meshless graph run
+    on one card within rtol/atol 1e-5, integer state exact. Four cards
+    make a (pod 2, data 2) mesh whose pod group (two ranks) is not the
+    world, each group warmed before the first capture; two cards make
+    (pod 2, data 1)."""
+    from repro_torch.core.fleet import fleet_from_numpy, train_fleet_scan
+    n = torch.cuda.device_count()
+    if n < 2:
+        pytest.skip("needs two or more cards")
+    world = 4 if n >= 4 else 2
+    cfg, tree, traces = _spawn_mesh_ranks(tmp_path, world, "nccl", "nccl",
+                                          "scan")
+    fleet, hist = train_fleet_scan(
+        cfg, fleet_from_numpy(cfg, tree, device=cuda_device),
+        torch.tensor(traces), straggler_prob=0.3, seed=3)
+    info = _meshed_matches(tmp_path / "nccl", fleet, hist, world)
+    assert info["agents"] == [0, 8 // world]
+    assert info["k1"] == 8 and info["graph_launches"] > 0
+    assert info["collectives"] > 0
+    assert info["pod_group_is_world"] == (world == 2)
+    assert info["warmed"] == ([world, 2] if world == 4 else [world])

@@ -144,6 +144,18 @@ def test_entry_points_default_to_cuda_and_raise_without_it():
                  lambda: full_mask(TCfg(), 2)):
         with pytest.raises(RuntimeError, match="CUDA"):
             call()
+    # the fleet mesh: the CLI's --mesh and the mesh builders (NCCL on the
+    # card by default)
+    import torch.distributed as dist
+    from repro_torch.launch import mesh as mesh_mod
+    for call in (lambda: train_fleet.main(["--episodes", "1", "--mesh",
+                                           "fleet"]),
+                 lambda: mesh_mod.make_fleet_mesh(),
+                 lambda: mesh_mod.make_debug_mesh(),
+                 lambda: mesh_mod.init_world()):
+        with pytest.raises(RuntimeError, match="CUDA"):
+            call()
+    assert not dist.is_initialized()
 
 
 # ---------------------------------------------------------------------------

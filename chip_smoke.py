@@ -189,8 +189,36 @@ In order, it:
      overhead); then a reduced model on the card against the CPU
      (identical tokens up to a near-tie, logits within rtol 1e-3 / atol
      1e-4);
- 15. prints the kernel table as one JSON line (with the recording K3 and
-     the span stamp as rows of their own), then
+ 14b. the rest of the transformer family, each phase freeing the last
+     model first. ``[moe serve]``: ``repro_torch.launch.serve --arch
+     deepseek-v2-lite-16b`` at its defaults (4 replicas, 30 episodes),
+     full width and depth (15,706,484,224 parameters checked): K1 once
+     per episode, K2–K6 never (MLA and the experts are plain torch ops, as
+     in the reference), peak bytes, t0 / t1, ms per ``generate``; on the
+     launcher's own engine, one MoE layer's expert casts timed and one
+     ``generate`` profiled; then K1 against its plain version at the
+     launcher's A=4. ``[archs]``:
+     granite-moe-3b-a800m, qwen2-7b, gemma-7b, pixtral-12b and
+     qwen1.5-0.5b at full width and depth, each: its parameter count,
+     the cache-less prefill at B=4, S=2048 (K4 once per layer) against
+     ``use_kernels=False`` in bf16 (max |diff|, argmax agreement) and in
+     float32 (within rtol / atol 1e-3, argmax agreement, and the bf16
+     runs' agreement with the float32 plain run), four float32 decode
+     steps (K5 once per layer per step) against ``use_kernels=False``
+     in the same band, the engine at B=8, a 128-token prompt and 32 new
+     tokens (K5 once per layer per decode step), ms per call, peak bytes;
+     then K4 and K5 at the config's bf16 shapes against plain (the
+     kernel tests' tolerance) and timed. ``[encode]``: hubert-xlarge
+     through ``make_encode_step`` at B=4, S=2048 (K4 bidirectional at
+     D=80 once per layer) against ``use_kernels=False`` in bf16 and in
+     float32 (the same band), also with HuBERT's mask; K4 at that shape
+     against plain and timed. ``[MoE reference]``:
+     reduced deepseek-v2-lite and granite (2 layers, float32) card vs
+     CPU: tokens under the near-tie rule, the first MoE layer's routing
+     (top-k, keep, slots) equal, two card runs bit for bit;
+ 15. prints the kernel table as one JSON line (with the recording K3, the
+     span stamp, K1 on the deepseek serve path and K4 / K5 at this
+     slice's model shapes as rows of their own), then
      ``{"ok": true, "device": {...}}`` as the last line.
 Any failure raises and exits non-zero.
 """
@@ -3139,11 +3167,38 @@ def k4_inputs(torch, gen, case):
             for s in ((b, sq, hq, d), (b, sk, hkv, d), (b, sk, hkv, d))]
 
 
+def k4_timing(torch, gen, case):
+    """K4 at one shape: kernel, plain version and ``sdpa`` as the median
+    of five readings, its bound (``obs.profile.kernel_cost``)."""
+    from repro_torch.obs import profile as prof
+    import torch.nn.functional as F
+    from repro_torch.kernels.flash_attention import flash_attention
+    from repro_torch.kernels.ref import flash_attention_ref
+    b, sq, sk, hq, hkv, d, dtype, causal = case
+    q, k, v = k4_inputs(torch, gen, case)
+    ms = median_ms(lambda: flash_attention(q, k, v, causal=causal), 10)
+    plain = median_ms(lambda: flash_attention_ref(q, k, v, causal=causal), 3)
+    lib = median_ms(lambda: F.scaled_dot_product_attention(
+        q.transpose(1, 2), k.transpose(1, 2), v.transpose(1, 2),
+        is_causal=causal, enable_gqa=True))
+    cost = prof.kernel_cost("flash_attention", b=b, s=sq, hq=hq, hkv=hkv,
+                            d=d, causal=causal, itemsize=q.element_size())
+    flops, moved = cost["flops"], cost["bytes_accessed"]
+    t_ops, t_bytes = flops / peak_flops(dtype), moved / HBM_BYTES_PER_S
+    row = dict(ms=ms, plain_ms=plain, bound_ms=max(t_ops, t_bytes) * 1e3,
+               bound_by="operations" if t_ops >= t_bytes else "bytes",
+               library_ms=lib)
+    log(f"  K4 {dtype} B={b} S={sq} Hq={hq} Hkv={hkv} D={d} "
+        f"{'causal' if causal else 'bidirectional'}: kernel {ms:.4f} ms, "
+        f"plain {plain:.4f} ms, sdpa {lib:.4f} ms, bound "
+        f"{row['bound_ms']:.5f} ms ({flops / 1e9:.2f} GFLOP, {moved} B); "
+        f"{flops / ms / 1e9:.1f} TFLOP/s")
+    return row
+
+
 def check_k4(torch, gen):
     """K4 against its plain version over the sweep; times it at the
     prefill shape. Returns (max |err| at the prefill shape, timing)."""
-    from repro_torch.obs import profile as prof
-    import torch.nn.functional as F
     from repro_torch.kernels.flash_attention import flash_attention
     from repro_torch.kernels.ref import (flash_attention_bf16p_ref,
                                          flash_attention_ref)
@@ -3166,30 +3221,8 @@ def check_k4(torch, gen):
             del emu
         log(f"  K4 {case}: ok, max|err| {e:.3g} (tol {tol})")
         del got, want
-    timing = {}
-    for case in (K4_MAIN, FLASH_CASES[-2]):
-        b, sq, sk, hq, hkv, d, dtype, causal = case
-        q, k, v = k4_inputs(torch, gen, case)
-        ms = median_ms(lambda: flash_attention(q, k, v, causal=causal), 10)
-        plain = median_ms(lambda: flash_attention_ref(q, k, v,
-                                                      causal=causal), 3)
-        lib = median_ms(lambda: F.scaled_dot_product_attention(
-            q.transpose(1, 2), k.transpose(1, 2), v.transpose(1, 2),
-            is_causal=causal, enable_gqa=True))
-        cost = prof.kernel_cost("flash_attention", b=b, s=sq, hq=hq,
-                                hkv=hkv, d=d, causal=causal,
-                                itemsize=q.element_size())
-        flops, moved = cost["flops"], cost["bytes_accessed"]
-        t_ops, t_bytes = flops / peak_flops(dtype), moved / HBM_BYTES_PER_S
-        timing[dtype] = dict(
-            ms=ms, plain_ms=plain, bound_ms=max(t_ops, t_bytes) * 1e3,
-            bound_by="operations" if t_ops >= t_bytes else "bytes",
-            library_ms=lib)
-        log(f"  K4 {dtype} B={b} S={sq} Hq={hq} Hkv={hkv} D={d} causal: "
-            f"kernel {ms:.4f} ms, plain {plain:.4f} ms, sdpa "
-            f"{lib:.4f} ms, bound "
-            f"{timing[dtype]['bound_ms']:.5f} ms ({flops / 1e9:.2f} GFLOP, "
-            f"{moved} B); {flops / ms / 1e9:.1f} TFLOP/s")
+    timing = {case[6]: k4_timing(torch, gen, case)
+              for case in (K4_MAIN, FLASH_CASES[-2])}
     return err, timing
 
 
@@ -3202,12 +3235,45 @@ def k5_inputs(torch, gen, case):
     return q, kc, vc
 
 
+def k5_timing(torch, gen, case):
+    """K5 at one shape: kernel, plain version and ``sdpa`` as the median
+    of five readings (and at 20 calls per graph), its bound."""
+    from repro_torch.obs import profile as prof
+    import torch.nn.functional as F
+    from repro_torch.kernels.decode_attention import (decode_attention,
+                                                      num_splits)
+    from repro_torch.kernels.ref import decode_attention_ref
+    b, hq, hkv, d, s_max, n, qt, ct = case
+    q, kc, vc = k5_inputs(torch, gen, case)
+    ms = median_ms(lambda: decode_attention(q, kc, vc, n))
+    plain = median_ms(lambda: decode_attention_ref(q, kc, vc, n), 10)
+    kv = [c[:, :n].transpose(1, 2) for c in (kc, vc)]
+    sdpa = lambda: F.scaled_dot_product_attention(
+        q.transpose(1, 2), *kv, enable_gqa=True)
+    lib = median_ms(sdpa)
+    cost = prof.kernel_cost("decode_attention", b=b, hq=hq, hkv=hkv, d=d,
+                            kv_len=n, itemsize=kc.element_size(),
+                            q_itemsize=q.element_size())
+    flops, moved = cost["flops"], cost["bytes_accessed"]
+    t_ops, t_bytes = flops / peak_flops(qt), moved / HBM_BYTES_PER_S
+    row = dict(ms=ms, plain_ms=plain, bound_ms=max(t_ops, t_bytes) * 1e3,
+               bound_by="operations" if t_ops >= t_bytes else "bytes",
+               library_ms=lib)
+    log(f"  K5 B={b} Hq={hq} Hkv={hkv} D={d} S_max={s_max} kv_len={n} {qt} "
+        f"({num_splits(b, hkv, n)} split(s)): kernel {ms:.4f} ms "
+        f"(device; {eager_ms(lambda: decode_attention(q, kc, vc, n)):.4f}"
+        f" ms eager), plain {plain:.4f} ms, sdpa {lib:.4f} ms, bound "
+        f"{row['bound_ms']:.6f} ms ({moved} B); {moved / ms / 1e6:.1f} "
+        f"GB/s; 20 calls per graph: kernel "
+        f"{device_ms(lambda: decode_attention(q, kc, vc, n), 20, 20):.4f}"
+        f" ms, sdpa {device_ms(sdpa, 20, 20):.4f} ms")
+    return row
+
+
 def check_k5(torch, gen):
     """K5 against its plain version over the sweep, garbage past kv_len
     ignored; times it at the serve path's shape and at the engine
     defaults. Returns (max |err| at the serve shape, timing)."""
-    from repro_torch.obs import profile as prof
-    import torch.nn.functional as F
     from repro_torch.kernels.decode_attention import (decode_attention,
                                                       num_splits)
     from repro_torch.kernels.ref import decode_attention_ref
@@ -3232,34 +3298,8 @@ def check_k5(torch, gen):
         log(f"  K5 {case}: ok, {num_splits(case[0], case[2], n)} split(s), "
             f"max|err| {e:.3g} (tol {tol})"
             + (", tail ignored" if n < case[4] else ""))
-    timing = {}
-    for case in (K5_MAIN, K5_BIG):
-        b, hq, hkv, d, s_max, n, qt, ct = case
-        q, kc, vc = k5_inputs(torch, gen, case)
-        ms = median_ms(lambda: decode_attention(q, kc, vc, n))
-        plain = median_ms(lambda: decode_attention_ref(q, kc, vc, n), 10)
-        kv = [c[:, :n].transpose(1, 2) for c in (kc, vc)]
-        sdpa = lambda: F.scaled_dot_product_attention(
-            q.transpose(1, 2), *kv, enable_gqa=True)
-        lib = median_ms(sdpa)
-        cost = prof.kernel_cost("decode_attention", b=b, hq=hq, hkv=hkv,
-                                d=d, kv_len=n, itemsize=kc.element_size(),
-                                q_itemsize=q.element_size())
-        flops, moved = cost["flops"], cost["bytes_accessed"]
-        t_ops, t_bytes = flops / peak_flops(qt), moved / HBM_BYTES_PER_S
-        timing[(b, s_max, n)] = dict(
-            ms=ms, plain_ms=plain, bound_ms=max(t_ops, t_bytes) * 1e3,
-            bound_by="operations" if t_ops >= t_bytes else "bytes",
-            library_ms=lib)
-        log(f"  K5 B={b} S_max={s_max} kv_len={n} {qt} "
-            f"({num_splits(b, hkv, n)} split(s)): kernel {ms:.4f} ms "
-            f"(device; {eager_ms(lambda: decode_attention(q, kc, vc, n)):.4f}"
-            f" ms eager), plain {plain:.4f} ms, sdpa "
-            f"{lib:.4f} ms, bound "
-            f"{timing[(b, s_max, n)]['bound_ms']:.6f} ms ({moved} B); "
-            f"{moved / ms / 1e6:.1f} GB/s; 20 calls per graph: kernel "
-            f"{device_ms(lambda: decode_attention(q, kc, vc, n), 20, 20):.4f}"
-            f" ms, sdpa {device_ms(sdpa, 20, 20):.4f} ms")
+    timing = {case[0]: k5_timing(torch, gen, case) for case in (K5_MAIN,
+                                                                  K5_BIG)}
     return err, timing
 
 
@@ -3386,8 +3426,10 @@ def full_width_params(torch):
 
 
 def _leaves(tree):
-    for v in tree.values():
-        yield from (_leaves(v) if isinstance(v, dict) else (v,))
+    """The tensors of a parameter tree (dicts, and lists such as
+    ``first_blocks``)."""
+    for v in (tree.values() if isinstance(tree, dict) else tree):
+        yield from (_leaves(v) if isinstance(v, (dict, list)) else (v,))
 
 
 def run_prefill(torch, cfg, params, calls=3):
@@ -3548,6 +3590,470 @@ def run_lm_reference(torch, steps=16):
         0, cfg.vocab_size, (4, 12)), dtype=torch.int32)
     runs = [lm_trace(torch, model, params_from_numpy(cfg, tree, dev),
                      tokens, steps, dev) for dev in (DEV, "cpu")]
+    note, err = card_vs_cpu_tokens(torch, runs, "LM reference", steps)
+    log(f"  reduced {QWEN} float32, B=4, {steps} tokens: card (K5) vs CPU "
+        f"tokens {note}; logits max|diff| {err:.3g} (rtol 1e-3 / atol 1e-4)")
+
+
+# ---------------------------------------------------------------------------
+# The rest of the transformer family: MoE, MLA, the frontends
+# ---------------------------------------------------------------------------
+DEEPSEEK = "deepseek-v2-lite-16b"
+GRANITE = "granite-moe-3b-a800m"
+HUBERT = "hubert-xlarge"
+# full-width parameter counts from the JAX package's shapes
+# (tests/test_torch_archs.py::FULL_COUNTS)
+FULL_COUNTS = {DEEPSEEK: 15_706_484_224, "pixtral-12b": 12_253_025_280,
+               "gemma-7b": 8_537_680_896, "qwen2-7b": 7_615_616_512,
+               GRANITE: 3_298_793_472, HUBERT: 945_973_760,
+               "qwen1.5-0.5b": 463_987_712}
+# [archs]: the configs run at full width and full depth
+ARCHS = (GRANITE, "qwen2-7b", "gemma-7b", "pixtral-12b", "qwen1.5-0.5b")
+# every K4 and K5 shape that [archs] and [encode] launch, held against the
+# plain version and timed as rows of the kernels line: K4 (b, sq, sk, hq,
+# hkv, d, dtype, causal) of the cache-less prefill (B=4, S=2048), K5 (b,
+# hq, hkv, d, s_max, kv_len, q dtype, cache dtype) of the engine's decode
+# (B=8, a 256-slot cache; kv_len 144 is the middle of the generation: a
+# 128-token prompt, 32 new tokens)
+K4_ROWS = {GRANITE: (4, 2048, 2048, 24, 8, 64, "bfloat16", True),
+           "qwen2-7b": (4, 2048, 2048, 28, 4, 128, "bfloat16", True),
+           "gemma-7b": (4, 2048, 2048, 16, 16, 256, "bfloat16", True),
+           "pixtral-12b": (4, 2048, 2048, 32, 8, 128, "bfloat16", True),
+           "qwen1.5-0.5b": (4, 2048, 2048, 16, 16, 64, "bfloat16", True),
+           HUBERT: (4, 2048, 2048, 16, 16, 80, "bfloat16", False)}
+K5_ROWS = {GRANITE: (8, 24, 8, 64, 256, 144, "bfloat16", "bfloat16"),
+           "qwen2-7b": (8, 28, 4, 128, 256, 144, "bfloat16", "bfloat16"),
+           "gemma-7b": (8, 16, 16, 256, 256, 144, "bfloat16", "bfloat16"),
+           "pixtral-12b": (8, 32, 8, 128, 256, 144, "bfloat16", "bfloat16"),
+           "qwen1.5-0.5b": (8, 16, 16, 64, 256, 144, "bfloat16",
+                            "bfloat16")}
+
+
+def fresh_peak(torch):
+    """Free what the last phase left and restart the peak-memory count."""
+    import gc
+    gc.collect()
+    torch.cuda.synchronize()
+    torch.cuda.empty_cache()
+    torch.cuda.reset_peak_memory_stats()
+
+
+def peak_bytes(torch):
+    torch.cuda.synchronize()
+    return torch.cuda.max_memory_allocated()
+
+
+def moe_serve_phase(torch, smi, n_episodes=30):
+    """[moe serve]: ``repro_torch.launch.serve --arch deepseek-v2-lite-16b``
+    at its defaults (4 replicas, 30 episodes), full width and depth, with
+    every launch count set to 0 just before and read just after: K1 once
+    per episode, the others never (MLA and the experts run plain torch
+    ops, as in the reference). Then, on the launcher's own engine, where a
+    serving call goes (``moe_serve_costs``), and K1 against its plain
+    version at the launcher's A=4. Returns (K1 launches, K1's max |err|
+    and timing at A=4)."""
+    import numpy as np
+    from repro_torch.launch import serve
+    fresh_peak(torch)
+    reset_launches()
+    t0 = time.time()
+    summ, engine = serve.main(["--device", DEV, "--arch", DEEPSEEK,
+                               "--episodes", str(n_episodes)],
+                              return_engine=True)
+    torch.cuda.synchronize()
+    wall = time.time() - t0
+    counts = dict(zip(("K1", "K2", "K3", "K4", "K5", "K6"),
+                      read_launches()))
+    want = dict(K1=n_episodes, K2=0, K3=0, K4=0, K5=0, K6=0)
+    if counts != want:
+        raise AssertionError(f"[moe serve] launches {counts}, expected "
+                             f"{want}")
+    if int(summ["n_params"]) != FULL_COUNTS[DEEPSEEK]:
+        raise AssertionError(f"[moe serve] {int(summ['n_params'])} "
+                             f"parameters, expected {FULL_COUNTS[DEEPSEEK]}")
+    for key, v in summ.items():
+        if not np.isfinite(v).all():
+            raise AssertionError(f"[moe serve] {key} is not finite")
+    log(f"  serve --arch {DEEPSEEK} (defaults, full width and depth) on "
+        f"{smi}: {int(summ['n_params'])} parameters (expected "
+        f"{FULL_COUNTS[DEEPSEEK]}); peak {peak_bytes(torch)} B allocated; "
+        f"launches {counts}; calibrated t0 {float(summ['t0']) * 1e3:.3f} ms,"
+        f" t1 {float(summ['t1']) * 1e6:.1f} us/item; generate(steps=2) "
+        f"{summ['generate_s'].mean() * 1e3:.2f} ms mean (min "
+        f"{summ['generate_s'].min() * 1e3:.2f}) at bs "
+        f"{sorted(set(summ['bs'].tolist()))}; episode loop "
+        f"{float(summ['wall_s']) / n_episodes * 1e3:.1f} ms/episode; whole "
+        f"call {wall:.1f} s")
+    moe_serve_costs(torch, engine)
+    del engine
+    fresh_peak(torch)
+    from repro_torch.configs.fcpo import FCPOConfig
+    err, timing = check_k1(torch, FCPOConfig(), torch.Generator(
+        device=DEV).manual_seed(6), agents=(4,), tag="serve ")
+    return counts["K1"], err, timing[4]
+
+
+def moe_serve_costs(torch, engine):
+    """Where a deepseek-v2-lite serving call of ``engine`` (the
+    launcher's) goes: the float32 -> bf16 cast of one MoE layer's three
+    expert stacks (timed, against its bytes bound: 4 B read and 2 B
+    written an element), times the MoE layers; then one
+    ``generate(steps=2)`` at bs 8 under the profiler (busy share, top
+    kernels)."""
+    cfg = engine.model.cfg
+    stacks = [engine.params["blocks"]["moe"][n][0]
+              for n in ("gate", "up", "down")]
+    cast_ms = median_ms(lambda: [w.to(torch.bfloat16) for w in stacks], 5)
+    n_moe = cfg.n_layers - cfg.first_dense_layers
+    moved = sum(w.numel() for w in stacks) * 6
+    log(f"  expert casts: one MoE layer's three (E, d, ff) stacks float32 "
+        f"-> bf16 {cast_ms:.3f} ms (bound {moved / HBM_BYTES_PER_S * 1e3:.3f}"
+        f" ms, {moved} B), x {n_moe} layers = {cast_ms * n_moe:.1f} ms a "
+        f"forward")
+    tokens = torch.zeros((8, 16), dtype=torch.int32)
+    torch.cuda.synchronize()
+    t0 = time.time()
+    engine.generate(tokens, steps=2)
+    torch.cuda.synchronize()
+    alone = time.time() - t0
+    profiled(torch, lambda: engine.generate(tokens, steps=2), 1,
+             f"{DEEPSEEK} generate(steps=2) bs=8", "call", alone=alone)
+
+
+def compare_steps(torch, cfg, step, plain_step, params, batch, label,
+                  want_k4):
+    """``step`` (kernels) against ``plain_step`` (``use_kernels=False``) on
+    the same batch: K4 launches of one call, ms per call of each (after a
+    warm-up each), logits max |diff| and argmax agreement; the argmax of
+    each (for ``float32_check``)."""
+    from repro_torch.kernels.flash_attention import flash_attention
+    step(params, batch)
+    torch.cuda.synchronize()
+    reset_launches()
+    t0 = time.time()
+    got = step(params, batch)
+    torch.cuda.synchronize()
+    ms = (time.time() - t0) * 1e3
+    counts = read_launches()
+    if flash_attention.launches != want_k4 or any(
+            n for i, n in enumerate(counts) if i != 3):
+        raise AssertionError(f"[{label}] launches {counts}, expected K4 "
+                             f"{want_k4} and nothing else")
+    plain_step(params, batch)
+    torch.cuda.synchronize()
+    t0 = time.time()
+    want = plain_step(params, batch)
+    torch.cuda.synchronize()
+    plain_ms = (time.time() - t0) * 1e3
+    if not torch.isfinite(got).all():
+        raise AssertionError(f"[{label}] logits not finite")
+    diff = max(float((g.float() - w.float()).abs().max())
+               for g, w in zip(got, want))        # a row at a time
+    scale = max(float(w.float().abs().max()) for w in want)
+    argmax = (got.argmax(-1), want.argmax(-1))
+    agree = float((argmax[0] == argmax[1]).float().mean())
+    del got, want
+    return dict(ms=ms, plain_ms=plain_ms, k4=want_k4, diff=diff,
+                scale=scale, agree=agree, argmax=argmax)
+
+
+@contextlib.contextmanager
+def routing_spy(replay=None):
+    """Record every ``moe_route`` decision made inside the block (the list
+    yielded), or, given ``replay`` (such a list from another run), hand
+    the block those decisions in order instead of its own: two runs then
+    differ in everything but the routing."""
+    from repro_torch.models import moe
+    route, seen = moe.moe_route, []
+
+    def spy(p, cfg, xf):
+        if replay is None:
+            seen.append(route(p, cfg, xf))
+        else:
+            seen.append(replay[len(seen)])
+            if seen[-1].topi.shape[0] != xf.shape[0]:
+                raise AssertionError("routing replayed onto another call")
+        return seen[-1]
+
+    moe.moe_route = spy
+    try:
+        yield seen
+    finally:
+        moe.moe_route = route
+
+
+def float32_check(torch, cfg, params, batch, label, make_step, bf16,
+                  decode=4, prompt=16):
+    """The float32 counterpart of ``compare_steps``: the same batch through
+    the float32 model (float32 activations, K4's float32 variant once per
+    layer) with kernels and with ``use_kernels=False``, held within rtol /
+    atol 1e-3 (the band of ``[prefill]``; a wrong kernel moves logits by
+    O(1)), a batch row at a time; the argmax agreement of the two, and of
+    ``bf16`` (the bf16 kernel and plain runs' argmax) with the float32
+    plain run: where the bf16 runs disagree with each other only as much
+    as each does with float32, the gap is bf16 rounding, not K4. In an
+    MoE config a route can flip on a last-bit difference in a router logit
+    and move a token's whole expert output, so the held plain run replays
+    the kernel run's routing (``routing_spy``); the free plain run gives
+    the agreement figures and the count of tokens whose top-k differs.
+    Then, for a decoder (``decode`` > 0), a ``prompt``-token prefill and
+    ``decode`` float32 decode steps fed the batch's next tokens (K5's
+    float32 variant once per layer per step, a float32 cache), with
+    kernels and without, their logits held in the same band. Returns a
+    dict for the log."""
+    from repro_torch.kernels.decode_attention import decode_attention
+    from repro_torch.kernels.flash_attention import flash_attention
+    from repro_torch.models.registry import get_model
+    from repro_torch.serving.engine import (make_prefill_step,
+                                            make_serve_step)
+    model = get_model(cfg.replace(dtype="float32"))
+    reset_launches()
+    with routing_spy() as routes:
+        got = make_step(model)(params, batch)
+    counts = read_launches()
+    if flash_attention.launches != cfg.n_layers or any(
+            n for i, n in enumerate(counts) if i != 3):
+        raise AssertionError(f"[{label}] float32 launches {counts}, "
+                             f"expected K4 {cfg.n_layers} and nothing else")
+    with routing_spy() as free_routes:
+        want = make_step(model, use_kernels=False)(params, batch)
+    arg = want.argmax(-1)
+    res = dict(agree=float((got.argmax(-1) == arg).float().mean()),
+               k4_vs_f32=float((bf16[0] == arg).float().mean()),
+               plain_vs_f32=float((bf16[1] == arg).float().mean()),
+               k4=cfg.n_layers)
+    note = ""
+    if routes:
+        flips = [int((a.topi != b.topi).any(-1).sum())
+                 for a, b in zip(routes, free_routes)]
+        first = next((i for i, n in enumerate(flips) if n), None)
+        res.update(free_diff=max(float((g - w).abs().max())
+                                 for g, w in zip(got, want)),
+                   flips=sum(flips), first_flip=first)
+        note = (f"; free-running plain run: max|diff| {res['free_diff']:.3g},"
+                f" {sum(flips)} token-layers of "
+                f"{sum(r.topi.shape[0] for r in routes)} "
+                f"with another top-k, the first in MoE layer {first}; held "
+                f"with the kernel run's routing replayed")
+        del want
+        with routing_spy(replay=routes):
+            want = make_step(model, use_kernels=False)(params, batch)
+    res["diff"] = max(float((g - w).abs().max()) for g, w in zip(got, want))
+    res["scale"] = max(float(w.abs().max()) for w in want)
+    log(f"  {label} float32: logits max|diff| {res['diff']:.3g} (max|logit|"
+        f" {res['scale']:.3g}), argmax agreement {res['agree'] * 100:.3f} %;"
+        f" bf16 argmax against float32 plain: with K4 "
+        f"{res['k4_vs_f32'] * 100:.3f} %, with use_kernels=False "
+        f"{res['plain_vs_f32'] * 100:.3f} %{note}")
+    for i, (g, w) in enumerate(zip(got, want)):   # a row at a time
+        torch.testing.assert_close(g, w, rtol=1e-3, atol=1e-3,
+                                   msg=lambda m: f"[{label}] float32 row "
+                                                 f"{i}: {m}")
+    del got, want, routes, free_routes
+    if not decode:
+        return res
+    tokens = batch["tokens"][:, :prompt + decode]
+    runs, routes = [], None
+    for kernels in (True, False):
+        cache = model.new_cache(tokens.shape[0], prompt + decode,
+                                torch.float32, DEV)
+        step = make_serve_step(model, use_kernels=kernels, greedy=False)
+        out = []
+        with routing_spy(replay=routes) as seen:
+            _, cache = make_prefill_step(model, use_kernels=False)(
+                params, cache, {"tokens": tokens[:, :prompt]})
+            reset_launches()
+            for i in range(prompt, prompt + decode):
+                logits, cache = step(params, cache,
+                                     {"tokens": tokens[:, i:i + 1]})
+                out.append(logits)
+        if kernels and (decode_attention.launches != cfg.n_layers * decode
+                        or any(n for j, n in enumerate(read_launches())
+                               if j != 4)):
+            raise AssertionError(f"[{label}] float32 decode launches "
+                                 f"{read_launches()}, expected K5 "
+                                 f"{cfg.n_layers * decode} only")
+        routes = seen
+        runs.append(torch.stack(out))
+    res["decode_diff"] = float((runs[0] - runs[1]).abs().max())
+    res["k5"] = cfg.n_layers * decode
+    log(f"  {label} float32 decode: {decode} steps after a {prompt}-token "
+        f"prefill, K5 {res['k5']} launches, logits max|diff| "
+        f"{res['decode_diff']:.3g} (max|logit| "
+        f"{float(runs[1].abs().max()):.3g})"
+        + ("; the kernel run's routing replayed" if routes else ""))
+    torch.testing.assert_close(runs[0], runs[1], rtol=1e-3, atol=1e-3,
+                               msg=lambda m: f"[{label}] float32 decode: "
+                                             f"{m}")
+    return res
+
+
+def arch_generate(torch, cfg, model, params, b=8, prompt=128, new=32):
+    """The engine (default batch and seq buckets, a 256-slot cache): B=8,
+    a 128-token prompt, 32 new tokens; K5 once per GQA layer per decode
+    step."""
+    from repro_torch.serving.engine import ServingEngine
+    engine = ServingEngine(model, params, max_cache_len=256)
+    gen = torch.Generator(device=DEV).manual_seed(5)
+    tokens = torch.randint(0, cfg.vocab_size, (b, prompt), generator=gen,
+                           device=DEV, dtype=torch.int32)
+    engine.generate(tokens, steps=4)              # warm-up
+    reset_launches()
+    t0 = time.time()
+    logits, cache, info = engine.prefill(tokens)
+    cur = torch.argmax(logits, -1).to(torch.int32)[:, None]
+    out, dec = [cur], []
+    for _ in range(new - 1):
+        cur, cache, d_info = engine.decode(cache, cur)
+        out.append(cur)
+        dec.append(d_info["latency_s"])
+    total = time.time() - t0
+    counts = read_launches()
+    want_k5 = 0 if cfg.use_mla else cfg.n_layers * (new - 1)
+    if counts != (0, 0, 0, 0, want_k5, 0):
+        raise AssertionError(f"[archs] {cfg.name} generate: launches "
+                             f"{counts}, expected K5 {want_k5} only")
+    toks = torch.cat(out, 1)
+    if toks.shape != (b, new) or not bool(((toks >= 0) & (
+            toks < cfg.vocab_size)).all()):
+        raise AssertionError(f"[archs] {cfg.name}: bad tokens")
+    return dict(k5=want_k5, prefill_ms=info["latency_s"] * 1e3,
+                decode_ms=sum(dec) / len(dec) * 1e3,
+                tokens_per_s=b * new / total)
+
+
+def arch_phase(torch, gen, smi):
+    """[archs]: each of ARCHS at full width and depth (random weights from
+    a seed on the card): its parameter count; the cache-less prefill step
+    at B=4, S=2048 with K4 against the same step with
+    ``use_kernels=False``, in bf16 and in float32 (``float32_check``, with
+    four float32 decode steps on K5); the engine at B=8 (K5 in every
+    decode step); peak bytes; then K4 and K5 at the config's bf16 shapes
+    against plain. Returns the K4 / K5 rows of this slice's shapes and the
+    phase's launches."""
+    from repro_torch.configs.base import get_config
+    from repro_torch.models.registry import get_model, param_count
+    from repro_torch.serving.engine import make_prefill_step
+    rows, launches = {}, {}
+    for name in ARCHS:
+        cfg = get_config(name)
+        fresh_peak(torch)
+        t0 = time.time()
+        model = get_model(cfg)
+        params = model.init(torch.Generator(device=DEV).manual_seed(0))
+        n = param_count(params)
+        if n != FULL_COUNTS[name]:
+            raise AssertionError(f"[archs] {name}: {n} parameters, "
+                                 f"expected {FULL_COUNTS[name]}")
+        init_s = time.time() - t0
+        batch = {"tokens": torch.randint(0, cfg.vocab_size, (4, 2048),
+                                         generator=gen, device=DEV,
+                                         dtype=torch.int32)}
+
+        def make_step(m, **kw):
+            return make_prefill_step(m, with_cache=False, **kw)
+
+        pre = compare_steps(torch, cfg, make_step(model),
+                            make_step(model, use_kernels=False), params,
+                            batch, f"archs {name}", cfg.n_layers)
+        f32 = float32_check(torch, cfg, params, batch, f"archs {name}",
+                            make_step, pre.pop("argmax"))
+        del batch
+        g = arch_generate(torch, cfg, model, params)
+        launches[name] = dict(K4=pre["k4"], K5=g["k5"])
+        log(f"  {name} ({cfg.n_layers} layers, full depth, d_model "
+            f"{cfg.d_model}) on {smi}: {n} parameters (expected "
+            f"{FULL_COUNTS[name]}), init {init_s:.1f} s; prefill B=4 S=2048 "
+            f"{pre['ms']:.1f} ms with K4 ({pre['k4']} launches), "
+            f"{pre['plain_ms']:.1f} ms with use_kernels=False; bf16 logits "
+            f"max|diff| {pre['diff']:.3g} (max|logit| {pre['scale']:.3g}), "
+            f"argmax agreement {pre['agree'] * 100:.3f} %; float32 max|diff|"
+            f" {f32['diff']:.3g}, argmax agreement {f32['agree'] * 100:.3f} "
+            f"%, decode max|diff| {f32['decode_diff']:.3g}; generate B=8 "
+            f"prompt 128 + 32: prefill {g['prefill_ms']:.2f} ms, decode "
+            f"{g['decode_ms']:.3f} ms/step, {g['tokens_per_s']:.1f} "
+            f"tokens/s, K5 {g['k5']} launches; peak {peak_bytes(torch)} B")
+        del params, model
+        fresh_peak(torch)
+        rows[("flash_attention", name)] = attn_row(
+            torch, gen, "flash_attention", K4_ROWS[name], pre["k4"])
+        rows[("decode_attention", name)] = attn_row(
+            torch, gen, "decode_attention", K5_ROWS[name], g["k5"])
+    return rows, launches
+
+
+def attn_row(torch, gen, kernel, case, launches):
+    """K4 / K5 at one model shape: max |err| against the plain version and
+    the timing row (all the kernels line's keys)."""
+    from repro_torch.kernels.decode_attention import decode_attention
+    from repro_torch.kernels.flash_attention import flash_attention
+    from repro_torch.kernels.ref import (decode_attention_ref,
+                                         flash_attention_ref)
+    if kernel == "flash_attention":
+        q, k, v = k4_inputs(torch, gen, case)
+        got = flash_attention(q, k, v, causal=case[-1])
+        want = flash_attention_ref(q, k, v, causal=case[-1])
+        tol, timing = attn_tol(case[6]), k4_timing
+    else:
+        q, k, v = k5_inputs(torch, gen, case)
+        got = decode_attention(q, k, v, case[5])
+        want = decode_attention_ref(q, k, v, case[5])
+        tol, timing = attn_tol(case[6]), k5_timing
+    torch.testing.assert_close(got.float(), want.float(), rtol=tol, atol=tol,
+                               msg=f"{kernel} {case}")
+    err = float((got.float() - want.float()).abs().max())
+    del q, k, v, got, want
+    return dict(max_abs_err=err, launches=launches,
+                **timing(torch, gen, case))
+
+
+def encode_phase(torch, gen, smi):
+    """[encode]: hubert-xlarge at full width through ``make_encode_step``,
+    B=4, S=2048 frames: K4 bidirectional at D=80 once per layer, against
+    ``use_kernels=False`` in bf16 and in float32 (``float32_check``);
+    peak bytes. Returns (K4 row, launches)."""
+    from repro_torch.configs.base import get_config
+    from repro_torch.models.registry import get_model, param_count
+    from repro_torch.serving.engine import make_encode_step
+    cfg = get_config(HUBERT)
+    fresh_peak(torch)
+    model = get_model(cfg)
+    params = model.init(torch.Generator(device=DEV).manual_seed(0))
+    n = param_count(params)
+    if n != FULL_COUNTS[HUBERT]:
+        raise AssertionError(f"[encode] {n} parameters, expected "
+                             f"{FULL_COUNTS[HUBERT]}")
+    batch = {"embeds": torch.randn((4, 2048, cfg.frontend_dim),
+                                   generator=gen, device=DEV)}
+    res = compare_steps(torch, cfg, make_encode_step(model),
+                        make_encode_step(model, use_kernels=False), params,
+                        batch, "encode", cfg.n_layers)
+    f32 = float32_check(torch, cfg, params, batch, "encode",
+                        make_encode_step, res.pop("argmax"), decode=0)
+    batch["mask"] = torch.rand((4, 2048), generator=gen, device=DEV) < 0.08
+    masked = make_encode_step(model)(params, batch)
+    if not torch.isfinite(masked).all():
+        raise AssertionError("[encode] masked logits not finite")
+    log(f"  {HUBERT} ({cfg.n_layers} layers, full depth, bidirectional, "
+        f"D={cfg.head_dim}) on {smi}: {n} parameters (expected "
+        f"{FULL_COUNTS[HUBERT]}); encode B=4 S=2048 {res['ms']:.1f} ms with "
+        f"K4 ({res['k4']} launches), {res['plain_ms']:.1f} ms with "
+        f"use_kernels=False; bf16 logits max|diff| {res['diff']:.3g} "
+        f"(max|logit| {res['scale']:.3g}), argmax agreement "
+        f"{res['agree'] * 100:.3f} %; float32 max|diff| {f32['diff']:.3g}, "
+        f"argmax agreement {f32['agree'] * 100:.3f} %; with HuBERT's mask: "
+        f"finite; peak {peak_bytes(torch)} B")
+    del params, model, masked, batch
+    fresh_peak(torch)
+    return attn_row(torch, gen, "flash_attention", K4_ROWS[HUBERT],
+                    res["k4"]), res["k4"]
+
+
+def card_vs_cpu_tokens(torch, runs, label, steps):
+    """Identical tokens of a card run and a CPU run, a first divergence
+    accepted only where the CPU's top-two logits differ by under 1e-5
+    relative; logits within rtol 1e-3 / atol 1e-4 up to it. Returns
+    (note, max |diff|)."""
     (lk, tk), (lc, tc) = runs
     upto, note = steps, "identical"
     diff = (tk != tc).any(0)
@@ -3557,16 +4063,68 @@ def run_lm_reference(torch, steps=16):
             top = torch.topk(lc[row, upto], 2).values
             gap = float(top[0] - top[1])
             if gap > 1e-5 * max(1.0, abs(float(top[0]))):
-                raise AssertionError(f"[LM reference] row {int(row)} parts "
-                                     f"at step {upto} with no near-tie "
-                                     f"(gap {gap:.3g})")
+                raise AssertionError(f"[{label}] row {int(row)} parts at "
+                                     f"step {upto} with no near-tie (gap "
+                                     f"{gap:.3g})")
         note = f"identical up to a near-tie at step {upto} (reported)"
     torch.testing.assert_close(lk[:, :upto + 1], lc[:, :upto + 1],
                                rtol=1e-3, atol=1e-4,
-                               msg="[LM reference] card vs cpu logits")
-    err = float((lk[:, :upto + 1] - lc[:, :upto + 1]).abs().max())
-    log(f"  reduced {QWEN} float32, B=4, {steps} tokens: card (K5) vs CPU "
-        f"tokens {note}; logits max|diff| {err:.3g} (rtol 1e-3 / atol 1e-4)")
+                               msg=f"[{label}] card vs cpu logits")
+    return note, float((lk[:, :upto + 1] - lc[:, :upto + 1]).abs().max())
+
+
+def moe_reference_phase(torch, steps=16):
+    """[MoE reference]: reduced deepseek-v2-lite and granite (2 layers,
+    float32, float32 cache) with the same numpy-made parameters on the
+    card and on the CPU, B=4, 16 tokens: tokens under the near-tie rule,
+    the first MoE layer's routing (top-k ids, ``keep``) equal, and the
+    card run equal to itself bit for bit across two calls (the
+    deterministic combine)."""
+    import numpy as np
+    from repro_torch.configs.base import get_config
+    from repro_torch.models import moe
+    from repro_torch.models.registry import (get_model, params_from_numpy,
+                                             params_to_numpy)
+    route = moe.moe_route
+    for name in (DEEPSEEK, GRANITE):
+        seen = []
+
+        def spy(*args):
+            seen.append(route(*args))
+            return seen[-1]
+
+        cfg = get_config(name).reduced()
+        model = get_model(cfg)
+        tree = params_to_numpy(model.init(torch.Generator().manual_seed(0)))
+        tokens = torch.as_tensor(np.random.default_rng(0).integers(
+            0, cfg.vocab_size, (4, 12)), dtype=torch.int32)
+        runs, first = [], []
+        for dev in (DEV, "cpu", DEV):
+            seen.clear()
+            moe.moe_route = spy
+            try:
+                runs.append(lm_trace(torch, model, params_from_numpy(
+                    cfg, tree, dev), tokens, steps, dev))
+            finally:
+                moe.moe_route = route
+            first.append(seen[0])
+        if not all(torch.equal(a, b) for a, b in zip(runs[0], runs[2])):
+            raise AssertionError(f"[MoE reference] {name}: two card runs "
+                                 f"differ")
+        for key in ("topi", "keep", "slot"):
+            if not torch.equal(getattr(first[0], key).cpu(),
+                               getattr(first[1], key)):
+                raise AssertionError(f"[MoE reference] {name}: the first "
+                                     f"MoE layer's {key} differs card vs "
+                                     f"CPU")
+        note, err = card_vs_cpu_tokens(torch, runs[:2],
+                                       "MoE reference", steps)
+        log(f"  reduced {name} float32, B=4, {steps} tokens: card vs CPU "
+            f"tokens {note}; logits max|diff| {err:.3g} (rtol 1e-3 / atol "
+            f"1e-4); first MoE layer's routing (top-k, keep, slots) equal, "
+            f"{int((~first[0].keep).sum())} of {first[0].keep.numel()} "
+            f"assignments dropped; two card runs bit for bit")
+
 
 
 def main():
@@ -3725,6 +4283,20 @@ def main():
     torch.cuda.empty_cache()
     log("[LM reference] reduced model, card vs CPU")
     run_lm_reference(torch)
+    log(f"[moe serve] repro_torch.launch.serve --arch {DEEPSEEK} (full "
+        f"width and depth)")
+    moe_k1, moe_k1_err, moe_k1_t = moe_serve_phase(torch,
+                                                   smi.splitlines()[0])
+    log("[archs] " + ", ".join(ARCHS) + " at full width: prefill (K4) and "
+        "generate (K5)")
+    arch_rows, arch_launches = arch_phase(torch, gen, smi.splitlines()[0])
+    log("  [archs] launches per config: " + json.dumps(arch_launches))
+    log(f"[encode] {HUBERT} at full width through make_encode_step (K4 "
+        f"bidirectional, D=80)")
+    arch_rows[("flash_attention", HUBERT)], _ = encode_phase(
+        torch, gen, smi.splitlines()[0])
+    log("[MoE reference] reduced deepseek-v2-lite and granite, card vs CPU")
+    moe_reference_phase(torch)
 
     rows = [dict(name="diversity_insert", route="cuda",
                  source="src/repro_torch/csrc/diversity_insert.cu",
@@ -3763,11 +4335,24 @@ def main():
                      source="src/repro_torch/csrc/decode_attention.cu",
                      replaces="src/repro/kernels/decode_attention.py:110",
                      launches=k5_n, max_abs_err=k5_err,
-                     **k5_t[K5_MAIN[0], K5_MAIN[4], K5_MAIN[5]]))
+                     **k5_t[K5_MAIN[0]]))
     rows.append(dict(name="pack", route="cuda",
                      source="src/repro_torch/csrc/pack.cu",
                      replaces="src/repro/kernels/packing.py:34",
                      launches=0, max_abs_err=0.0, **k6_t))
+    rows.append(dict(name=f"diversity_insert[serve {DEEPSEEK}, A=4]",
+                     route="cuda",
+                     source="src/repro_torch/csrc/diversity_insert.cu",
+                     replaces="src/repro/kernels/diversity.py:93",
+                     launches=moe_k1, max_abs_err=moe_k1_err, **moe_k1_t))
+    src = {"flash_attention": ("src/repro_torch/csrc/flash_attention.cu",
+                               "src/repro/kernels/flash_attention.py:112"),
+           "decode_attention": ("src/repro_torch/csrc/decode_attention.cu",
+                                "src/repro/kernels/decode_attention.py:110")}
+    for (kernel, arch), row in arch_rows.items():
+        rows.append(dict(name=f"{kernel}[{arch}]", route="cuda",
+                         source=src[kernel][0], replaces=src[kernel][1],
+                         **row))
     log("[A=2048] " + json.dumps(
         {"diversity_insert": k1_t[2048],
          **{f"delta_codec[{c}]": k2_t[(c, 2048)] for c in ("int8", "topk")},
@@ -3777,7 +4362,7 @@ def main():
     log("[LM other shapes] " + json.dumps(
         {"flash_attention[float32]": k4_t["float32"],
          "decode_attention[B=64,kv_len=4096]":
-             k5_t[K5_BIG[0], K5_BIG[4], K5_BIG[5]]}))
+             k5_t[K5_BIG[0]]}))
     log(json.dumps({"kernels": rows}))
     log(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),

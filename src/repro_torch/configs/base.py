@@ -3,9 +3,9 @@
 The port's own copy of ``repro.configs.base``: the same ``ArchConfig``
 fields, defaults and ``reduced()``, the same ``InputShape`` grid, and a
 registry. Only the configurations the port can run are registered (the
-dense family: ``qwen2-0.5b``); the JAX package's other architectures are
-listed by family and raise ``NotImplementedError`` (ROADMAP queue 1,
-item 16).
+transformer family: dense, MoE, MLA, the encoder and the VLM); the JAX
+package's other architectures (the SSM and hybrid families) are listed by
+family and raise ``NotImplementedError`` (ROADMAP queue 1, item 9).
 """
 from __future__ import annotations
 
@@ -74,7 +74,7 @@ class ArchConfig:
     # lowering choice of the JAX package (no effect in eager PyTorch)
     scan_layers: bool = True
 
-    # attention implementation: "ref" (sdpa) or "chunked" (not ported)
+    # attention implementation: "ref" (sdpa) or "chunked" (sdpa_chunked)
     attn_impl: str = "ref"
     attn_chunk: int = 1024
 
@@ -158,13 +158,16 @@ SHAPES = {
 }
 
 
+def shape_applicable(cfg: ArchConfig, shape_name: str) -> Tuple[bool, str]:
+    """Return (applicable, reason-if-not) for an (arch, shape) cell."""
+    for name, reason in cfg.skip_shapes:
+        if name == shape_name:
+            return False, reason
+    return True, ""
+
+
 # The JAX package's other architectures and their families: not ported.
-NOT_PORTED = {
-    "hubert-xlarge": "encoder", "zamba2-1.2b": "hybrid",
-    "qwen1.5-0.5b": "dense", "gemma-7b": "dense", "qwen2-7b": "dense",
-    "granite-moe-3b-a800m": "moe", "deepseek-v2-lite-16b": "moe",
-    "pixtral-12b": "vlm", "xlstm-125m": "ssm",
-}
+NOT_PORTED = {"zamba2-1.2b": "hybrid", "xlstm-125m": "ssm"}
 
 _REGISTRY = {}
 
@@ -176,7 +179,7 @@ def register(cfg: ArchConfig) -> ArchConfig:
 
 def _load():
     if not _REGISTRY:
-        from repro_torch.configs import qwen2_0p5b  # noqa: F401
+        import repro_torch.configs  # noqa: F401  (registers every config)
 
 
 def get_config(name: str) -> ArchConfig:
@@ -186,7 +189,7 @@ def get_config(name: str) -> ArchConfig:
     if name in NOT_PORTED:
         raise NotImplementedError(
             f"{name} ({NOT_PORTED[name]} family) is not ported to repro_torch "
-            f"yet (ROADMAP queue 1, item 16); ported: {list_archs()}")
+            f"yet (ROADMAP queue 1, item 9); ported: {list_archs()}")
     raise KeyError(f"unknown architecture {name!r}; ported: {list_archs()}")
 
 

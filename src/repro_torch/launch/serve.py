@@ -7,15 +7,20 @@ runs its CRL inner loop, an FL round every ``fl_every`` episodes, and one
 real batch is served by ``engine.generate`` at the batch size the fleet
 chose.
 
-On the GPU (the default) the model runs at the width of ``--arch``
-(qwen2-0.5b: 24 layers, d_model 896) with random weights made from
-``--seed`` on the card, and every decode step runs K5 ``decode_attention``
-in each layer; ``--reduced`` gives the small variant.
+On the GPU (the default) the model runs at the full width and depth of
+``--arch`` (any decoder of ``repro_torch.configs``: qwen2-0.5b by default,
+24 layers, d_model 896; deepseek-v2-lite-16b, 27 layers, 15.7 G float32
+parameters, fits one 80 GB card) with random weights made from ``--seed``
+on the card. Every decode step runs K5 ``decode_attention`` in each GQA
+layer; MLA layers (deepseek) and the MoE experts run plain torch ops, as
+the reference runs them outside any Pallas kernel. ``--reduced`` gives
+the small variant.
 
 Examples:
   PYTHONPATH=src python -m repro_torch.launch.serve
+  PYTHONPATH=src python -m repro_torch.launch.serve --arch deepseek-v2-lite-16b
   PYTHONPATH=src python -m repro_torch.launch.serve --device cpu --reduced \\
-      --replicas 2 --episodes 2
+      --arch granite-moe-3b-a800m --replicas 2 --episodes 2
 """
 from __future__ import annotations
 
@@ -27,13 +32,13 @@ import numpy as np
 import torch
 
 from repro_torch import resolve_device
-from repro_torch.configs.base import get_config
+from repro_torch.configs.base import get_config, shape_applicable
 from repro_torch.configs.fcpo import FCPOConfig
 from repro_torch.core.env import EnvParams
 from repro_torch.core.fleet import fl_round, fleet_episode, fleet_init
 from repro_torch.data.workload import fleet_traces
 from repro_torch.kernels import build
-from repro_torch.models.registry import get_model
+from repro_torch.models.registry import get_model, param_count
 from repro_torch.serving.engine import ServingEngine
 
 
@@ -61,12 +66,14 @@ def calibrate_env_from_engine(engine: ServingEngine, cfg_f: FCPOConfig,
                      net_lat=f(0.01))
 
 
-def main(argv=None):
+def main(argv=None, return_engine=False):
     """Run the launcher; returns a summary: per-episode fleet-mean
     ``reward``, ``effective_throughput``, ``latency`` (s), the served
     batch size ``bs`` and the ``generate_s`` wall time of each served
-    batch, plus the calibrated ``t0``/``t1`` (s) and the ``wall_s`` of the
-    episode loop."""
+    batch, plus the calibrated ``t0``/``t1`` (s), the ``wall_s`` of the
+    episode loop and the model's parameter count ``n_params``. With
+    ``return_engine``, ``(summary, engine)``: the engine that served, for
+    a caller that measures it further without building the model again."""
     ap = argparse.ArgumentParser()
     ap.add_argument("--arch", default="qwen2-0.5b")
     ap.add_argument("--reduced", action="store_true")
@@ -88,12 +95,16 @@ def main(argv=None):
         build.build()          # kernel build is set-up, not serving time
 
     cfg = get_config(args.arch)
+    decodes, why = shape_applicable(cfg, "decode_32k")
+    if not decodes:
+        ap.error(f"--arch {args.arch} cannot be served ({why})")
     if args.reduced:
         cfg = cfg.reduced()
     model = get_model(cfg)
     gen = torch.Generator(device=dev)
     gen.manual_seed(args.seed)
     params = model.init(gen)
+    n_params = param_count(params)
     engine = ServingEngine(model, params, max_cache_len=256,
                            batch_buckets=(1, 2, 4, 8), seq_buckets=(16, 32))
 
@@ -107,8 +118,9 @@ def main(argv=None):
     t0_s, t1_s = float(env_params.t0), float(env_params.t1)
     name = torch.cuda.get_device_name(dev) if dev.type == "cuda" else "cpu"
     print(f"{cfg.name}{' (reduced)' if args.reduced else ''}: "
-          f"{cfg.n_layers} layers, d_model {cfg.d_model}, {args.replicas} "
-          f"replicas, device={dev.type} ({name})")
+          f"{cfg.n_layers} layers, d_model {cfg.d_model}, {n_params:,} "
+          f"parameters, {args.replicas} replicas, device={dev.type} "
+          f"({name})")
     print(f"calibrated latency model: t0={t0_s * 1e3:.1f}ms "
           f"t1={t1_s * 1e6:.0f}us/item")
 
@@ -142,8 +154,8 @@ def main(argv=None):
     print("done")
     summary = {k: np.asarray(v) for k, v in hist.items()}
     summary.update(t0=np.asarray(t0_s), t1=np.asarray(t1_s),
-                   wall_s=np.asarray(wall))
-    return summary
+                   wall_s=np.asarray(wall), n_params=np.asarray(n_params))
+    return (summary, engine) if return_engine else summary
 
 
 if __name__ == "__main__":

@@ -1,16 +1,17 @@
 """Core functional layers: norms, RoPE, embeddings, MLPs, GQA attention.
 
-Port of ``repro.models.layers`` (dense pieces). Parameters are plain nested
-dicts of tensors in the JAX package's layout: a dense weight is
-(d_in, d_out) and applies as ``x @ w`` (no transposition anywhere), an
-rmsnorm gain is stored as g with the scale 1 + g.
+Port of ``repro.models.layers``. Parameters are plain nested dicts of
+tensors in the JAX package's layout: a dense weight is (d_in, d_out) and
+applies as ``x @ w`` (no transposition anywhere), an rmsnorm gain is
+stored as g with the scale 1 + g.
 
 ``attention_apply`` takes ``use_kernels`` (the counterpart of the JAX
 package's ``use_pallas``): with it, a cache-less forward goes to K4
 ``flash_attention`` and a one-token step against the cache to K5
 ``decode_attention`` (kernels for CUDA tensors, their plain versions for
 CPU tensors); a multi-token prefill into the cache goes to ``sdpa``, as in
-the reference. Without it every call takes ``sdpa``.
+the reference. Without it every call takes ``sdpa``, or, cache-less under
+``attn_impl="chunked"``, ``sdpa_chunked`` (its streaming twin).
 """
 from __future__ import annotations
 
@@ -27,8 +28,12 @@ NEG_INF = -1e30
 
 
 def _normal(gen, shape, scale, dtype):
-    return (torch.randn(shape, generator=gen, device=gen.device,
-                        dtype=torch.float32) * scale).to(dtype)
+    """normal(0, 1) * scale, drawn in float32. Scaled in place, so that a
+    float32 leaf (a stack of experts: 19.19 GB in deepseek-v2-lite) never
+    holds a temporary of its own size beside it."""
+    x = torch.randn(shape, generator=gen, device=gen.device,
+                    dtype=torch.float32).mul_(scale)
+    return x if dtype == torch.float32 else x.to(dtype)
 
 
 def dense_init(gen, d_in, d_out, dtype, bias=False, scale=None, lead=()):
@@ -210,6 +215,47 @@ def sdpa(q, k, v, *, causal, q_offset=0, kv_len=None, softcap=0.0,
     return torch.einsum("bhqk,bkhd->bqhd", probs, v)
 
 
+def sdpa_chunked(q, k, v, *, causal, chunk=1024):
+    """Flash-style streaming attention: the math of ``sdpa``, but the
+    (Sq, Sk) score matrix never materializes. KV is consumed in
+    ``chunk``-sized blocks with a running (max, denom, acc) online softmax,
+    in float32 throughout; ``Sk`` must be a multiple of the chunk (no
+    padding, as in the reference)."""
+    b, sq, hq, d = q.shape
+    sk, hkv = k.shape[1], k.shape[2]
+    k = repeat_kv(k, hq // hkv)
+    v = repeat_kv(v, hq // hkv)
+    scale = 1.0 / math.sqrt(d)
+    chunk = min(chunk, sk)
+    assert sk % chunk == 0, (sk, chunk)
+    qf = q.float().transpose(1, 2)                            # (B,H,Sq,D)
+    kf = k.float().transpose(1, 2)
+    vf = v.float().transpose(1, 2)
+    qpos = torch.arange(sq, device=q.device)
+    m = torch.full((b, hq, sq, 1), NEG_INF, dtype=torch.float32,
+                   device=q.device)
+    l = torch.zeros((b, hq, sq, 1), dtype=torch.float32, device=q.device)
+    acc = torch.zeros((b, hq, sq, d), dtype=torch.float32, device=q.device)
+    for start in range(0, sk, chunk):
+        ki = kf[:, :, start:start + chunk]
+        vi = vf[:, :, start:start + chunk]
+        s = torch.einsum("bhqd,bhkd->bhqk", qf, ki) * scale     # (B,H,Sq,C)
+        if causal:
+            kpos = start + torch.arange(chunk, device=q.device)
+            mask = qpos[:, None] >= kpos[None, :]
+            s = torch.where(mask, s, NEG_INF)
+        m_new = torch.maximum(m, s.amax(-1, keepdim=True))
+        p = torch.exp(s - m_new)
+        if causal:
+            p = torch.where(mask, p, 0.0)
+        corr = torch.exp(m - m_new)
+        l = l * corr + p.sum(-1, keepdim=True)
+        acc = acc * corr + torch.einsum("bhqk,bhkd->bhqd", p, vi)
+        m = m_new
+    out = acc / torch.clamp(l, min=1e-30)
+    return out.transpose(1, 2).to(q.dtype)
+
+
 def attention_apply(p, cfg: ArchConfig, x, positions, cache=None,
                     use_kernels=True):
     """Full attention with an optional KV cache (decode).
@@ -240,9 +286,8 @@ def attention_apply(p, cfg: ArchConfig, x, positions, cache=None,
             out = flash_attention(q.contiguous(), k.contiguous(),
                                   v.contiguous(), causal=cfg.causal)
         elif cfg.attn_impl == "chunked":
-            raise NotImplementedError(
-                "attn_impl='chunked' (sdpa_chunked) is not ported yet "
-                "(ROADMAP queue 1, item 16)")
+            out = sdpa_chunked(q, k, v, causal=cfg.causal,
+                               chunk=cfg.attn_chunk)
         else:
             out = sdpa(q, k, v, causal=cfg.causal, softcap=cfg.logit_softcap,
                        gqa_impl=cfg.gqa_impl)

@@ -1,21 +1,25 @@
 """Architecture registry of the port: id -> (config, init, apply, cache).
 
-Port of ``repro.models.registry`` for the dense family, plus the weight
-carry between the two packages: ``params_from_numpy`` reads the JAX
-package's parameter tree as numpy arrays (``jax.tree.map(np.asarray,
-params)``) and ``params_to_numpy`` writes the port's back. The two trees
-have the same nesting, keys, shapes and layout (dense weights (d_in,
+Port of ``repro.models.registry`` for the transformer family (dense, moe,
+encoder, vlm), plus the weight carry between the two packages:
+``params_from_numpy`` reads the JAX package's parameter tree as numpy
+arrays (``jax.tree.map(np.asarray, params)``) and ``params_to_numpy``
+writes the port's back. The two trees have the same nesting (dicts, and
+the list ``first_blocks``), keys, shapes and layout (dense weights (d_in,
 d_out), block parameters stacked on a leading L axis): no transposition.
+
+``input_specs(cfg, shape)`` gives the (shape, dtype) of every model input
+of one (arch, shape) cell, allocating nothing.
 """
 from __future__ import annotations
 
-from typing import Any, Callable, NamedTuple
+from typing import Any, Callable, Dict, NamedTuple, Tuple
 
 import numpy as np
 import torch
 
 from repro_torch import resolve_device
-from repro_torch.configs.base import ArchConfig
+from repro_torch.configs.base import ArchConfig, InputShape
 from repro_torch.models import transformer
 
 
@@ -37,6 +41,29 @@ def get_model(cfg: ArchConfig) -> Model:
             transformer.new_cache(cfg, batch, max_len, dtype, device))
 
 
+def input_specs(cfg: ArchConfig,
+                shape: InputShape) -> Dict[str, Tuple[tuple, torch.dtype]]:
+    """(shape, dtype) stand-ins for the model inputs of one grid cell."""
+    b, s = shape.global_batch, shape.seq_len
+    act = transformer.torch_dtype(cfg.dtype)
+    if shape.kind == "decode":
+        if cfg.frontend == "frames":
+            return {"embeds": ((b, 1, cfg.frontend_dim), act)}
+        return {"tokens": ((b, 1), torch.int32)}
+    if cfg.frontend == "frames":  # hubert: precomputed frame embeddings
+        batch = {"embeds": ((b, s, cfg.frontend_dim), act)}
+        if shape.kind == "train":
+            batch["mask"] = ((b, s), torch.bool)
+            batch["labels"] = ((b, s), torch.int32)
+        return batch
+    batch = {"tokens": ((b, s), torch.int32)}
+    if cfg.frontend == "patches":  # pixtral: precomputed patch embeddings
+        batch["patches"] = ((b, cfg.n_patches, cfg.frontend_dim), act)
+    if shape.kind == "train":
+        batch["labels"] = ((b, s), torch.int32)
+    return batch
+
+
 def params_from_numpy(cfg: ArchConfig, tree, device="cuda"):
     """The JAX package's parameter tree (numpy leaves) as the port's, on
     ``device``, in ``cfg.param_dtype``. Every leaf keeps its shape."""
@@ -46,9 +73,20 @@ def params_from_numpy(cfg: ArchConfig, tree, device="cuda"):
     def conv(x):
         if isinstance(x, dict):
             return {k: conv(v) for k, v in x.items()}
+        if isinstance(x, (list, tuple)):
+            return [conv(v) for v in x]
         return torch.from_numpy(np.array(x, np.float32)).to(dev, dtype)
 
     return conv(tree)
+
+
+def param_count(params) -> int:
+    """The number of parameters in a tree of tensors (dicts and lists)."""
+    if isinstance(params, dict):
+        return sum(param_count(v) for v in params.values())
+    if isinstance(params, (list, tuple)):
+        return sum(param_count(v) for v in params)
+    return params.numel()
 
 
 def params_to_numpy(params):
@@ -56,4 +94,6 @@ def params_to_numpy(params):
     layout)."""
     if isinstance(params, dict):
         return {k: params_to_numpy(v) for k, v in params.items()}
+    if isinstance(params, (list, tuple)):
+        return [params_to_numpy(v) for v in params]
     return params.detach().float().cpu().numpy()

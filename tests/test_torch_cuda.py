@@ -32,6 +32,13 @@ sharing the card (spawned ``tests/torch_mesh_rank.py``) equal the
 meshless card run within rtol/atol 1e-5; on a machine with two or more
 cards, NCCL ranks one card each under the graph driver equal the
 one-card meshless graph run within rtol/atol 1e-5.
+
+The transformer family: reduced deepseek-v2-lite (MLA, a dense first
+layer, MoE with a shared expert) and granite-moe on the card against the
+CPU (logits within rtol 1e-3 / atol 1e-4, cache-less and through the
+cache; the first MoE layer's routing equal), the MoE combine bit for bit
+across calls and against the CPU's, and ``serve --arch <moe> --reduced``
+launching K1 once per episode and K5 only in granite's GQA layers.
 """
 import os
 import subprocess
@@ -1495,3 +1502,130 @@ def test_nccl_ranks_on_several_cards_capture_the_mesh(cuda_device,
     assert info["collectives"] > 0
     assert info["pod_group_is_world"] == (world == 2)
     assert info["warmed"] == ([world, 2] if world == 4 else [world])
+
+
+# ---------------------------------------------------------------------------
+# The transformer family: MoE and MLA on the card
+# ---------------------------------------------------------------------------
+MOE_ARCHS = ["deepseek-v2-lite-16b", "granite-moe-3b-a800m"]
+
+
+def _reduced_pair(name, device):
+    """A reduced float32 model with the same CPU-made parameters on the
+    CPU and on ``device``."""
+    from repro_torch.configs.base import get_config
+    from repro_torch.models.registry import (get_model, params_from_numpy,
+                                             params_to_numpy)
+    cfg = get_config(name).reduced()
+    model = get_model(cfg)
+    tree = params_to_numpy(model.init(torch.Generator().manual_seed(0)))
+    return model, params_from_numpy(cfg, tree, "cpu"), \
+        params_from_numpy(cfg, tree, device)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("name", MOE_ARCHS)
+def test_reduced_moe_model_on_the_card_matches_the_cpu(cuda_device, name):
+    """Logits within rtol 1e-3 / atol 1e-4 (as the reduced LM's card vs CPU
+    check), the MoE aux loss too, and the first MoE layer's routing (top-k
+    ids, ``keep``, slots) equal on the same input."""
+    from repro_torch.models import moe
+    from repro_torch.models.layers import rmsnorm
+    from repro_torch.models.transformer import _layer
+    model, p_cpu, p_card = _reduced_pair(name, cuda_device)
+    cfg = model.cfg
+    tok = torch.as_tensor(np.random.default_rng(0).integers(
+        0, cfg.vocab_size, (4, 16)), dtype=torch.int32)
+    want, _, want_aux = model.apply(p_cpu, {"tokens": tok})
+    got, _, aux = model.apply(p_card, {"tokens": tok.to(cuda_device)})
+    torch.testing.assert_close(got.cpu(), want, rtol=1e-3, atol=1e-4)
+    torch.testing.assert_close(aux["moe_aux"].cpu(), want_aux["moe_aux"],
+                               rtol=1e-4, atol=1e-6)
+    layer = _layer(p_cpu["blocks"], 0)
+    h = rmsnorm(layer["ln2"], torch.randn(
+        64, cfg.d_model, generator=torch.Generator().manual_seed(1)))
+    r_cpu = moe.moe_route(layer["moe"], cfg, h)
+    r_card = moe.moe_route(_layer(p_card["blocks"], 0)["moe"], cfg,
+                           h.to(cuda_device))
+    for key in ("topi", "order", "keep", "slot"):
+        assert torch.equal(getattr(r_card, key).cpu(), getattr(r_cpu, key)), \
+            key
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("name", MOE_ARCHS)
+def test_reduced_moe_cache_path_on_the_card_matches_the_cpu(cuda_device,
+                                                            name):
+    """A prefill of 12 tokens into a float32 cache, then four one-token
+    steps (deepseek: MLA's absorbed path against the compressed cache;
+    granite: K5 on the card, its plain version on the CPU): logits within
+    rtol 1e-3 / atol 1e-4 at every step, the caches too."""
+    model, p_cpu, p_card = _reduced_pair(name, cuda_device)
+    rng = np.random.default_rng(3)
+    caches = [model.new_cache(2, 32, torch.float32, dev)
+              for dev in ("cpu", cuda_device)]
+    for step in range(5):
+        tok = torch.as_tensor(rng.integers(0, model.cfg.vocab_size, (
+            2, 12 if step == 0 else 1)), dtype=torch.int32)
+        want, caches[0], _ = model.apply(p_cpu, {"tokens": tok}, caches[0])
+        got, caches[1], _ = model.apply(p_card, {"tokens": tok.to(
+            cuda_device)}, caches[1])
+        torch.testing.assert_close(got.cpu(), want, rtol=1e-3, atol=1e-4)
+    for key in caches[0]:
+        if key not in ("first", "offset"):
+            torch.testing.assert_close(caches[1][key].cpu(), caches[0][key],
+                                       rtol=1e-3, atol=1e-4)
+
+
+@pytest.mark.cuda
+def test_moe_combine_on_the_card_is_repeatable_and_the_cpus(cuda_device):
+    """The deterministic combine: bf16, two calls equal bit for bit, and
+    equal to the CPU's combine of the same contributions; the whole bf16
+    MoE layer equal to itself across calls."""
+    from repro_torch.configs.base import get_config
+    from repro_torch.models import moe
+    from repro_torch.models.transformer import _layer
+    rng = np.random.default_rng(2)
+    t_, k, d = 512, 6, 2048
+    topi = np.stack([rng.permutation(64)[:k] for _ in range(t_)])
+    order = torch.as_tensor(np.argsort(topi.reshape(-1), kind="stable"))
+    contrib = torch.as_tensor(rng.normal(size=(t_ * k, d)),
+                              dtype=torch.bfloat16)
+    a = moe.combine(contrib.to(cuda_device), order.to(cuda_device), k)
+    b = moe.combine(contrib.to(cuda_device), order.to(cuda_device), k)
+    assert torch.equal(a, b)
+    assert torch.equal(a.cpu(), moe.combine(contrib, order, k))
+    cfg = get_config("deepseek-v2-lite-16b").reduced().replace(
+        dtype="bfloat16")
+    _, _, p_card = _reduced_pair("deepseek-v2-lite-16b", cuda_device)
+    x = torch.randn(4, 32, cfg.d_model, device=cuda_device,
+                    dtype=torch.bfloat16)
+    layer = _layer(p_card["blocks"], 0)["moe"]
+    first = moe.moe_apply(layer, cfg, x)
+    again = moe.moe_apply(layer, cfg, x)
+    assert torch.equal(first[0], again[0]) and torch.equal(first[1], again[1])
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("name", MOE_ARCHS)
+def test_serve_launcher_on_a_reduced_moe_config_launches(cuda_device, name):
+    """``serve --arch <moe> --reduced`` on the card: K1 once per episode;
+    K5 once per layer per decode step in granite (GQA), never in deepseek
+    (MLA runs no kernel, as in the reference); K2, K3, K4, K6 never."""
+    from repro_torch.configs.base import get_config
+    from repro_torch.kernels.decode_attention import decode_attention
+    from repro_torch.kernels.flash_attention import flash_attention
+    from repro_torch.kernels.packing import pack
+    from repro_torch.launch import serve
+    fns = (diversity_insert, delta_codec, queue_advance, flash_attention,
+           decode_attention, pack)
+    for fn in fns:
+        fn.launches = 0
+    summ = serve.main(["--arch", name, "--reduced", "--replicas", "2",
+                       "--episodes", "3"])
+    n_layers = get_config(name).reduced().n_layers
+    want = [3, 0, 0, 0, 0 if name.startswith("deepseek") else 3 * n_layers,
+            0]
+    assert [fn.launches for fn in fns] == want
+    for key in ("reward", "effective_throughput", "latency", "generate_s"):
+        assert np.isfinite(summ[key]).all()

@@ -36,7 +36,8 @@ def test_importing_every_module_pulls_in_no_jax_and_no_repro():
         "'repro_torch.obs.requests', 'repro_torch.obs.profile', "
         "'repro_torch.kernels.span_stamp', 'repro_torch.core.baselines', "
         "'repro_torch.sim.oracle', 'repro_torch.distributed', "
-        "'repro_torch.distributed.sharding', 'repro_torch.launch.mesh'} "
+        "'repro_torch.distributed.sharding', 'repro_torch.launch.mesh', "
+        "'repro_torch.models.moe', 'repro_torch.models.attention'} "
         "<= set(mods), mods\n"
         "assert not bad, bad\n"
         "print(len(mods))\n")

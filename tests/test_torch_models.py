@@ -64,7 +64,10 @@ def test_config_copy_equals_the_jax_config():
     assert dataclasses.asdict(tc) == dataclasses.asdict(jc)
     assert dataclasses.asdict(tc.reduced()) == dataclasses.asdict(jc.reduced())
     assert (tc.q_dim, tc.kv_dim) == (jc.q_dim, jc.kv_dim) == (896, 128)
-    assert tbase.list_archs() == ["qwen2-0.5b"]
+    assert tbase.list_archs() == [
+        "deepseek-v2-lite-16b", "gemma-7b", "granite-moe-3b-a800m",
+        "hubert-xlarge", "pixtral-12b", "qwen1.5-0.5b", "qwen2-0.5b",
+        "qwen2-7b"]
     assert tbase.SHAPES.keys() == __import__(
         "repro.configs.base", fromlist=["SHAPES"]).SHAPES.keys()
 
@@ -87,17 +90,18 @@ def test_full_width_parameter_count():
 
 @pytest.mark.parametrize("name", sorted(tbase.NOT_PORTED))
 def test_other_architectures_raise_not_implemented(name):
-    with pytest.raises(NotImplementedError, match="queue 1, item 16"):
+    assert sorted(tbase.NOT_PORTED) == ["xlstm-125m", "zamba2-1.2b"]
+    with pytest.raises(NotImplementedError, match="queue 1, item 9"):
         tbase.get_config(name)
     with pytest.raises(KeyError):
         tbase.get_config("no-such-arch")
 
 
-@pytest.mark.parametrize("kw", [dict(family="moe", n_experts=4, top_k=2),
-                                dict(use_mla=True), dict(frontend="patches")])
+@pytest.mark.parametrize("kw", [dict(family="ssm"), dict(family="hybrid"),
+                                dict(shard_activations=True)])
 def test_unported_model_features_raise(kw):
     _, tc = reduced(**kw)
-    with pytest.raises(NotImplementedError, match="queue 1, item 16"):
+    with pytest.raises(NotImplementedError, match="queue 1, item 9"):
         get_model(tc)
 
 
@@ -207,13 +211,20 @@ def test_softcap_in_the_kernel_path_raises():
     assert torch.isfinite(logits).all()
 
 
-def test_chunked_attention_is_not_ported():
-    _, tc = reduced(attn_impl="chunked")
-    model = get_model(tc)
-    params = model.init(torch.Generator().manual_seed(0))
-    with pytest.raises(NotImplementedError, match="chunked"):
-        model.apply(params, {"tokens": torch.zeros((1, 4), dtype=torch.int32)},
-                    use_kernels=False)
+@pytest.mark.parametrize("causal", [True, False])
+def test_chunked_attention_model_matches_jax(causal):
+    """``attn_impl="chunked"`` (``sdpa_chunked``, 8-token blocks) in a
+    cache-less forward without kernels, against the JAX model's."""
+    jc, tc = reduced(attn_impl="chunked", attn_chunk=8, causal=causal)
+    jm = j_get_model(jc)
+    jp = jm.init(jax.random.PRNGKey(1))
+    tm = get_model(tc)
+    tp = params_from_numpy(tc, jax.tree.map(np.asarray, jp), "cpu")
+    tok = np.random.default_rng(5).integers(
+        0, tc.vocab_size, (2, 24)).astype(np.int32)
+    want, _, _ = jm.apply(jp, {"tokens": j(tok)})
+    got, _, _ = tm.apply(tp, {"tokens": t(tok)}, use_kernels=False)
+    np.testing.assert_allclose(got.numpy(), np.asarray(want), **MODEL_TOL)
 
 
 # ---------------------------------------------------------------------------

@@ -215,10 +215,28 @@ In order, it:
      against plain and timed. ``[MoE reference]``:
      reduced deepseek-v2-lite and granite (2 layers, float32) card vs
      CPU: tokens under the near-tie rule, the first MoE layer's routing
-     (top-k, keep, slots) equal, two card runs bit for bit;
+     (top-k, keep, slots) equal, two card runs bit for bit. ``[ssm
+     serve]``: ``launch/serve --arch zamba2-1.2b`` and ``--arch
+     xlstm-125m`` at full width and depth (K1 once an episode; zamba2's
+     shared attention block K5 six times a decode step; xlstm no
+     attention kernel), zamba2 through the ``[archs]`` checks (the
+     cache-less prefill at B=4, S=2048 with K4 six times against
+     ``use_kernels=False`` in bf16 and in float32 under ``assert_close``,
+     four float32 decode steps on K5, the engine at B=8, K4 / K5 at its
+     MHA D=64 shapes against plain and timed), and both reduced, card vs
+     CPU (tokens under the near-tie rule). ``[lm train]``:
+     ``launch/train --arch zamba2-1.2b`` at full width and depth for 10
+     steps of batch 8 x seq 128 (finite, falling loss; ms per step,
+     tokens/s, peak bytes), ``--grad-compression`` in a world of one,
+     six steps of xlstm-125m at full width whose step-3 checkpoint
+     resumed with ``--resume`` equals the straight run bit for bit, and
+     reduced zamba2 / xlstm card vs CPU from the same
+     numpy params (losses, grad norms, lrs, params and moments in rtol
+     1e-3 / atol 1e-4, an AdamW near-zero-gradient step allowed to flip);
+     training launches no kernel (the plain path, as in the reference);
  15. prints the kernel table as one JSON line (with the recording K3, the
-     span stamp, K1 on the deepseek serve path and K4 / K5 at this
-     slice's model shapes as rows of their own), then
+     span stamp, K1 on the deepseek serve path and K4 / K5 at each
+     served model's shapes, zamba2's included, as rows of their own), then
      ``{"ok": true, "device": {...}}`` as the last line.
 Any failure raises and exits non-zero.
 """
@@ -3601,12 +3619,15 @@ def run_lm_reference(torch, steps=16):
 DEEPSEEK = "deepseek-v2-lite-16b"
 GRANITE = "granite-moe-3b-a800m"
 HUBERT = "hubert-xlarge"
+ZAMBA = "zamba2-1.2b"
+XLSTM = "xlstm-125m"
 # full-width parameter counts from the JAX package's shapes
-# (tests/test_torch_archs.py::FULL_COUNTS)
+# (tests/test_torch_archs.py and tests/test_torch_ssm.py::FULL_COUNTS)
 FULL_COUNTS = {DEEPSEEK: 15_706_484_224, "pixtral-12b": 12_253_025_280,
                "gemma-7b": 8_537_680_896, "qwen2-7b": 7_615_616_512,
                GRANITE: 3_298_793_472, HUBERT: 945_973_760,
-               "qwen1.5-0.5b": 463_987_712}
+               "qwen1.5-0.5b": 463_987_712, ZAMBA: 1_104_937_856,
+               XLSTM: 113_922_896}
 # [archs]: the configs run at full width and full depth
 ARCHS = (GRANITE, "qwen2-7b", "gemma-7b", "pixtral-12b", "qwen1.5-0.5b")
 # every K4 and K5 shape that [archs] and [encode] launch, held against the
@@ -3620,13 +3641,26 @@ K4_ROWS = {GRANITE: (4, 2048, 2048, 24, 8, 64, "bfloat16", True),
            "gemma-7b": (4, 2048, 2048, 16, 16, 256, "bfloat16", True),
            "pixtral-12b": (4, 2048, 2048, 32, 8, 128, "bfloat16", True),
            "qwen1.5-0.5b": (4, 2048, 2048, 16, 16, 64, "bfloat16", True),
-           HUBERT: (4, 2048, 2048, 16, 16, 80, "bfloat16", False)}
+           HUBERT: (4, 2048, 2048, 16, 16, 80, "bfloat16", False),
+           ZAMBA: (4, 2048, 2048, 32, 32, 64, "bfloat16", True)}
 K5_ROWS = {GRANITE: (8, 24, 8, 64, 256, 144, "bfloat16", "bfloat16"),
            "qwen2-7b": (8, 28, 4, 128, 256, 144, "bfloat16", "bfloat16"),
            "gemma-7b": (8, 16, 16, 256, 256, 144, "bfloat16", "bfloat16"),
            "pixtral-12b": (8, 32, 8, 128, 256, 144, "bfloat16", "bfloat16"),
            "qwen1.5-0.5b": (8, 16, 16, 64, 256, 144, "bfloat16",
-                            "bfloat16")}
+                            "bfloat16"),
+           ZAMBA: (8, 32, 32, 64, 256, 144, "bfloat16", "bfloat16")}
+
+
+def attn_layers(cfg):
+    """The GQA attention calls of one forward (K4 or K5 once each): every
+    layer of a transformer, zamba2's shared block once per group, none in
+    an MLA model or in xlstm."""
+    if cfg.use_mla or cfg.family == "ssm":
+        return 0
+    if cfg.family == "hybrid":
+        return cfg.n_layers // cfg.attn_every
+    return cfg.n_layers
 
 
 def fresh_peak(torch):
@@ -3811,17 +3845,18 @@ def float32_check(torch, cfg, params, batch, label, make_step, bf16,
     with routing_spy() as routes:
         got = make_step(model)(params, batch)
     counts = read_launches()
-    if flash_attention.launches != cfg.n_layers or any(
+    n_attn = attn_layers(cfg)
+    if flash_attention.launches != n_attn or any(
             n for i, n in enumerate(counts) if i != 3):
         raise AssertionError(f"[{label}] float32 launches {counts}, "
-                             f"expected K4 {cfg.n_layers} and nothing else")
+                             f"expected K4 {n_attn} and nothing else")
     with routing_spy() as free_routes:
         want = make_step(model, use_kernels=False)(params, batch)
     arg = want.argmax(-1)
     res = dict(agree=float((got.argmax(-1) == arg).float().mean()),
                k4_vs_f32=float((bf16[0] == arg).float().mean()),
                plain_vs_f32=float((bf16[1] == arg).float().mean()),
-               k4=cfg.n_layers)
+               k4=n_attn)
     note = ""
     if routes:
         flips = [int((a.topi != b.topi).any(-1).sum())
@@ -3867,16 +3902,16 @@ def float32_check(torch, cfg, params, batch, label, make_step, bf16,
                 logits, cache = step(params, cache,
                                      {"tokens": tokens[:, i:i + 1]})
                 out.append(logits)
-        if kernels and (decode_attention.launches != cfg.n_layers * decode
+        if kernels and (decode_attention.launches != n_attn * decode
                         or any(n for j, n in enumerate(read_launches())
                                if j != 4)):
             raise AssertionError(f"[{label}] float32 decode launches "
                                  f"{read_launches()}, expected K5 "
-                                 f"{cfg.n_layers * decode} only")
+                                 f"{n_attn * decode} only")
         routes = seen
         runs.append(torch.stack(out))
     res["decode_diff"] = float((runs[0] - runs[1]).abs().max())
-    res["k5"] = cfg.n_layers * decode
+    res["k5"] = n_attn * decode
     log(f"  {label} float32 decode: {decode} steps after a {prompt}-token "
         f"prefill, K5 {res['k5']} launches, logits max|diff| "
         f"{res['decode_diff']:.3g} (max|logit| "
@@ -3909,7 +3944,7 @@ def arch_generate(torch, cfg, model, params, b=8, prompt=128, new=32):
         dec.append(d_info["latency_s"])
     total = time.time() - t0
     counts = read_launches()
-    want_k5 = 0 if cfg.use_mla else cfg.n_layers * (new - 1)
+    want_k5 = attn_layers(cfg) * (new - 1)
     if counts != (0, 0, 0, 0, want_k5, 0):
         raise AssertionError(f"[archs] {cfg.name} generate: launches "
                              f"{counts}, expected K5 {want_k5} only")
@@ -3922,20 +3957,21 @@ def arch_generate(torch, cfg, model, params, b=8, prompt=128, new=32):
                 tokens_per_s=b * new / total)
 
 
-def arch_phase(torch, gen, smi):
-    """[archs]: each of ARCHS at full width and depth (random weights from
-    a seed on the card): its parameter count; the cache-less prefill step
-    at B=4, S=2048 with K4 against the same step with
+def arch_phase(torch, gen, smi, names=ARCHS, tag="archs"):
+    """[archs]: each of ``names`` at full width and depth (random weights
+    from a seed on the card): its parameter count; the cache-less prefill
+    step at B=4, S=2048 with K4 (once per attention layer: zamba2's shared
+    block once per group) against the same step with
     ``use_kernels=False``, in bf16 and in float32 (``float32_check``, with
     four float32 decode steps on K5); the engine at B=8 (K5 in every
     decode step); peak bytes; then K4 and K5 at the config's bf16 shapes
-    against plain. Returns the K4 / K5 rows of this slice's shapes and the
+    against plain. Returns the K4 / K5 rows of these shapes and the
     phase's launches."""
     from repro_torch.configs.base import get_config
     from repro_torch.models.registry import get_model, param_count
     from repro_torch.serving.engine import make_prefill_step
     rows, launches = {}, {}
-    for name in ARCHS:
+    for name in names:
         cfg = get_config(name)
         fresh_peak(torch)
         t0 = time.time()
@@ -3943,7 +3979,7 @@ def arch_phase(torch, gen, smi):
         params = model.init(torch.Generator(device=DEV).manual_seed(0))
         n = param_count(params)
         if n != FULL_COUNTS[name]:
-            raise AssertionError(f"[archs] {name}: {n} parameters, "
+            raise AssertionError(f"[{tag}] {name}: {n} parameters, "
                                  f"expected {FULL_COUNTS[name]}")
         init_s = time.time() - t0
         batch = {"tokens": torch.randint(0, cfg.vocab_size, (4, 2048),
@@ -3955,8 +3991,8 @@ def arch_phase(torch, gen, smi):
 
         pre = compare_steps(torch, cfg, make_step(model),
                             make_step(model, use_kernels=False), params,
-                            batch, f"archs {name}", cfg.n_layers)
-        f32 = float32_check(torch, cfg, params, batch, f"archs {name}",
+                            batch, f"{tag} {name}", attn_layers(cfg))
+        f32 = float32_check(torch, cfg, params, batch, f"{tag} {name}",
                             make_step, pre.pop("argmax"))
         del batch
         g = arch_generate(torch, cfg, model, params)
@@ -4125,6 +4161,291 @@ def moe_reference_phase(torch, steps=16):
             f"{int((~first[0].keep).sum())} of {first[0].keep.numel()} "
             f"assignments dropped; two card runs bit for bit")
 
+
+
+# ---------------------------------------------------------------------------
+# The SSM and hybrid families; LM training
+# ---------------------------------------------------------------------------
+def drive_serve_arch(torch, name, n_episodes, label):
+    """``repro_torch.launch.serve --arch name`` at full width and depth
+    with every launch count set to 0 just before and read just after: K1
+    once per episode, K5 once per attention call of the one decode step of
+    each ``generate(steps=2)`` (zamba2: 6, xlstm: none), nothing else;
+    then one ``generate(steps=2)`` at bs 8 on the launcher's engine under
+    the profiler. Returns the launch counts."""
+    import numpy as np
+    from repro_torch.configs.base import get_config
+    from repro_torch.launch import serve
+    cfg = get_config(name)
+    fresh_peak(torch)
+    reset_launches()
+    t0 = time.time()
+    summ, engine = serve.main(["--device", DEV, "--arch", name,
+                               "--episodes", str(n_episodes)],
+                              return_engine=True)
+    torch.cuda.synchronize()
+    wall = time.time() - t0
+    counts = dict(zip(("K1", "K2", "K3", "K4", "K5", "K6"),
+                      read_launches()))
+    want = dict(K1=n_episodes, K2=0, K3=0, K4=0,
+                K5=attn_layers(cfg) * n_episodes, K6=0)
+    if counts != want:
+        raise AssertionError(f"[{label}] serve --arch {name}: launches "
+                             f"{counts}, expected {want}")
+    if int(summ["n_params"]) != FULL_COUNTS[name]:
+        raise AssertionError(f"[{label}] {name}: {int(summ['n_params'])} "
+                             f"parameters, expected {FULL_COUNTS[name]}")
+    for key, v in summ.items():
+        if not np.isfinite(v).all():
+            raise AssertionError(f"[{label}] {name}: {key} is not finite")
+    log(f"  serve --arch {name} ({cfg.n_layers} layers, d_model "
+        f"{cfg.d_model}, {n_episodes} episodes): {int(summ['n_params'])} "
+        f"parameters; launches {counts}; peak {peak_bytes(torch)} B; "
+        f"calibrated t0 {float(summ['t0']) * 1e3:.3f} ms, t1 "
+        f"{float(summ['t1']) * 1e6:.1f} us/item; generate(steps=2) "
+        f"{summ['generate_s'].mean() * 1e3:.2f} ms mean at bs "
+        f"{sorted(set(summ['bs'].tolist()))}; episode loop "
+        f"{float(summ['wall_s']) / n_episodes * 1e3:.1f} ms/episode; whole "
+        f"call {wall:.1f} s")
+    tokens = torch.zeros((8, 16), dtype=torch.int32)
+    torch.cuda.synchronize()
+    t0 = time.time()
+    engine.generate(tokens, steps=2)
+    torch.cuda.synchronize()
+    profiled(torch, lambda: engine.generate(tokens, steps=2), 1,
+             f"{name} generate(steps=2) bs=8", "call",
+             alone=time.time() - t0)
+    return counts
+
+
+def ssm_reference(torch, steps=16):
+    """Reduced zamba2 and xlstm (float32, a float32 cache) with the same
+    numpy-made parameters on the card (zamba2: K5 in the shared block of
+    every decode step) and on the CPU: tokens under the near-tie rule,
+    logits within rtol 1e-3 / atol 1e-4."""
+    import numpy as np
+    from repro_torch.configs.base import get_config
+    from repro_torch.models.registry import (get_model, params_from_numpy,
+                                             params_to_numpy)
+    for name in (ZAMBA, XLSTM):
+        cfg = get_config(name).reduced()
+        model = get_model(cfg)
+        tree = params_to_numpy(model.init(torch.Generator().manual_seed(0)))
+        tokens = torch.as_tensor(np.random.default_rng(0).integers(
+            0, cfg.vocab_size, (4, 12)), dtype=torch.int32)
+        reset_launches()
+        card = lm_trace(torch, model, params_from_numpy(cfg, tree, DEV),
+                        tokens, steps, DEV)
+        k5 = read_launches()[4]
+        runs = [card, lm_trace(torch, model, params_from_numpy(
+            cfg, tree, "cpu"), tokens, steps, "cpu")]
+        if k5 != attn_layers(cfg) * (steps - 1):
+            raise AssertionError(f"[ssm serve] reduced {name}: K5 {k5}, "
+                                 f"expected {attn_layers(cfg) * (steps - 1)}")
+        note, err = card_vs_cpu_tokens(torch, runs, "ssm serve", steps)
+        log(f"  reduced {name} float32, B=4, {steps} tokens: card (K5 {k5}) "
+            f"vs CPU tokens {note}; logits max|diff| {err:.3g} (rtol 1e-3 / "
+            f"atol 1e-4)")
+
+
+def ssm_serve_phase(torch, gen, smi, n_episodes=5):
+    """[ssm serve]: ``serve --arch zamba2-1.2b`` and ``--arch xlstm-125m``
+    at full width and depth (K1 each episode, zamba2's K5 six times a
+    decode step); zamba2 through ``arch_phase`` (the cache-less prefill at
+    B=4, S=2048 with K4 six times against ``use_kernels=False``, bf16 and
+    float32 under ``assert_close``, four float32 decode steps on K5, the
+    engine at B=8, K4 / K5 at zamba2's bf16 shapes against plain); both
+    reduced, card against CPU. Returns (K4 / K5 rows, launches)."""
+    launches = {name: drive_serve_arch(torch, name, n_episodes, "ssm serve")
+                for name in (ZAMBA, XLSTM)}
+    rows, arch_launches = arch_phase(torch, gen, smi, (ZAMBA,), "ssm serve")
+    launches[f"{ZAMBA} prefill/generate"] = arch_launches[ZAMBA]
+    ssm_reference(torch)
+    return rows, launches
+
+
+class StepClock(list):
+    """A ``history`` list for ``launch/train.main`` that synchronizes the
+    card and stamps the time at each step's metrics."""
+
+    def __init__(self, torch):
+        super().__init__()
+        self.torch, self.times = torch, [time.perf_counter()]
+
+    def append(self, metrics):
+        self.torch.cuda.synchronize()
+        self.times.append(time.perf_counter())
+        super().append(metrics)
+
+    def step_ms(self):
+        """Median ms of the steps after the first (which pays the
+        first-use set-up)."""
+        gaps = sorted(b - a for a, b in zip(self.times[1:],
+                                            self.times[2:]))
+        return gaps[len(gaps) // 2] * 1e3
+
+    def column(self, key):
+        return [float(m[key]) for m in self]
+
+
+def train_leaves(tree):
+    from repro_torch.training.optimizer import flatten
+    return flatten(tree)[0]
+
+
+def train_run(torch, label, argv, **kw):
+    """One ``launch/train.main`` run on the card with launches counted
+    (training reaches no kernel: the plain path, as in the reference) and
+    its loss finite, no update rejected. Returns (state, StepClock)."""
+    from repro_torch.launch import train
+    clock = StepClock(torch)
+    reset_launches()
+    state = train.main(["--device", DEV, *argv], history=clock, **kw)
+    if any(read_launches()):
+        raise AssertionError(f"[{label}] launches {read_launches()}, "
+                             f"expected none")
+    losses = clock.column("loss")
+    if not all(math.isfinite(x) for x in losses) or any(
+            clock.column("update_rejected") if "update_rejected" in clock[0]
+            else ()):
+        raise AssertionError(f"[{label}] losses {losses}")
+    return state, clock
+
+
+def train_close(torch, got, want, label, lrs, flips=2):
+    """Two train states within rtol 1e-3 / atol 1e-4, leaf by leaf; up to
+    ``flips`` coordinates a leaf may lie outside, each by at most twice
+    the sum of the learning rates (an AdamW step of a near-zero gradient
+    taken the other way; tests/test_torch_training.py)."""
+    bound = 2.02 * sum(lrs)
+    worst = 0
+    for i, (g, w) in enumerate(zip(train_leaves(got), train_leaves(want))):
+        g, w = g.detach().cpu().float(), w.detach().cpu().float()
+        bad = ~torch.isclose(g, w, rtol=1e-3, atol=1e-4)
+        if int(bad.sum()) > flips or bool(
+                ((g - w).abs()[bad] > bound).any()):
+            raise AssertionError(f"[{label}] leaf {i}: {int(bad.sum())} "
+                                 f"coordinates off, max "
+                                 f"{float((g - w).abs().max()):.3g}")
+        worst = max(worst, int(bad.sum()))
+    return worst
+
+
+def profile_train_step(torch, state, batch, seq):
+    """One more zamba2 train step (the CLI's: remat, AdamW) on the run's
+    final state under the profiler, after one unprofiled step."""
+    from repro_torch.configs.base import get_config
+    from repro_torch.data.pipeline import TokenPipeline
+    from repro_torch.models.registry import get_model
+    from repro_torch.training.train_step import make_train_step
+    cfg = get_config(ZAMBA)
+    step = make_train_step(get_model(cfg))
+    data = next(TokenPipeline(cfg, batch, seq, seed=1, device=DEV))
+    torch.cuda.synchronize()
+    t0 = time.time()
+    step(state, data)
+    torch.cuda.synchronize()
+    profiled(torch, lambda: step(state, data), 1,
+             f"{ZAMBA} train step {batch} x {seq}", "step",
+             alone=time.time() - t0)
+
+
+def lm_train_phase(torch, smi, steps=10, batch=8, seq=128):
+    """[lm train]: ``launch/train.main --arch zamba2-1.2b`` at full width
+    and depth for ``steps`` steps (batch 8, seq 128, remat): finite,
+    falling loss, ms per step, tokens/s, peak bytes; ``--grad-compression``
+    in a world of one; xlstm-125m at full width, 6 steps checkpointed
+    every 3, and its step-3 checkpoint resumed with ``--resume`` equal to
+    the straight run bit for bit (zamba2's train state is 13.3 GB a
+    checkpoint: the three writes of a resume check pass the chip
+    machine's 45 GiB disk limit); reduced zamba2 and xlstm card vs CPU
+    from the same numpy params (two microbatches)."""
+    import os
+    import tempfile
+    from repro_torch.configs.base import get_config
+    from repro_torch.models.registry import get_model, params_to_numpy
+    base = ["--batch", str(batch), "--seq", str(seq), "--log-every", "5"]
+    fresh_peak(torch)
+    state, clock = train_run(torch, "lm train", ["--arch", ZAMBA, "--steps",
+                                                 str(steps), *base])
+    peak = peak_bytes(torch)
+    losses = clock.column("loss")
+    if not sum(losses[-3:]) / 3 < losses[0]:
+        raise AssertionError(f"[lm train] {ZAMBA} loss does not fall: "
+                             f"{losses}")
+    ms = clock.step_ms()
+    cfg = get_config(ZAMBA)
+    log(f"  train --arch {ZAMBA} ({cfg.n_layers} layers, d_model "
+        f"{cfg.d_model}, full depth) on {smi}: {steps} steps of batch "
+        f"{batch} x seq {seq}, loss {losses[0]:.4f} -> {losses[-1]:.4f} "
+        f"({', '.join(f'{x:.4f}' for x in losses)}); {ms:.1f} ms/step "
+        f"(median of steps 2-{steps}), {batch * seq / ms * 1e3:.0f} "
+        f"tokens/s; peak {peak} B allocated")
+    profile_train_step(torch, state, batch, seq)
+    del state
+    fresh_peak(torch)
+    comp, clock = train_run(torch, "lm train compression", [
+        "--arch", ZAMBA, "--steps", "3", *base, "--grad-compression"])
+    ef = max(float(x.abs().max()) for x in train_leaves(comp["ef"]))
+    if not ef > 0:
+        raise AssertionError("[lm train] --grad-compression left no "
+                             "residual")
+    log(f"  --grad-compression (a world of one): 3 steps, loss "
+        f"{', '.join(f'{x:.4f}' for x in clock.column('loss'))}, "
+        f"{clock.step_ms():.1f} ms/step, max|residual| {ef:.3g}; peak "
+        f"{peak_bytes(torch)} B")
+    del comp
+    fresh_peak(torch)
+    with tempfile.TemporaryDirectory() as d:
+        argv = ["--arch", XLSTM, "--steps", "6", *base, "--ckpt-every", "3"]
+        straight, clock = train_run(torch, "lm train xlstm", argv + [
+            "--ckpt-dir", f"{d}/a"])
+        xcfg = get_config(XLSTM)
+        log(f"  train --arch {XLSTM} ({xcfg.n_layers} layers, d_model "
+            f"{xcfg.d_model}): 6 steps, loss "
+            f"{', '.join(f'{x:.4f}' for x in clock.column('loss'))}, "
+            f"{clock.step_ms():.1f} ms/step, "
+            f"{batch * seq / clock.step_ms() * 1e3:.0f} tokens/s; peak "
+            f"{peak_bytes(torch)} B")
+        os.mkdir(f"{d}/b")
+        for suffix in (".npz", ".json"):     # moved, not copied
+            os.replace(f"{d}/a/step_00000003{suffix}",
+                       f"{d}/b/step_00000003{suffix}")
+        resumed, _ = train_run(torch, "lm train resume", argv + [
+            "--ckpt-dir", f"{d}/b", "--resume"])
+        for i, (a, b) in enumerate(zip(train_leaves(resumed),
+                                       train_leaves(straight))):
+            if not torch.equal(a, b):
+                raise AssertionError(f"[lm train] resumed leaf {i} differs "
+                                     f"from the straight run")
+        log(f"  --resume from step 3 of 6: the final state equals the "
+            f"straight run's bit for bit ({len(train_leaves(straight))} "
+            f"leaves)")
+    del straight, resumed
+    fresh_peak(torch)
+    from repro_torch.launch import train
+    for name in (ZAMBA, XLSTM):
+        cfg = get_config(name).reduced()
+        tree = params_to_numpy(get_model(cfg).init(
+            torch.Generator().manual_seed(0)))
+        argv = ["--arch", name, "--reduced", "--steps", "3", "--batch", "4",
+                "--seq", "64", "--microbatches", "2"]
+        card, hc = train_run(torch, "lm train reference", argv,
+                             params=tree)
+        hg = []
+        cpu = train.main(argv + ["--device", "cpu"], params=tree,
+                         history=hg)
+        for key in ("loss", "grad_norm", "lr"):
+            torch.testing.assert_close(
+                torch.tensor(hc.column(key)),
+                torch.tensor([float(m[key]) for m in hg]), rtol=1e-3,
+                atol=1e-4, msg=f"[lm train] reduced {name} card vs CPU {key}")
+        flips = train_close(torch, card, cpu, f"lm train {name}",
+                            hc.column("lr"))
+        log(f"  reduced {name}, 3 steps of 2 microbatches: card vs CPU loss,"
+            f" grad norm, lr within rtol 1e-3 / atol 1e-4; params and moments"
+            f" too ({flips} coordinates at most a leaf outside, each within "
+            f"the AdamW bound)")
 
 
 def main():
@@ -4297,6 +4618,15 @@ def main():
         torch, gen, smi.splitlines()[0])
     log("[MoE reference] reduced deepseek-v2-lite and granite, card vs CPU")
     moe_reference_phase(torch)
+    log(f"[ssm serve] serve --arch {ZAMBA} / {XLSTM} at full width; "
+        f"{ZAMBA} prefill (K4 x 6) and generate (K5 x 6 a step); reduced, "
+        f"card vs CPU")
+    ssm_rows, ssm_launches = ssm_serve_phase(torch, gen, smi.splitlines()[0])
+    log("  [ssm serve] launches: " + json.dumps(ssm_launches))
+    arch_rows.update(ssm_rows)
+    log(f"[lm train] train --arch {ZAMBA} at full width, --resume, "
+        f"--grad-compression; {XLSTM}; reduced, card vs CPU")
+    lm_train_phase(torch, smi.splitlines()[0])
 
     rows = [dict(name="diversity_insert", route="cuda",
                  source="src/repro_torch/csrc/diversity_insert.cu",

@@ -12,11 +12,14 @@ from repro_torch.configs import (  # noqa: F401
     qwen1p5_0p5b,
     qwen2_0p5b,
     qwen2_7b,
+    xlstm_125m,
+    zamba2_1p2b,
 )
 
-# the JAX package's ARCH_IDS, in its order, less the two not ported
+# the JAX package's ARCH_IDS, in its order
 ARCH_IDS = [
     "hubert-xlarge",
+    "zamba2-1.2b",
     "qwen1.5-0.5b",
     "gemma-7b",
     "qwen2-7b",
@@ -24,4 +27,5 @@ ARCH_IDS = [
     "granite-moe-3b-a800m",
     "deepseek-v2-lite-16b",
     "pixtral-12b",
+    "xlstm-125m",
 ]

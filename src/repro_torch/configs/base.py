@@ -2,10 +2,11 @@
 
 The port's own copy of ``repro.configs.base``: the same ``ArchConfig``
 fields, defaults and ``reduced()``, the same ``InputShape`` grid, and a
-registry. Only the configurations the port can run are registered (the
-transformer family: dense, MoE, MLA, the encoder and the VLM); the JAX
-package's other architectures (the SSM and hybrid families) are listed by
-family and raise ``NotImplementedError`` (ROADMAP queue 1, item 9).
+registry. Every architecture of the JAX package is registered: the
+transformer family (dense, MoE, MLA, the encoder and the VLM), the SSM
+family (xlstm-125m) and the hybrid (zamba2-1.2b). ``NOT_PORTED`` names an
+architecture of the JAX package that the port cannot run yet (none now):
+``get_config`` raises ``NotImplementedError`` for it.
 """
 from __future__ import annotations
 
@@ -166,8 +167,8 @@ def shape_applicable(cfg: ArchConfig, shape_name: str) -> Tuple[bool, str]:
     return True, ""
 
 
-# The JAX package's other architectures and their families: not ported.
-NOT_PORTED = {"zamba2-1.2b": "hybrid", "xlstm-125m": "ssm"}
+# The JAX package's architectures the port cannot run yet: name -> family.
+NOT_PORTED: dict = {}
 
 _REGISTRY = {}
 

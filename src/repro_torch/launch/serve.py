@@ -12,13 +12,15 @@ On the GPU (the default) the model runs at the full width and depth of
 24 layers, d_model 896; deepseek-v2-lite-16b, 27 layers, 15.7 G float32
 parameters, fits one 80 GB card) with random weights made from ``--seed``
 on the card. Every decode step runs K5 ``decode_attention`` in each GQA
-layer; MLA layers (deepseek) and the MoE experts run plain torch ops, as
-the reference runs them outside any Pallas kernel. ``--reduced`` gives
-the small variant.
+layer (zamba2-1.2b: its shared attention block, six times a step);
+MLA layers (deepseek), the MoE experts and xlstm-125m's recurrent cells
+run plain torch ops, as the reference runs them outside any Pallas
+kernel. ``--reduced`` gives the small variant.
 
 Examples:
   PYTHONPATH=src python -m repro_torch.launch.serve
   PYTHONPATH=src python -m repro_torch.launch.serve --arch deepseek-v2-lite-16b
+  PYTHONPATH=src python -m repro_torch.launch.serve --arch zamba2-1.2b
   PYTHONPATH=src python -m repro_torch.launch.serve --device cpu --reduced \\
       --arch granite-moe-3b-a800m --replicas 2 --episodes 2
 """

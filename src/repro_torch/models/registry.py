@@ -1,12 +1,14 @@
 """Architecture registry of the port: id -> (config, init, apply, cache).
 
-Port of ``repro.models.registry`` for the transformer family (dense, moe,
-encoder, vlm), plus the weight carry between the two packages:
+Port of ``repro.models.registry``: the transformer family (dense, moe,
+encoder, vlm), the hybrid (zamba2, ``models/hybrid.py``) and the SSM
+family (xlstm), plus the weight carry between the two packages:
 ``params_from_numpy`` reads the JAX package's parameter tree as numpy
 arrays (``jax.tree.map(np.asarray, params)``) and ``params_to_numpy``
 writes the port's back. The two trees have the same nesting (dicts, and
-the list ``first_blocks``), keys, shapes and layout (dense weights (d_in,
-d_out), block parameters stacked on a leading L axis): no transposition.
+the lists ``first_blocks`` and xlstm's ``blocks``), keys, shapes and
+layout (dense weights (d_in, d_out), block parameters, zamba2's Mamba
+layers included, stacked on a leading L axis): no transposition.
 
 ``input_specs(cfg, shape)`` gives the (shape, dtype) of every model input
 of one (arch, shape) cell, allocating nothing.
@@ -20,7 +22,7 @@ import torch
 
 from repro_torch import resolve_device
 from repro_torch.configs.base import ArchConfig, InputShape
-from repro_torch.models import transformer
+from repro_torch.models import hybrid, transformer
 
 
 class Model(NamedTuple):
@@ -32,6 +34,18 @@ class Model(NamedTuple):
 
 def get_model(cfg: ArchConfig) -> Model:
     transformer.check_ported(cfg)
+    if cfg.family in ("hybrid", "ssm"):
+        init, apply, spec = (
+            (hybrid.zamba2_init, hybrid.zamba2_apply,
+             hybrid.zamba2_cache_spec) if cfg.family == "hybrid" else
+            (hybrid.xlstm_init, hybrid.xlstm_apply, hybrid.xlstm_cache_spec))
+        return Model(
+            cfg,
+            lambda gen: init(cfg, gen),
+            lambda p, b, cache=None, **kw: apply(cfg, p, b, cache, **kw),
+            lambda batch, max_len, dtype=torch.bfloat16, device="cuda":
+                transformer.new_cache(cfg, batch, max_len, dtype, device,
+                                      spec))
     return Model(
         cfg,
         lambda gen: transformer.transformer_init(cfg, gen),

@@ -8,9 +8,11 @@ a dense MLP or MoE (``models/moe.py``); ``first_dense_layers`` blocks with
 a dense MLP come first, unstacked, as the list ``first_blocks``. The
 ``frames`` frontend (precomputed frame embeddings, HuBERT's mask
 embedding) and the ``patches`` frontend (patch embeddings over the first
-positions) feed the trunk. The SSM and hybrid families and activation
-sharding are not ported (ROADMAP queue 1, item 9) and raise
-``NotImplementedError``.
+positions) feed the trunk. The SSM and hybrid families have their own
+assembly (``models/hybrid.py``); activation sharding hints are not ported
+(ROADMAP queue 1, item 9) and raise ``NotImplementedError``. ``remat``
+recomputes each block in the backward pass (``torch.utils.checkpoint``,
+the reference's ``jax.checkpoint`` of the layer body).
 
 The cache is a dict of the per-layer entries stacked over the stacked
 layers — GQA: {"k", "v": (L, B, S_max, Hkv, D)}, MLA: {"c_kv": (L, B,
@@ -25,6 +27,7 @@ from __future__ import annotations
 from typing import Any, Dict
 
 import torch
+from torch.utils.checkpoint import checkpoint
 
 from repro_torch.configs.base import ArchConfig
 from repro_torch.models import attention as mla
@@ -45,17 +48,12 @@ def torch_dtype(name: str) -> torch.dtype:
 
 
 def check_ported(cfg: ArchConfig) -> None:
-    """Raise ``NotImplementedError`` for what the port's transformer does
-    not run yet."""
-    missing = []
-    if cfg.family in ("ssm", "hybrid"):
-        missing.append(f"the {cfg.family} family")
+    """Raise ``NotImplementedError`` for what the port's models do not run
+    yet."""
     if cfg.shard_activations:
-        missing.append("activation sharding hints")
-    if missing:
         raise NotImplementedError(
-            f"{cfg.name}: {', '.join(missing)} not ported to repro_torch yet "
-            f"(ROADMAP queue 1, item 9)")
+            f"{cfg.name}: activation sharding hints not ported to "
+            f"repro_torch yet (ROADMAP queue 1, item 9)")
 
 
 # ---------------------------------------------------------------------------
@@ -126,6 +124,14 @@ def transformer_init(cfg: ArchConfig, gen: torch.Generator) -> Dict[str, Any]:
     return p
 
 
+def maybe_remat(fn, remat, *args):
+    """``fn(*args)``, recomputed in the backward pass under ``remat`` (the
+    reference's ``jax.checkpoint``) when a gradient is being taken."""
+    if remat and torch.is_grad_enabled():
+        return checkpoint(fn, *args, use_reentrant=False)
+    return fn(*args)
+
+
 def _layer(tree, i):
     return {k: _layer(v, i) if isinstance(v, dict) else v[i]
             for k, v in tree.items()}
@@ -151,7 +157,7 @@ def _embed_inputs(params, cfg: ArchConfig, batch):
 
 
 def transformer_apply(cfg: ArchConfig, params, batch, cache=None,
-                      use_kernels=True):
+                      use_kernels=True, remat=False):
     """Returns (logits, new_cache, aux_dict). ``batch``: {"tokens": (B, S)
     int} (the patches frontend may add "patches": (B, n_patches,
     frontend_dim)), or, for the frames frontend, {"embeds": (B, S,
@@ -176,8 +182,8 @@ def transformer_apply(cfg: ArchConfig, params, batch, cache=None,
     for i in range(cfg.n_layers - cfg.first_dense_layers):
         layer_cache = None if cache is None else dict(
             {k: cache[k][i] for k in stacked}, offset=offset)
-        x, aux = _block_apply(_layer(params["blocks"], i), cfg, x, positions,
-                              layer_cache, use_kernels)
+        x, aux = maybe_remat(_block_apply, remat, _layer(params["blocks"], i),
+                             cfg, x, positions, layer_cache, use_kernels)
         if aux is not None:
             aux_total = aux_total + aux
 
@@ -215,16 +221,19 @@ def transformer_cache_spec(cfg: ArchConfig, batch, max_len,
     return spec
 
 
-def new_cache(cfg: ArchConfig, batch, max_len, dtype=torch.bfloat16,
-              device="cuda"):
-    """A zeroed cache with offset 0."""
-    def zeros(spec):
-        if isinstance(spec, dict):
-            return {k: zeros(v) for k, v in spec.items()}
-        if isinstance(spec, list):
-            return [zeros(v) for v in spec]
-        return torch.zeros(spec[0], dtype=spec[1], device=device)
+def zeros_of_spec(spec, device):
+    """Zero tensors of a nested (shape, dtype) spec (dicts and lists)."""
+    if isinstance(spec, dict):
+        return {k: zeros_of_spec(v, device) for k, v in spec.items()}
+    if isinstance(spec, list):
+        return [zeros_of_spec(v, device) for v in spec]
+    return torch.zeros(spec[0], dtype=spec[1], device=device)
 
-    cache = zeros(transformer_cache_spec(cfg, batch, max_len, dtype))
+
+def new_cache(cfg: ArchConfig, batch, max_len, dtype=torch.bfloat16,
+              device="cuda", cache_spec=transformer_cache_spec):
+    """A zeroed cache of ``cache_spec`` (this module's, or
+    ``models/hybrid.py``'s) with offset 0."""
+    cache = zeros_of_spec(cache_spec(cfg, batch, max_len, dtype), device)
     cache["offset"] = 0
     return cache

@@ -22,6 +22,13 @@ whole file on every rank and keeps the rank's slice. So a meshed run
 resumes meshless and the reverse, as the JAX checkpoints of sharded arrays
 allow.
 
+Any other state (an LM train state: ``{"params", "opt": {"m", "v",
+"step"}, "ef"}``, a tree of dicts and lists of tensors) is saved through
+``tree_flat``, keyed as the JAX package keys a pytree
+(``params/embed/table``, ``params/blocks/0/cell/wq/w``, ``opt/step``), and
+restored by ``restore_tree`` into the layout of a like tree: either
+package restores the other's train checkpoints.
+
 The hardening is the reference's: saves go to a temporary file renamed
 into place (a crash mid-save never leaves a torn checkpoint), torn and
 garbage manifests are skipped by ``latest_step``, a corrupt arrays file is
@@ -339,3 +346,61 @@ def restore(ckpt_dir: str, step: int, like: Fleet, cfg, seed: int = 0):
     if place is not None:
         fleet = fleet_shard(fleet, place)
     return fleet, manifest
+
+
+# ---------------------------------------------------------------------------
+# Trees of tensors (the LM train state)
+# ---------------------------------------------------------------------------
+def _keyed(tree, prefix: str = ""):
+    """(JAX key, tensor) of every tensor of a tree of dicts and lists:
+    ``a/b/0/c`` for ``tree["a"]["b"][0]["c"]``."""
+    if torch.is_tensor(tree):
+        yield prefix, tree
+        return
+    items = tree.items() if isinstance(tree, dict) else enumerate(tree)
+    for k, v in items:
+        yield from _keyed(v, f"{prefix}/{k}" if prefix else str(k))
+
+
+def tree_flat(tree) -> Dict[str, np.ndarray]:
+    """A tree of tensors as ``{JAX key: numpy array}`` (bf16 as raw
+    ``|V2``), what ``save`` writes."""
+    return {k: dtp.to_numpy(v) for k, v in _keyed(tree)}
+
+
+def _np_dtype(t: torch.Tensor) -> np.dtype:
+    if t.dtype == torch.bfloat16:
+        return BF16
+    return torch.empty((), dtype=t.dtype).numpy().dtype
+
+
+def restore_tree(ckpt_dir: str, step: int, like):
+    """Step ``step`` restored into the layout, dtypes and device of
+    ``like`` (a tree of tensors, e.g. a fresh train state): every leaf of
+    ``like`` must be in the checkpoint with its shape; keys it does not
+    ask for are ignored. Returns (tree, manifest)."""
+    manifest, data = load(ckpt_dir, step)
+    dtypes = manifest.get("dtypes", {})
+    missing = [k for k, _ in _keyed(like) if k not in data]
+    if missing:
+        raise ValueError(
+            f"checkpoint/model structure mismatch: {len(missing)} leaves of "
+            f"the restore target are absent from the checkpoint (e.g. "
+            f"{missing[:3]})")
+    leaves = {}
+    for key, t in _keyed(like):
+        arr = data[key]
+        if arr.shape != tuple(t.shape):
+            raise ValueError(f"checkpoint/model shape mismatch at {key}: "
+                             f"{arr.shape} vs {tuple(t.shape)}")
+        arr = _convert(arr, dtypes.get(key), _np_dtype(t), key)
+        leaves[key] = dtp.from_numpy(arr, t.device).to(t.dtype)
+
+    def build(node, prefix):
+        if torch.is_tensor(node):
+            return leaves[prefix]
+        key = lambda k: f"{prefix}/{k}" if prefix else str(k)
+        if isinstance(node, dict):
+            return {k: build(v, key(k)) for k, v in node.items()}
+        return type(node)(build(v, key(i)) for i, v in enumerate(node))
+    return build(like, ""), manifest

@@ -22,7 +22,13 @@ the graph driver warms each process group, the pod group (two ranks)
 included, before any capture. One rank under ``--mesh fleet`` equals ``--mesh none`` bit for bit. A
 library run from a JAX fleet with JAX's noise links the chain: meshed ==
 the port's meshless run == JAX's ``train_fleet_scan``. Every spawn has a
-time limit; on it the ranks are killed and the test fails.
+progress limit: the ranks mark each scenario they finish, and when none
+has finished one for ``STALL_S`` (or the spawn passes ``SPAWN_CAP_S``) they
+are killed and the test fails, naming the scenario each rank had reached.
+A rank stuck in a collective raises after ``COLLECTIVE_TIMEOUT_S``. A
+fixed wall limit would fail a world that is only slow because the host is
+busy beside it (on an 8-core host the spawn took 78–159 s beside six busy
+processes).
 """
 import json
 import os
@@ -56,7 +62,13 @@ from test_torch_support import (close, close_state, close_tree, exact,
 
 ROOT = Path(__file__).resolve().parents[1]
 WORKER = ROOT / "tests" / "torch_mesh_rank.py"
-SPAWN_TIMEOUT_S = 120
+# no rank finished a scenario for STALL_S: the world is stuck; a spawn
+# that goes on making progress is still cut at SPAWN_CAP_S; a rank waits
+# at most COLLECTIVE_TIMEOUT_S in one collective before it raises
+STALL_S = 180
+SPAWN_CAP_S = 480
+COLLECTIVE_TIMEOUT_S = 120
+POLL_S = 0.5
 
 
 # ---------------------------------------------------------------------------
@@ -374,25 +386,59 @@ def _close_leaf(got, want, key, manifest, tol):
         exact(got, want, key)
 
 
+def _markers(log):
+    """The ``MESH-PROGRESS`` markers of a rank's log, as (what, name)."""
+    if not log.exists():
+        return []
+    return [tuple(line.split()[1:3]) for line in
+            log.read_text(errors="replace").splitlines()
+            if line.startswith("MESH-PROGRESS ")]
+
+
+def _reached(markers):
+    """Where a rank is, from its markers."""
+    if not markers:
+        return "not started"
+    what, name = markers[-1]
+    return f"in {name}" if what == "start" else f"done {name}"
+
+
 def spawn(world, spec, tmp):
     """``world`` ranks of ``torch_mesh_rank.py`` on ``spec``; fails (the
-    ranks killed) at ``SPAWN_TIMEOUT_S`` or on a rank's error."""
+    ranks killed) on a rank's error, when no rank has finished a scenario
+    for ``STALL_S``, or at ``SPAWN_CAP_S``. Returns the spawn's seconds."""
+    spec = dict(spec, collective_timeout_s=COLLECTIVE_TIMEOUT_S)
     spec_path = tmp / f"spec{world}.json"
     spec_path.write_text(json.dumps(spec))
     env = dict(os.environ, PYTHONPATH=os.pathsep.join(
         [str(ROOT / "src"), str(ROOT / "tests")]), OMP_NUM_THREADS="1")
-    logs = [open(tmp / f"rank{world}_{r}.log", "w") for r in range(world)]
+    paths = [tmp / f"rank{world}_{r}.log" for r in range(world)]
+    logs = [open(path, "w") for path in paths]
     procs = [subprocess.Popen(
         [sys.executable, str(WORKER), str(r), str(world),
          str(tmp / f"rendezvous{world}"), str(spec_path)],
         env=env, stdout=logs[r], stderr=subprocess.STDOUT)
         for r in range(world)]
-    deadline = time.monotonic() + SPAWN_TIMEOUT_S
+    start = last = time.monotonic()
+    done, why = 0, None
     try:
-        for p in procs:
-            p.wait(timeout=max(deadline - time.monotonic(), 0.1))
-    except subprocess.TimeoutExpired:
-        pass
+        while True:
+            codes = [p.poll() for p in procs]
+            if all(c is not None for c in codes) or any(
+                    c not in (None, 0) for c in codes):
+                break                       # all ended, or one failed
+            now = time.monotonic()
+            n = sum(what == "done" for path in paths
+                    for what, _ in _markers(path))
+            if n > done:
+                done, last = n, now
+            if now - last > STALL_S:
+                why = f"no rank finished a scenario for {STALL_S} s"
+                break
+            if now - start > SPAWN_CAP_S:
+                why = f"the spawn passed its cap of {SPAWN_CAP_S} s"
+                break
+            time.sleep(POLL_S)
     finally:
         for p in procs:
             if p.poll() is None:
@@ -400,14 +446,36 @@ def spawn(world, spec, tmp):
                 p.wait()
         for f in logs:
             f.close()
+    seconds = time.monotonic() - start
     codes = [p.returncode for p in procs]
-    if any(c != 0 for c in codes):
+    print(f"spawn of {world} rank(s): {seconds:.1f} s")
+    if why or any(c != 0 for c in codes):
+        where = ", ".join(f"rank {r}: {_reached(_markers(path))}"
+                          for r, path in enumerate(paths))
         tails = "\n".join(
             f"--- rank {r} (exit {c}) ---\n"
-            + (tmp / f"rank{world}_{r}.log").read_text()[-3000:]
+            + paths[r].read_text(errors="replace")[-3000:]
             for r, c in enumerate(codes) if c != 0)
-        pytest.fail(f"meshed ranks failed or timed out after "
-                    f"{SPAWN_TIMEOUT_S} s: exits {codes}\n{tails}")
+        pytest.fail(f"meshed ranks failed after {seconds:.1f} s"
+                    f"{': ' + why if why else ''}: exits {codes}\n"
+                    f"{where}\n{tails}")
+    return seconds
+
+
+def test_progress_markers_say_where_each_rank_is(tmp_path):
+    """What ``spawn`` reads from a rank's log to measure progress and to
+    name, on a failure, the scenario each rank had reached."""
+    log = tmp_path / "rank.log"
+    assert _markers(log) == [] and _reached([]) == "not started"
+    log.write_text("MESH-PROGRESS start mesh_factory\nsome output\n"
+                   "MESH-PROGRESS done mesh_factory\n"
+                   "MESH-PROGRESS start main\nstep 1 ...\n")
+    marks = _markers(log)
+    assert marks == [("start", "mesh_factory"), ("done", "mesh_factory"),
+                     ("start", "main")]
+    assert _reached(marks) == "in main"
+    assert _reached(marks[:2]) == "done mesh_factory"
+    assert STALL_S > COLLECTIVE_TIMEOUT_S and SPAWN_CAP_S > STALL_S
 
 
 @pytest.fixture(scope="module")

@@ -15,6 +15,13 @@ a (pod, data) mesh. After each, every rank saves the whole fleet
 kernel and collective counts of rank 0's run. ``mesh_factory`` records
 what the mesh builders give at this world size.
 
+Each rank prints a flushed ``MESH-PROGRESS start NAME`` / ``MESH-PROGRESS
+done NAME`` line around every scenario (``mesh_factory`` included), so
+that the spawning test can tell a slow world from a stuck one and say
+where each rank was. The collectives time out after ``SPEC``'s
+``collective_timeout_s`` (120 s by default): a rank stuck in one raises
+instead of hanging.
+
 The ranks run one intra-op thread each; ``SPEC`` may set ``device``
 (``cpu``, the default, or ``cuda``: gloo collectives on CUDA tensors) and
 ``backend`` (``gloo``, the default, or ``nccl``: rank r on card r, as
@@ -22,6 +29,7 @@ torchrun's ``LOCAL_RANK`` places it). A library run of the graph driver
 adds to ``info.json`` the sizes of the process groups it warmed and its
 host graph launches.
 """
+import datetime
 import json
 import os
 import sys
@@ -113,6 +121,11 @@ def run_lib(lib, device):
                          "graph_launches": scan.graph_launches}
 
 
+def progress(what, name):
+    """One marker line for the spawning test, flushed at once."""
+    print(f"MESH-PROGRESS {what} {name}", flush=True)
+
+
 def main(rank, world, rendezvous, spec_path):
     torch.set_num_threads(1)
     with open(spec_path) as f:
@@ -123,16 +136,21 @@ def main(rank, world, rendezvous, spec_path):
         # one card a rank, as torchrun's LOCAL_RANK gives it
         os.environ["LOCAL_RANK"] = str(rank)
         torch.cuda.set_device(rank)
+    timeout = datetime.timedelta(
+        seconds=spec.get("collective_timeout_s", 120))
     dist.init_process_group(backend, init_method=f"file://{rendezvous}",
-                            rank=rank, world_size=world)
+                            rank=rank, world_size=world, timeout=timeout)
     try:
         if spec.get("mesh_factory"):
+            progress("start", "mesh_factory")
             info = mesh_factory()
             if rank == 0:
                 with open(os.path.join(spec["out"], "mesh_factory.json"),
                           "w") as f:
                     json.dump(info, f)
+            progress("done", "mesh_factory")
         for sc in spec["scenarios"]:
+            progress("start", sc["name"])
             counted = (diversity_insert, delta_codec, COLLECTIVES)
             for fn in counted:
                 fn.launches = 0
@@ -158,6 +176,7 @@ def main(rank, world, rendezvous, spec_path):
                                "k1": counts[0], "k2": counts[1],
                                "collectives": counts[2], **driver}, f)
             dist.barrier()
+            progress("done", sc["name"])
     finally:
         dist.destroy_process_group()
 
